@@ -1,0 +1,192 @@
+"""Where a batched search spends its time, stage by stage, on the CUDA card.
+
+    python -m minivectordb_tpu_torch.profile_search [--rows N] [--dim D]
+        [--batch B] [--k K] [--dtypes float32,mixed,bfloat16,int8]
+
+Builds a seeded corpus straight into a ``VectorStore`` (no metadata), then
+times the stages of ``StoreSnapshot._device_search``'s fused route one by one
+with CUDA events (median of ``--reps`` runs after a warm-up): query upload,
+phase 1 (the kernel), phase 2, phase 3, the result copy to the host; and the
+whole ``snapshot().search`` call on the host clock. Prints one JSON object per
+device_dtype, with the card's name and power limit. Needs a CUDA device.
+
+With ``--api`` it also loads the corpus into a ``VectorDatabase`` with one
+small metadata dict per row and times ``find_most_similar_batch`` on the host
+clock twice: as it is, and after ``gc.freeze()`` has moved the loaded objects
+out of the garbage collector's reach — the difference is what the cyclic
+collector costs a search when millions of metadata dicts are alive.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from minivectordb_tpu_torch.core.store import VectorStore
+from minivectordb_tpu_torch.ops import fused_scan
+from minivectordb_tpu_torch.ops import scan as scan_ops
+
+
+def _event_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def profile(dtype: str, corpus: np.ndarray, queries: np.ndarray, k: int,
+            reps: int) -> dict:
+    store = VectorStore(corpus.shape[1], dtype)
+    store.append(corpus)
+    t0 = time.perf_counter()
+    snap = store.snapshot()
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    dev = snap.device
+    c = snap.dev_capacity
+    kb = scan_ops.k_bucket(k, c)
+    int8 = dtype == "int8"
+    margin = 16 if snap.scan_buf is None else 8
+    n_sub = min(kb + margin, c // fused_scan.SUBTILE)
+
+    q = scan_ops.to_device(queries, dev)
+    if int8:
+        qi, qinv = scan_ops.quantize_queries_int8(q)
+
+        def phase1():
+            return fused_scan.subtile_maxima_int8(
+                snap.buf, snap.inv_norms, qi, qinv, snap.count)
+
+        def whole_scan():
+            return fused_scan.fused_scan_topk_int8(
+                snap.buf, snap.inv_norms, q, snap.count, kb)
+    else:
+        p1 = snap.buf if snap.scan_buf is None else snap.scan_buf
+        qn = scan_ops._normalize(q).to(p1.dtype).contiguous()
+
+        def phase1():
+            return fused_scan.subtile_maxima(p1, snap.inv_norms, qn, snap.count)
+
+        def whole_scan():
+            return fused_scan.fused_scan_topk(
+                snap.buf, snap.inv_norms, q, snap.count, kb,
+                scan_buf=snap.scan_buf)
+
+    maxima = phase1()
+    vals, idx = whole_scan()
+    out = {
+        "device_dtype": dtype,
+        "rows": int(corpus.shape[0]), "dim": int(corpus.shape[1]),
+        "batch": int(queries.shape[0]), "k": k, "n_sub": n_sub,
+        "corpus_upload_s": upload_s,
+        "query_upload_ms": _event_ms(lambda: scan_ops.to_device(queries, dev), reps),
+        "phase1_kernel_ms": _event_ms(phase1, reps),
+        "phase2_ms": _event_ms(
+            lambda: fused_scan._phase2_topk_subtiles(maxima, n_sub), reps),
+        "fused_scan_total_ms": _event_ms(whole_scan, reps),
+        "result_fetch_ms": _event_ms(
+            lambda: scan_ops.fetch_results(vals[:, :k], idx[:, :k]), reps),
+    }
+    out["phase3_and_rest_ms"] = (
+        out["fused_scan_total_ms"] - out["phase1_kernel_ms"] - out["phase2_ms"])
+    wall = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap.search(queries, k)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    out["snapshot_search_wall_ms"] = statistics.median(wall)
+    return out
+
+
+def profile_api(dtype: str, corpus: np.ndarray, queries: np.ndarray, k: int,
+                reps: int) -> dict:
+    import os
+    import tempfile
+
+    from minivectordb_tpu_torch import VectorDatabase
+
+    n = corpus.shape[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        db = VectorDatabase(storage_file=os.path.join(tmp, "db.pkl"),
+                            device_dtype=dtype)
+        t0 = time.perf_counter()
+        db.store_embeddings_batch(
+            list(range(n)), corpus, [{"bucket": i % 16} for i in range(n)])
+        load_s = time.perf_counter() - t0
+        db.find_most_similar_batch(queries, k=k)  # upload + warm-up
+
+        def wall_ms():
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                db.find_most_similar_batch(queries, k=k)
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times), max(times)
+
+        med, worst = wall_ms()
+        gc.collect()
+        gc.freeze()
+        med_frozen, worst_frozen = wall_ms()
+        gc.unfreeze()
+        ops = db.stats()["ops"]
+    return {
+        "public_api": "find_most_similar_batch", "device_dtype": dtype,
+        "rows": int(n), "batch": int(queries.shape[0]), "k": k,
+        "load_s": load_s,
+        "wall_ms_median": med, "wall_ms_max": worst,
+        "wall_ms_median_gc_frozen": med_frozen, "wall_ms_max_gc_frozen": worst_frozen,
+        "engine_device_scan_mean_ms": ops["device_scan"]["mean_ms"],
+    }
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rows", type=int, default=1_000_000)
+    ap.add_argument("--dim", type=int, default=384)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtypes", default="float32,mixed,bfloat16,int8")
+    ap.add_argument("--api", action="store_true",
+                    help="also time the public class, with and without gc.freeze()")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_search needs a CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    rng = np.random.default_rng(args.seed)
+    corpus = rng.standard_normal((args.rows, args.dim), dtype=np.float32)
+    queries = rng.standard_normal((args.batch, args.dim), dtype=np.float32)
+    for dtype in args.dtypes.split(","):
+        res = profile(dtype, corpus, queries, args.k, args.reps)
+        res["card"] = smi
+        print(json.dumps(res), flush=True)
+        torch.cuda.empty_cache()
+    for dtype in args.dtypes.split(",") if args.api else ():
+        res = profile_api(dtype, corpus, queries, args.k, args.reps)
+        res["card"] = smi
+        print(json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()

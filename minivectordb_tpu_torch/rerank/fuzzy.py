@@ -1,0 +1,87 @@
+"""Fuzzy partial-ratio string similarity (thefuzz / python-Levenshtein
+equivalent, reference vector_database.py:5, 410-411).
+
+``partial_ratio(a, b)`` slides the shorter string along the longer and takes
+the best local similarity, scaled to 0..100 — the classic fuzzywuzzy
+algorithm. The similarity kernel is Indel similarity (Levenshtein with
+insertions/deletions only), computed by the pure-Python bit-parallel code
+below (the JAX package's optional C++ fast path, native/fastops, is not
+ported yet; it returns the same values).
+"""
+
+from __future__ import annotations
+
+
+def _indel_ratio(s1: str, s2: str) -> float:
+    """Normalized Indel similarity in [0, 1] (rapidfuzz-style ratio)."""
+    if not s1 and not s2:
+        return 1.0
+    lensum = len(s1) + len(s2)
+    if lensum == 0:
+        return 1.0
+    dist = _indel_distance(s1, s2)
+    return (lensum - dist) / lensum
+
+
+def _indel_distance(s1: str, s2: str) -> int:
+    """Indel (LCS-based) edit distance: len1 + len2 - 2*LCS."""
+    if len(s1) < len(s2):
+        s1, s2 = s2, s1
+    if not s2:
+        return len(s1)
+    # Hunt–Szymanski-style bit-parallel LCS (Hyyrö's algorithm).
+    if len(s2) <= 64:
+        peq = {}
+        for i, ch in enumerate(s2):
+            peq[ch] = peq.get(ch, 0) | (1 << i)
+        full = (1 << len(s2)) - 1
+        v = full
+        for ch in s1:
+            m = peq.get(ch, 0)
+            u = v & m
+            # fixed-width (mod 2^len) arithmetic: discard the carry-out
+            v = ((v + u) | (v - u)) & full
+        lcs = len(s2) - bin(v).count("1")
+        return len(s1) + len(s2) - 2 * lcs
+    # DP fallback for long needles
+    prev = list(range(len(s2) + 1))
+    for c1 in s1:
+        cur = [prev[0] + 1]
+        for j, c2 in enumerate(s2):
+            if c1 == c2:
+                cur.append(prev[j])
+            else:
+                cur.append(min(prev[j + 1], cur[-1]) + 1)
+        prev = cur
+    return prev[-1]
+
+
+def ratio(s1: str, s2: str) -> int:
+    """Full-string similarity 0..100 (thefuzz.fuzz.ratio equivalent).
+    Rounds half-up to match the C++ fast path exactly."""
+    return int(100 * _indel_ratio(s1, s2) + 0.5)
+
+
+def partial_ratio(s1: str, s2: str) -> int:
+    """Best-window similarity 0..100 (thefuzz.fuzz.partial_ratio equivalent)."""
+    if s1 == s2:
+        return 100
+    if not s1 or not s2:
+        return 0
+    shorter, longer = (s1, s2) if len(s1) <= len(s2) else (s2, s1)
+    m = len(shorter)
+    # Exhaustive window slide (same as the C++ fast path, so results are
+    # identical with or without the native library; strictly better than
+    # fuzzywuzzy's matching-blocks heuristic at rerank-scale inputs).
+    best = 0.0
+    for start in range(0, len(longer) - m + 1):
+        r = _indel_ratio(shorter, longer[start : start + m])
+        if r > 0.995:
+            return 100
+        best = max(best, r)
+    return int(100 * best + 0.5)
+
+
+def fuzzy_ratios(query: str, documents: list[str]) -> list[int]:
+    """Reference ``_calculate_fuzzy_ratios`` (vector_database.py:410-411)."""
+    return [partial_ratio(query, doc) for doc in documents]

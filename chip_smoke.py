@@ -16,14 +16,31 @@ Phases (one JSON object per output line):
              (chunked float32 matmul + topk over the raw corpus)
   dtypes     the same search at 262,144 x 384 for "mixed", "bfloat16" and
              "int8", and persist_to_disk + reload
-  kernels    every phase-1 kernel instantiation (float32, bfloat16, int8;
-             with and without a mask) at C = 1,048,576, d = 384, B = 256,
-             count = 1,000,000, held against its plain PyTorch version and
-             timed beside it, beside one library product, and beside the
-             card's bound; "launches" are the counts of the two phases
-             above, which are driven with every count at 0 and read just
-             after (the comparison launches of this phase run later and do
-             not count)
+  ivf_path   VectorDatabase(index="ivf") with its default options over
+             1,000,000 x 384 vectors of a seeded two-level mixture (1,024
+             centres in 32 families, plus noise): build, a 256-query batch (K4-bf16), a single query and a
+             batch of 8 (K3-bf16), a broad filter, async handles, deletes and
+             appended rows (overflow scan + merge), calibrate_nprobe, save ->
+             load -> search; then the same, shorter, at 262,144 x 384 with
+             float32 lists (K4-f32, K3-f32) and int8 lists (K5). With
+             nprobe = nlist the hits must equal the oracle; at the default
+             nprobe the kernel route must equal the plain probe
+             (ops/ivf.py:_ivf_search) on the same snapshot; recall@10 is
+             printed, not asserted
+  kernels    every kernel instantiation held against its plain PyTorch
+             version over its whole output and timed beside it, beside one
+             library call, and beside the card's bound: the phase-1 kernels
+             (float32, bfloat16, int8; with and without a mask) at
+             C = 1,048,576, d = 384, B = 256, count = 1,000,000, and the IVF
+             probe kernels (K3 f32/bf16, K4 f32/bf16, K5) at the shapes the
+             1,000,000-row IVF path produced (its lists, its step table for
+             256 queries, its probe ids for 8), after a small ragged case
+             for each (P = 130, d = 6 / 12 / 100, G = 8, padding steps).
+             "launches" are the counts of the path phases above: the flat
+             phases, and each database of the ivf phase, are driven through
+             the public class with every count at 0 and read just after;
+             every launch made to compare a kernel or a route with its plain
+             version runs after that read and does not count
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances. Kernel against plain version, scores of magnitude <= 1: float32
@@ -36,7 +53,10 @@ bound_ms is the larger of (bytes that must move) / 3.35 TB/s and
 (operations) / peak, with the H100 SXM data-sheet peaks: 67 TFLOP/s float32
 on the CUDA cores, 989 TFLOP/s bf16, 1979 TOP/s int8. Only the `count` live
 rows need reading or multiplying, so both terms count those rows, not the
-padded capacity; every output value is written.
+padded capacity; every output value is written. For the grouped probe the
+work depends on the data: bytes are the DISTINCT touched list blocks read
+once plus the live steps' operands and outputs, operations those of the live
+steps; padding steps count nothing.
 """
 
 import json
@@ -55,7 +75,9 @@ if not torch.cuda.is_available():
 
 from minivectordb_tpu_torch import VectorDatabase  # noqa: E402
 from minivectordb_tpu_torch.kernels import build  # noqa: E402
-from minivectordb_tpu_torch.ops import fused_scan, scan as scan_ops  # noqa: E402
+from minivectordb_tpu_torch.ops import fused_scan, ivf as ivf_ops  # noqa: E402
+from minivectordb_tpu_torch.ops import ivf_probe, scan as scan_ops  # noqa: E402
+from minivectordb_tpu_torch.profile_search import clustered_corpus  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 SEED = 0
@@ -64,6 +86,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "i8": 1979e12}
 TOL = {"f32": 2e-5, "bf16": 2e-5, "i8": 0.0}
 MASKED = float(np.float32(-3.0e38))
+SOURCES = ("phase1", "ivf_probe")
 
 
 def emit(obj) -> None:
@@ -101,26 +124,32 @@ def phase_env() -> str:
         [build.find_nvcc(), "--version"], capture_output=True, text=True,
         check=True,
     ).stdout.strip().splitlines()[-2:]
-    build.load_library("phase1")  # builds csrc/phase1.cu from the checkout
-    info = build.build_info["phase1"]
+    # builds csrc/phase1.cu and csrc/ivf_probe.cu from the checkout
+    t0 = time.perf_counter()
+    for name in SOURCES:
+        build.load_library(name)
+    build_wall_s = time.perf_counter() - t0
     # ptxas prints "Compiling entry function '<name>'" and, two lines on,
     # "Used N registers, ... bytes smem": keep those per kernel
-    log = info["log"].splitlines()
     resources = {}
-    for i, line in enumerate(log):
-        if "Compiling entry function" in line:
-            used = next((u for u in log[i + 1:i + 4] if "Used" in u), "")
-            spills = next((u for u in log[i + 1:i + 4] if "spill" in u), "")
-            resources[line.split("'")[1]] = (
-                used.split(":", 1)[-1].strip() + "; " + spills.strip())
+    for name in SOURCES:
+        log = build.build_info[name]["log"].splitlines()
+        for i, line in enumerate(log):
+            if "Compiling entry function" in line:
+                used = next((u for u in log[i + 1:i + 4] if "Used" in u), "")
+                spills = next((u for u in log[i + 1:i + 4] if "spill" in u), "")
+                resources[line.split("'")[1]] = (
+                    used.split(":", 1)[-1].strip() + "; " + spills.strip())
     emit({
         "phase": "env",
         "nvidia_smi": smi,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "nvcc": " | ".join(nvcc),
-        "kernel_build_s": info["seconds"],
-        "kernel_library": os.path.relpath(info["path"]),
+        "kernel_build_s": build_wall_s,
+        "kernel_build_s_each": {n: build.build_info[n]["seconds"] for n in SOURCES},
+        "kernel_libraries": [os.path.relpath(build.build_info[n]["path"])
+                             for n in SOURCES],
         "kernel_resources": resources,
     })
     print(smi, flush=True)
@@ -380,7 +409,7 @@ def compare(kind, ops, count, mask, what):
     return err, int(dead.sum()), float(got[live].mean())
 
 
-def phase_kernels(launches: dict) -> dict:
+def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict) -> dict:
     # small ragged case first: d not a multiple of the chunk, B below a block
     mask_s, cases_s = kernel_cases(4096, 24, 8, SEED + 2)
     ragged = {}
@@ -435,7 +464,457 @@ def phase_kernels(launches: dict) -> dict:
                 "mean_live_maximum": live_mean,
                 "ragged_max_abs_err": ragged[kind + suffix],
             })
+    del cases, mask
+    torch.cuda.empty_cache()
+    kernels += ivf_kernel_rows(ivf_shapes, ivf_launches)
     return {"kernels": kernels}
+
+
+# ---------------------------------------------------------------------------
+# ivf_path: index="ivf" through the public class
+# ---------------------------------------------------------------------------
+
+
+def mixture(n: int, b: int, seed: int):
+    """n corpus rows and b queries from the profiler's seeded two-level
+    mixture: 1,024 centres in 32 families, plus noise."""
+    return clustered_corpus(n, b, D, 1024, seed)
+
+
+def check_hits_tied(results, want_v, want_i, what: str, atol: float = 2e-5) -> None:
+    """check_hits, but two ids may swap where their oracle scores are tied
+    (closer than 2 * atol)."""
+    assert len(results) == want_i.shape[0], what
+    for b, (ids, scores, _md) in enumerate(results):
+        got = np.asarray(scores, np.float32)
+        assert len(ids) == want_i.shape[1], (what, b, len(ids))
+        err = np.abs(got - want_v[b]).max()
+        assert np.isfinite(err) and err <= atol, (what, b, float(err))
+        for j, (a, w) in enumerate(zip(ids, want_i[b].tolist())):
+            if a != w:
+                near = [abs(want_v[b][j] - want_v[b][i]) for i in (j - 1, j + 1)
+                        if 0 <= i < want_v.shape[1]]
+                assert min(near) <= 2 * atol, (what, b, j, ids, want_i[b])
+
+
+def same_candidates(got_v, got_i, want_v, want_i, what, atol) -> float:
+    """Kernel route against the plain probe on one snapshot: scores within
+    atol, ids equal where scores are not tied. Returns the max score error."""
+    assert got_v.shape == want_v.shape and got_i.shape == want_i.shape, what
+    live = want_v > MASKED / 2
+    assert torch.equal(got_v > MASKED / 2, live), (what, "sentinel slots differ")
+    err = float((got_v[live] - want_v[live]).abs().max())
+    assert err <= atol, (what, err)
+    differ = (got_i != want_i) & live
+    if differ.any():
+        wv = want_v.cpu().numpy()
+        gap = np.minimum(np.abs(np.diff(wv, axis=1, prepend=np.inf)),
+                         np.abs(np.diff(wv, axis=1, append=-np.inf)))
+        assert (gap[differ.cpu().numpy()] <= max(2 * atol, 1e-7)).all(), what
+    return err
+
+
+def route_against_plain_probe(db, queries, lists_dtype: str) -> dict:
+    """At the database's own nprobe: ivf_search_grouped (batch 32) and
+    ivf_search_paged (batch 8; int8 has no paged route) against
+    ops/ivf.py:_ivf_search on the same snapshot."""
+    snap = db._engine._ivf.snapshot()
+    lists, list_ids, list_valid = snap.tables
+    nlist_eff = int(snap.centroids.shape[0])
+    nprobe = min(-(-db.nprobe * nlist_eff // max(1, nlist_eff - snap.n_dup)), nlist_eff)
+    atol = 0.0 if lists_dtype == "int8" else 2e-5
+    out = {}
+    for batch in (32, 8):
+        q = torch.from_numpy(queries[:batch]).to(DEV)
+        xv, xi = ivf_ops._ivf_search(snap.centroids, lists, list_ids, list_valid,
+                                     q, nprobe, 40, list_inv=snap.list_inv)
+        if batch >= 16 or lists_dtype == "int8":
+            kv, ki = ivf_probe.ivf_search_grouped(
+                snap.centroids, lists, list_ids, list_valid, q, nprobe, 40,
+                list_inv=snap.list_inv)
+        else:
+            kv, ki = ivf_probe.ivf_search_paged(
+                snap.centroids, lists, list_ids, list_valid, q, nprobe, 40)
+        out[f"batch_{batch}_max_abs_err"] = same_candidates(
+            kv, ki, xv, xi, f"{lists_dtype} route vs plain probe, batch {batch}", atol)
+    return out
+
+
+def timed_batches(db, queries, k, reps=10, **kw):
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = db.find_most_similar_batch(queries, k=k, **kw)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return res, statistics.median(times)
+
+
+def ivf_database(tmp, name, corpus, lists_dtype):
+    db = VectorDatabase(storage_file=os.path.join(tmp, name + ".pkl"), index="ivf",
+                        ivf_opts={"lists_dtype": lists_dtype})
+    load_s = load_db(db, corpus, pieces=4)
+    return db, load_s
+
+
+def ivf_common_checks(db, corpus, queries, k, lists_dtype, keep=None) -> dict:
+    """First search (upload + build), the default-nprobe batch, single query,
+    batch of 8, exactness at nprobe = nlist: all through the public class.
+    Returns what it measured."""
+    t0 = time.perf_counter()
+    db.find_most_similar_batch(queries, k=k)  # uploads the corpus, builds the index
+    first_search_s = time.perf_counter() - t0
+    st = db.stats()
+    ivf = db._engine._ivf
+    lists = ivf._lists
+    want_v, want_i = oracle_topk(corpus, queries, k, keep=keep)
+
+    res, batch_ms = timed_batches(db, queries, k)
+    single = db.find_most_similar(queries[0], k=k)
+    eight, eight_ms = timed_batches(db, queries[:8], k)
+    assert len(single[0]) == k and all(len(r[0]) == k for r in res + eight)
+    # the documented contract: probing every list is exact
+    nlist_all = st["ivf"]["nlist_effective"]
+    exact32 = db.find_most_similar_batch(queries[:32], k=k, nprobe=nlist_all)
+    check_hits_tied(exact32, want_v[:32], want_i[:32], f"{lists_dtype} nprobe = nlist")
+    return {
+        "lists_dtype": lists_dtype,
+        "rows": int(corpus.shape[0]),
+        "first_search_s": first_search_s,
+        "build_s": st["ops"]["ivf_build"]["total_s"],
+        "corpus_sync_s": st["ops"]["corpus_sync"]["total_s"],
+        "L": int(lists.shape[0]), "P": int(lists.shape[1]),
+        "n_dup": int(ivf.n_dup),
+        "list_tensor_bytes": lists.numel() * lists.element_size(),
+        "nprobe": db.nprobe,
+        "batch_256_ms_median": batch_ms,
+        "batch_8_ms_median": eight_ms,
+        "recall_at_10_batch_256": recall_at_k(res, want_i),
+        "recall_at_10_batch_8": recall_at_k(eight, want_i[:8]),
+        "recall_at_10_single": recall_at_k([single], want_i[:1]),
+        "checked": ["nprobe = nlist equals the oracle (batch 32)"],
+    }
+
+
+# the kernel entry points a database of each lists_dtype must reach through
+# the public class, and the only ones it may reach
+IVF_ENTRY_POINTS = {
+    "bfloat16": {"ivf_grouped_bf16", "ivf_probe_bf16"},
+    "float32": {"ivf_grouped_f32", "ivf_probe_f32"},
+    "int8": {"ivf_grouped_i8"},
+}
+
+
+def read_path_launches(total: dict, lists_dtype: str) -> dict:
+    """The counts since the last reset, all made by the public class on one
+    database: exactly the entry points of its lists_dtype must have been
+    launched. Adds them to ``total``."""
+    got = dict(ivf_probe.LAUNCHES)
+    hit = {name for name, count in got.items() if count > 0}
+    assert hit == IVF_ENTRY_POINTS[lists_dtype], (lists_dtype, got)
+    for name, count in got.items():
+        total[name] = total.get(name, 0) + count
+    return got
+
+
+def phase_ivf_path(tmp: str):
+    """Returns the kernels phase's operands and the launch counts of the
+    public class's searches. Every count is set to 0 before each database is
+    driven and read just after its last call through the class; the direct
+    calls that compare the routes with the plain probe come after the read."""
+    n, b, k = 1_000_000, 256, 10
+    corpus, queries = mixture(n, b, SEED + 10)
+    buckets = np.arange(n) % 16
+    path_launches = {}
+    ivf_probe.reset_launches()
+    db, load_s = ivf_database(tmp, "ivf_bf16", corpus, "bfloat16")
+    assert db._engine.ivf_opts["nlist"] == 1024 and db.nprobe == 32
+    out = {"phase": "ivf_path", "dim": D, "batch": b, "k": k, "load_s": load_s}
+    main = ivf_common_checks(db, corpus, queries, k, "bfloat16")
+    want_v, want_i = oracle_topk(corpus, queries, k)
+
+    # a broad filter (10 of 16 buckets pass) rides the probe: overfetch +
+    # device mask + the count guarantee
+    flt = {"bucket": {"$lte": 9}}
+    before = db.stats()["ops"]["ivf_scan"]["count"]
+    filt, filt_ms = timed_batches(db, queries, k, reps=3, metadata_filter=flt)
+    assert db.stats()["ops"]["ivf_scan"]["count"] == before + 3
+    assert all(len(r[0]) == k for r in filt)
+    assert all(md["bucket"] <= 9 for _i, _s, mds in filt for md in mds)
+    fv, fi = oracle_topk(corpus, queries, k, keep=buckets <= 9)
+    main["filtered_batch_ms_median"] = filt_ms
+    main["recall_at_10_filtered"] = recall_at_k(filt, fi)
+    filt_all = db.find_most_similar_batch(
+        queries[:32], k=k, metadata_filter=flt, nprobe=main["L"])
+    check_hits_tied(filt_all, fv[:32], fi[:32], "filtered, nprobe = nlist")
+
+    sync = db.find_most_similar_batch(queries, k=k)
+    handles = [db.find_most_similar_batch_async(queries[j * 64:(j + 1) * 64], k=k)
+               for j in range(4)]
+    for j, h in enumerate(handles):
+        got = h.result()
+        assert [r[0] for r in got] == [r[0] for r in sync[j * 64:(j + 1) * 64]], j
+
+    # 1,000 deletes (every query's best hit among them), then 2,000 appended
+    # rows: the first 256 are the queries themselves
+    doomed = np.unique(want_i[:, 0])
+    doomed = np.concatenate(
+        [doomed, np.setdiff1d(np.arange(5000), doomed)[: 1000 - doomed.size]])
+    assert doomed.size == 1000
+    for uid in doomed.tolist():
+        db.delete_embedding(uid)
+    extra, _ = mixture(2000, 1, SEED + 11)
+    extra[:b] = queries
+    db.store_embeddings_batch(list(range(n, n + 2000)), extra,
+                              [{"bucket": i % 16} for i in range(2000)])
+    after = db.find_most_similar_batch(queries, k=k)
+    st = db.stats()["ivf"]
+    assert st["overflow_rows"] == 2000 and st["dead_slots"] == 1000, st
+    assert db.stats()["ops"]["ivf_build"]["count"] == 1
+    gone = set(doomed.tolist())
+    assert not any(i in gone for ids, _s, _m in after for i in ids)
+    assert [r[0][0] for r in after] == list(range(n, n + b)), "overflow rows not found"
+    full = np.concatenate([corpus, extra])
+    keep = np.ones(n + 2000, dtype=bool)
+    keep[doomed] = False
+    dv, di = oracle_topk(full, queries, k, keep=keep)
+    after_all = db.find_most_similar_batch(queries[:32], k=k, nprobe=main["L"])
+    check_hits_tied(after_all, dv[:32], di[:32], "after deletes + appends, nprobe = nlist")
+    main["recall_at_10_after_deletes_and_appends"] = recall_at_k(after, di)
+    handle = db.find_most_similar_batch_async(queries, k=k)  # device-side merge
+    assert [r[0] for r in handle.result()] == [r[0] for r in after]
+
+    t0 = time.perf_counter()
+    cal = db.calibrate_nprobe(0.95)
+    main["calibrate_nprobe_s"] = time.perf_counter() - t0
+    main["calibrate_nprobe"] = cal
+    assert cal["recall"] >= 0.95 or cal["nprobe"] == main["L"]
+    assert db.nprobe == cal["nprobe"] and db.stats()["ivf"]["nprobe_calibrated"]
+
+    want = db.find_most_similar_batch(queries, k=k)
+    t0 = time.perf_counter()
+    db.persist_to_disk()
+    again = VectorDatabase(storage_file=db.storage_file, index="ivf")
+    assert again.stats()["ivf"]["pending_attach"]
+    got = again.find_most_similar_batch(queries, k=k)
+    main["persist_reload_first_search_s"] = time.perf_counter() - t0
+    assert [r[0] for r in got] == [r[0] for r in want], "reload ids"
+    ops = again.stats()["ops"]
+    assert "ivf_build" not in ops and ops["ivf_attach"]["count"] == 1
+    assert again.nprobe == cal["nprobe"] and len(again.id_map) == n + 1000
+    del again
+    main["launches"] = read_path_launches(path_launches, "bfloat16")
+    main["route_vs_plain_probe"] = route_against_plain_probe(db, queries, "bfloat16")
+    main["checked"] += ["kernel route equals _ivf_search (batch 32, batch 8)",
+                        "broad filter", "async x4", "1000 deletes + 2000 appends",
+                        "async with overflow", "calibrate_nprobe", "save -> load -> search"]
+    out["bfloat16_1m"] = main
+
+    # operands for the kernels phase, at the shapes this path produced
+    snap = db._engine._ivf.snapshot()
+    lists, _ids, list_valid = snap.tables
+    qdev = torch.from_numpy(queries).to(DEV)
+    nlist_eff = int(snap.centroids.shape[0])
+    nprobe = min(-(-32 * nlist_eff // max(1, nlist_eff - snap.n_dup)), nlist_eff)
+    qn, probe = ivf_probe.probe_lists(snap.centroids, qdev, nprobe)
+    shapes = {"lists": lists, "valid": list_valid, "qn": qn, "probe": probe}
+    del db
+
+    m, corpus_m, queries_m = 262_144, corpus[:262_144], queries
+    for lists_dtype in ("float32", "int8"):
+        ivf_probe.reset_launches()
+        dbm, load_s = ivf_database(tmp, "ivf_" + lists_dtype, corpus_m, lists_dtype)
+        entry = ivf_common_checks(dbm, corpus_m, queries_m, k, lists_dtype)
+        entry["launches"] = read_path_launches(path_launches, lists_dtype)
+        entry["route_vs_plain_probe"] = route_against_plain_probe(
+            dbm, queries_m, lists_dtype)
+        entry["checked"].append("kernel route equals _ivf_search (batch 32, batch 8)")
+        entry["load_s"] = load_s
+        out[f"{lists_dtype}_{m}"] = entry
+        del dbm
+        torch.cuda.empty_cache()
+    emit(out)
+    return shapes, path_launches
+
+
+def compare_ivf(name, kind, got, want) -> tuple:
+    """Whole output of an IVF kernel against its plain version: sentinels in
+    the same places, the rest within TOL[kind]. Returns (max error, live mask,
+    number of sentinels)."""
+    assert got.shape == want.shape and got.dtype == torch.float32, name
+    dead = want == MASKED
+    assert torch.equal(got == MASKED, dead), (name, "sentinel values differ")
+    assert torch.isfinite(got).all(), name
+    alive = ~dead
+    err = float((got[alive] - want[alive]).abs().max())
+    assert err <= TOL[kind], (name, err)
+    return err, alive, int(dead.sum())
+
+
+def ivf_ragged_errors() -> dict:
+    """The five IVF entry points on small ragged shapes, each against its
+    plain version: L = 7 lists of P = 130 slots (not a multiple of the slot
+    tiles), rows that are not a whole number of 16-byte pieces (d = 6, or 12
+    for int8: the 4-byte-load instantiations) and d = 100 (a ragged last
+    chunk), groups of G = 8 (half an A tile) with padding steps, a third of
+    the slots invalid. Returns the larger error of the two widths per kernel."""
+    l, p, b, nprobe = 7, 130, 5, 3
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 20)
+    valid = torch.rand((l, p), device=DEV, generator=gen) < 0.67
+    probe = torch.stack([torch.randperm(l, device=DEV, generator=gen)[:nprobe]
+                         for _ in range(b)])
+    step_list, step_q, _ps, _pl = ivf_probe.group_pairs(probe, l, 8)
+    assert step_q.shape[1] == 8 and bool((step_list < 0).any())
+    assert bool((step_list >= 0).any())
+    probe32 = probe.to(torch.int32).contiguous()
+    widths = {"f32": (6, 100), "bf16": (6, 100), "i8": (12, 100)}
+    errs = {}
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for d in widths[kind]:
+            rows = torch.randn((l * p, d), device=DEV, generator=gen)
+            lists = scan_ops._normalize(rows).reshape(l, p, d).to(dtype)
+            qd = scan_ops._normalize(
+                torch.randn((b, d), device=DEV, generator=gen)).to(dtype)
+            pairs = (
+                (f"K3-{kind}", ivf_probe.probe_scores(lists, qd, probe32),
+                 ivf_probe.probe_scores_plain(lists, qd, probe32)),
+                (f"K4-{kind}", ivf_probe.grouped_scores(lists, qd[step_q], step_list, valid),
+                 ivf_probe.grouped_scores_plain(lists, qd[step_q], step_list, valid)),
+            )
+            for name, got, want in pairs:
+                err, _, _ = compare_ivf(f"ragged {name} d={d}", kind, got, want)
+                errs[name] = max(errs.get(name, 0.0), err)
+    for d in widths["i8"]:
+        rows = scan_ops._normalize(torch.randn((l * p, d), device=DEV, generator=gen))
+        lists = torch.clamp(torch.round(rows * 127.0), -127, 127).to(torch.int8)
+        list_inv = (ivf_ops._slot_inv_norms(lists).reshape(l, p) * valid).contiguous()
+        lists = lists.reshape(l, p, d)
+        qi, qinv = ivf_probe.quantize_queries_ivf(
+            scan_ops._normalize(torch.randn((b, d), device=DEV, generator=gen)))
+        args = (lists, qi.to(torch.int8)[step_q], step_list, valid, list_inv, qinv[step_q])
+        err, _, _ = compare_ivf(f"ragged K5-int8 d={d}", "i8",
+                                ivf_probe.grouped_scores_q(*args),
+                                ivf_probe.grouped_scores_q_plain(*args))
+        errs["K5-int8"] = max(errs.get("K5-int8", 0.0), err)
+    return errs
+
+
+def ivf_kernel_rows(shapes: dict, launches: dict) -> list:
+    """K3, K4, K5 at the shapes of the 1,000,000-row IVF path: its bf16 lists
+    (and their float32 and int8 renderings), its validity table, the step
+    table its 256 queries produce and the probe ids of its first 8."""
+    ragged = ivf_ragged_errors()  # small shapes first: a fault shows early
+    lists_bf = shapes["lists"]
+    valid, qn, probe = shapes["valid"], shapes["qn"], shapes["probe"]
+    l, p, d = lists_bf.shape
+    b, nprobe = probe.shape
+    step_list, step_q, _ps, _pl = ivf_probe.group_pairs(probe, l, 16)
+    live = int((step_list >= 0).sum())
+    touched = int(torch.unique(probe).numel())
+    s_all, g = int(step_q.shape[0]), int(step_q.shape[1])
+    lists_f = lists_bf.to(torch.float32)
+    lists_i8 = torch.clamp(torch.round(lists_f * 127.0), -127, 127).to(torch.int8)
+    list_inv = ivf_ops._slot_inv_norms(lists_i8.reshape(l * p, d)).reshape(l, p)
+    qi, qinv = ivf_probe.quantize_queries_ivf(qn)
+    probe8 = probe[:8].to(torch.int32).contiguous()
+    lst = step_list.long().clamp(min=0)
+    dead_step = (step_list < 0)[:, None, None]
+
+    def k3_library(lists, q):
+        blocks = lists[probe8.reshape(-1).long()]  # (8 * nprobe, P, d)
+        qq = q[:8].repeat_interleave(nprobe, dim=0)[:, :, None]
+        return torch.bmm(blocks, qq).reshape(8, nprobe * p).to(torch.float32)
+
+    def k4_library(lists, gq):
+        sc = torch.bmm(gq, lists[lst].transpose(1, 2)).to(torch.float32)
+        return sc.masked_fill(~valid[lst][:, None, :] | dead_step, MASKED)
+
+    def k5_library(gq, gqinv):
+        # through float32: PyTorch has no batched int8 product
+        sc = torch.bmm(gq.to(torch.float32), lists_i8[lst].to(torch.float32).transpose(1, 2))
+        sc = sc * list_inv[lst][:, None, :] * gqinv[:, :, None]
+        return sc.masked_fill(~valid[lst][:, None, :] | dead_step, MASKED)
+
+    cases = []
+    for kind, lists in (("f32", lists_f), ("bf16", lists_bf)):
+        qd = qn.to(lists.dtype).contiguous()
+        gq = qd[step_q]
+        cases.append((
+            f"K3-{kind}", kind, "minivectordb_tpu/ops/pallas_ivf.py:72", f"ivf_probe_{kind}",
+            lambda lists=lists, qd=qd: ivf_probe.probe_scores(lists, qd[:8].contiguous(), probe8),
+            lambda lists=lists, qd=qd: ivf_probe.probe_scores_plain(lists, qd[:8].contiguous(), probe8),
+            lambda lists=lists, qd=qd: k3_library(lists, qd),
+            8 * nprobe * p * d * lists.element_size() + 8 * d * lists.element_size()
+            + 8 * nprobe * 4 + 8 * nprobe * p * 4,
+            2 * 8 * nprobe * p * d,
+            {"L": l, "P": p, "d": d, "B": 8, "nprobe": nprobe},
+        ))
+        cases.append((
+            f"K4-{kind}", kind, "minivectordb_tpu/ops/pallas_ivf.py:249", f"ivf_grouped_{kind}",
+            lambda lists=lists, gq=gq: ivf_probe.grouped_scores(lists, gq, step_list, valid),
+            lambda lists=lists, gq=gq: ivf_probe.grouped_scores_plain(lists, gq, step_list, valid),
+            lambda lists=lists, gq=gq: k4_library(lists, gq),
+            touched * p * (d * lists.element_size() + 1)
+            + live * g * (d * lists.element_size() + p * 4) + s_all * 4,
+            2 * live * g * p * d,
+            {"L": l, "P": p, "d": d, "B": b, "nprobe": nprobe, "S": s_all, "G": g,
+             "live_steps": live, "touched_lists": touched},
+        ))
+    gq8, gqinv = qi.to(torch.int8)[step_q], qinv[step_q]
+    cases.append((
+        "K5-int8", "i8", "minivectordb_tpu/ops/pallas_ivf.py:208", "ivf_grouped_i8",
+        lambda: ivf_probe.grouped_scores_q(lists_i8, gq8, step_list, valid, list_inv, gqinv),
+        lambda: ivf_probe.grouped_scores_q_plain(lists_i8, gq8, step_list, valid, list_inv, gqinv),
+        lambda: k5_library(gq8, gqinv),
+        touched * p * (d + 1 + 4) + live * g * (d + 4 + p * 4) + s_all * 4,
+        2 * live * g * p * d,
+        {"L": l, "P": p, "d": d, "B": b, "nprobe": nprobe, "S": s_all, "G": g,
+         "live_steps": live, "touched_lists": touched},
+    ))
+
+    rows = []
+    for name, kind, replaces, entry, run, plain, library, n_bytes, n_ops, shape in cases:
+        got = run()
+        torch.cuda.synchronize()
+        want = plain()
+        err, alive, n_dead = compare_ivf(name, kind, got, want)
+        lib = library()
+        lib_err = float((lib[alive] - want[alive]).abs().max())
+        del lib, want
+        # plain, kernel, kernel, plain: both versions inside one run
+        plain_a = event_ms(plain, 3, warmup=1)
+        ms_a = event_ms(run, 20)
+        ms_b = event_ms(run, 20)
+        plain_b = event_ms(plain, 3, warmup=1)
+        lib_ms = event_ms(library, 5, warmup=1)
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = n_ops / PEAK_OPS_S[kind] * 1e3
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "minivectordb_tpu_torch/csrc/ivf_probe.cu",
+            "replaces": replaces,
+            "launches": launches[entry],
+            "max_abs_err": err,
+            "tolerance": TOL[kind],
+            "ms": statistics.median([ms_a, ms_b]),
+            "plain_ms": statistics.median([plain_a, plain_b]),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "library": ("gather + torch.bmm" if name.startswith("K3")
+                        else "torch.bmm over lists[step_list]"
+                        + (" through float32" if kind == "i8" else "")),
+            "library_max_abs_err_vs_plain": lib_err,
+            "bound_bytes": n_bytes,
+            "bound_operations": n_ops,
+            "masked_values": n_dead,
+            "shape": shape,
+            "ragged_max_abs_err": ragged[name],
+        })
+        torch.cuda.empty_cache()
+    return rows
 
 
 def main() -> None:
@@ -445,10 +924,13 @@ def main() -> None:
         phase_main_path(tmp)
         phase_dtypes(tmp)
         launches = dict(fused_scan.LAUNCHES)
-    missing = [name for name, n in launches.items() if n == 0]
+        torch.cuda.empty_cache()
+        ivf_shapes, ivf_launches = phase_ivf_path(tmp)
+    emit({"phase": "launches", "flat_path": launches, "ivf_path": ivf_launches})
+    missing = [name for name, n in {**launches, **ivf_launches}.items() if n == 0]
     assert not missing, f"the main path never launched: {missing}"
     torch.cuda.empty_cache()
-    emit(phase_kernels(launches))
+    emit(phase_kernels(launches, ivf_shapes, ivf_launches))
     print(smi, flush=True)
     emit({
         "ok": True,

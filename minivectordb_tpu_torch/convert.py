@@ -79,3 +79,38 @@ def store_state_from_numpy(
     with engine.lock:
         engine.load(embeddings, uids, metadata, inverted_index)
     return engine
+
+
+_IVF_STATE_INTS = ("nlist", "nprobe", "iters", "seed", "n_dup", "pad_len", "count")
+
+
+def ivf_state_from_numpy(state: dict) -> dict:
+    """The port's IVF state from the JAX package's.
+
+    ``state`` is what ``minivectordb_tpu.ops.ivf.IVFIndex.state_dict()``
+    returns: builtins plus numpy arrays ``centroids`` (L, d), ``list_ids``
+    (L, P) and ``list_valid`` (L, P). The two packages share the schema, so
+    this checks it and copies it with the dtypes fixed (float32 / int32 /
+    bool arrays, Python ints); the input is left untouched. Hand the result
+    to ``ops.ivf.IVFIndex.from_state`` together with the corpus, or to
+    ``SearchEngine.set_ivf_state``. Keys this function does not know (a
+    sidecar's ``uid_digest``) are carried over as they are."""
+    missing = {"nlist", "nprobe", "pad_len", "count", "centroids", "list_ids",
+               "list_valid"} - set(state)
+    if missing:
+        raise ValueError(f"IVF state lacks {sorted(missing)}")
+    out = dict(state)
+    for key in _IVF_STATE_INTS:
+        if key in out:
+            out[key] = int(out[key])
+    out["nprobe_calibrated"] = bool(out.get("nprobe_calibrated", False))
+    out["device_dtype"] = str(out.get("device_dtype", "float32"))
+    out["centroids"] = np.array(state["centroids"], dtype=np.float32)
+    out["list_ids"] = np.array(state["list_ids"], dtype=np.int32)
+    out["list_valid"] = np.array(state["list_valid"], dtype=bool)
+    l, p = out["list_ids"].shape
+    if out["list_valid"].shape != (l, p) or out["centroids"].shape[0] != l:
+        raise ValueError("IVF state tables disagree on the number of lists")
+    if p != out["pad_len"]:
+        raise ValueError(f"pad_len {out['pad_len']} but tables have {p} slots")
+    return out

@@ -11,16 +11,24 @@ top-k (ops/scan.py, ops/fused_scan.py). Filters compile to a boolean row
 mask; masked rows can never enter the top-k, which preserves the reference's
 exact-count semantics (min(k, |candidates|) results, vector_database.py:489).
 
-This slice of the port serves ``index="flat"`` on one device. The JAX
-engine's IVF lifecycle (``index="ivf"``, ``calibrate_nprobe``) and its mesh
-branches (``mesh=...``) are not ported yet: asking for them raises
-``NotImplementedError`` naming the ROADMAP item.
+``index="ivf"`` adds the coarse-quantized index of ops/ivf.py behind the same
+entry points: built lazily at ``build_threshold`` rows, rows added afterwards
+overflow to a small exact side store, deletes tombstone slots in place, and
+broad filters ride the probe with a device mask and an exact-scan fallback
+that keeps the reference's exact-count contract.
+
+The JAX engine's mesh branches (``mesh=...``) are not ported yet: asking for
+them raises ``NotImplementedError`` naming the ROADMAP item. Its
+``precompile_async`` hook (XLA programs compiled under a pending upload) has
+no counterpart: PyTorch compiles nothing.
 """
 
 from __future__ import annotations
 
+import hashlib
 import operator as _operator
 import os
+import pickle
 import threading
 import time
 
@@ -36,6 +44,7 @@ from minivectordb_tpu_torch.filters.engine import (
     select_rows,
 )
 from minivectordb_tpu_torch.ops import scan as scan_ops
+from minivectordb_tpu_torch.ops.ivf import IVFIndex
 from minivectordb_tpu_torch.ops.scan import fetch_results as _fetch_results
 from minivectordb_tpu_torch.utils.telemetry import Telemetry
 
@@ -61,7 +70,6 @@ _HOST_SUB_TOTAL_BYTES = int(
 _COMPACT_FRAC = float(os.environ.get("MINIVECTORDB_TORCH_COMPACT_FRAC", 0.25))
 _COMPACT_FLOOR = int(os.environ.get("MINIVECTORDB_TORCH_COMPACT_FLOOR", 4096))
 
-_IVF_ROADMAP = "ROADMAP.md, queue 1: ops/ivf.py with kernels K3, K4, K5"
 _MESH_ROADMAP = "ROADMAP.md, queue 1: parallel/ (torch.distributed)"
 
 
@@ -78,8 +86,7 @@ def _prefetch_to_host(vals, idx) -> scan_ops.ResultFetch:
 
 def _merge_topk_device(va, ia, vb, ib, off, k):
     """Device-side merge of two descending top-k lists (for async callers
-    that must not drain at dispatch time; the JAX engine's IVF + overflow
-    path uses it, kept for the IVF slice)."""
+    that must not drain at dispatch time: the IVF + overflow path)."""
     v = torch.cat([va, vb], dim=1)
     i = torch.cat([ia.to(torch.int32), ib.to(torch.int32) + off], dim=1)
     tv, ti = scan_ops.topk_last_axis(v, k)
@@ -305,14 +312,11 @@ class SearchEngine:
         index: str = "flat",
         ivf_opts: dict | None = None,
         coalesce_window_ms: float = 0.0,
+        ivf_sidecar: str | None = None,
         device=None,
     ):
         if index not in ("flat", "ivf"):
             raise ValueError(f"Unknown index kind: {index}")
-        if index == "ivf":
-            raise NotImplementedError(
-                f"index='ivf' is not ported yet ({_IVF_ROADMAP})"
-            )
         if mesh is not None:
             raise NotImplementedError(
                 f"mesh-sharded search is not ported yet ({_MESH_ROADMAP})"
@@ -320,21 +324,48 @@ class SearchEngine:
         # device=None means the CUDA card and raises when there is none;
         # the engine never carries on on the CPU unless asked to
         self.device = scan_ops.resolve_device(device)
+        # Optional path for persisting the trained IVF layout OUTSIDE the
+        # corpus pickle (sharded databases: write-through shards have no
+        # single pickle to carry it). Written on build/attach/calibrate,
+        # dropped on delete (see _persist_ivf_sidecar).
+        self.ivf_sidecar = ivf_sidecar
         self.device_dtype = device_dtype
         self.search_mode = search_mode  # 'exact' | 'approx'
         self._version = 0  # bumped on every mutation
-        # The IVF knobs are validated and kept (the public ``nprobe``
-        # property and the constructor signature read them) although no
-        # search uses them in this slice.
+        # IVF index lifecycle (index='ivf'): lazily built at build_threshold
+        # rows, incremental inserts overflow to a small exact side-buffer,
+        # rebuilt when the overflow OR the deletes' dead slots pass
+        # rebuild_frac of the indexed rows; deletes tombstone + remap the id
+        # table (ops/ivf.py:delete_rows), keeping the trained k-means.
+        # Mirrors the reference's index-as-DB-internal lifecycle (reference
+        # vector_database.py:42-47, 477-479).
+        self.index_kind = index
         self.ivf_opts = {
             "nlist": 1024,
             "nprobe": 32,
             "iters": 10,
             "build_threshold": 50_000,
             "rebuild_frac": 0.2,
-            "rebuild_floor": 1024,
+            "rebuild_floor": 1024,  # min stale rows before a rebuild fires
+            # bf16 lists + exact rescore against the corpus buffer: half the
+            # list-tensor memory of float32 lists, and the two-stage search
+            # makes the quantization observable only through speed ('int8'
+            # quarters the list memory again)
             "lists_dtype": "bfloat16",
+            # Broad filters ride the IVF probe too (overfetch + device mask
+            # + exact-scan fallback when a row comes up short of k eligible
+            # hits): a filter passing >= this fraction of the corpus leaves
+            # the candidate set nearly as large as the corpus, where the ANN
+            # index wins exactly as it does unfiltered. Selective filters
+            # keep the exact masked scan (pruning there only costs recall).
+            # Set > 1.0 to force every filtered query exact.
             "filtered_min_frac": 0.5,
+            # Recall targeting: when set (e.g. 0.95), every fresh build
+            # auto-calibrates nprobe to the smallest power of two whose
+            # measured recall@10 vs this database's own exact scan meets the
+            # target (see calibrate_nprobe) — recall stays pinned as the
+            # corpus evolves through rebuilds instead of drifting under a
+            # hand-tuned nprobe.
             "recall_target": None,
         }
         extra = ivf_opts or {}
@@ -347,6 +378,15 @@ class SearchEngine:
                 f"(valid: {sorted(self.ivf_opts)})"
             )
         self.ivf_opts.update(extra)
+        self._ivf = None
+        self._ivf_built_count = 0
+        self._ivf_overflow = None  # VectorStore over rows added post-build
+        self._ivf_pending_state = None  # persisted layout awaiting reattach
+        self._ivf_dead_slots = 0  # tombstoned slots since the last build
+        # True once a recall-target calibration chose ivf_opts['nprobe'];
+        # survives rebuilds (the value lives in ivf_opts) and is stamped
+        # onto every fresh index so persist/reload re-adopts it
+        self._nprobe_calibrated = False
         self.embedding_size: int | None = None
         self.store: VectorStore | None = None
         self.uids: list = []  # row -> unique id
@@ -451,6 +491,8 @@ class SearchEngine:
                 f"got {embedding.shape[-1]}."
             )
         row = self.store.append(embedding).start
+        if self._ivf_overflow is not None:
+            self._ivf_overflow.append(embedding)
         self.uids.append(unique_id)
         self.inverse_id_map[unique_id] = row
         self.metadata.append(metadata_dict)
@@ -473,6 +515,8 @@ class SearchEngine:
                 f"got {mat.shape[1]}."
             )
         rows = self.store.append(mat)
+        if self._ivf_overflow is not None:
+            self._ivf_overflow.append(mat)
         start = rows.start
         self.uids.extend(unique_ids)
         self.inverse_id_map.update(
@@ -509,6 +553,24 @@ class SearchEngine:
             del self.inverse_id_map[uid]
         self.columns.clear_rows(rows)
         self.store.tombstone_rows(rows)
+        if self._ivf is not None or self._ivf_pending_state is not None:
+            # physical ids do NOT move, so the trained layout stays valid
+            # in memory (slots just go invalid) — but a sidecar written
+            # before this delete would reattach WITHOUT the tombstones
+            # after a crash; drop it (the next build/calibrate rewrites it)
+            self._drop_ivf_sidecar()
+            built = self._ivf_built_count
+            below = [r for r in rows if r < built]
+            if self._ivf is not None:
+                self._ivf_dead_slots += self._ivf.tombstone_rows(below)
+            elif below:
+                self._ivf_dead_slots += IVFIndex.state_tombstone_rows(
+                    self._ivf_pending_state, below
+                )
+            if self._ivf_overflow is not None:
+                over = [r - built for r in rows if r >= built]
+                if over:
+                    self._ivf_overflow.tombstone_rows(over)
         self._version += 1
         if self.store.dead_count > max(
             _COMPACT_FLOOR, _COMPACT_FRAC * self.count
@@ -518,7 +580,8 @@ class SearchEngine:
     def _compact_tombstones(self) -> None:
         """Fold tombstoned rows out of every row-aligned structure (caller
         holds the lock). Runs when the dead fraction passes the policy
-        threshold and on explicit persistence — never per delete."""
+        threshold, before an IVF (re)build, and on explicit persistence —
+        never per delete."""
         if self.store is None or not self.store.dead_count:
             return
         with self.telemetry.timed("delete_compaction"):
@@ -533,6 +596,28 @@ class SearchEngine:
             self.metadata = new_metadata
             self.inverse_id_map = {uid: i for i, uid in enumerate(new_uids)}
             self.columns.delete_rows(dead.tolist())
+            if self._ivf is not None or self._ivf_pending_state is not None:
+                self._drop_ivf_sidecar()
+                if self._ivf is not None:
+                    # slots were already invalidated at tombstone time;
+                    # delete_rows now remaps the SURVIVING ids to their
+                    # post-compaction positions and shrinks the physical
+                    # indexed count (n_del counts rows, not live slots)
+                    n_del = self._ivf.delete_rows(dead)
+                    self._ivf_built_count -= n_del
+                    if n_del and self._ivf._data is not None:
+                        buf, inv, _ = self._synced_corpus()
+                        self._ivf.refresh_corpus(buf, inv)
+                        self.store.pin(self._ivf)
+                    self._start_overflow(self._ivf_built_count)
+                else:
+                    IVFIndex.state_after_deletes(self._ivf_pending_state, dead)
+                    if "uid_digest" in self._ivf_pending_state:
+                        self._ivf_pending_state["uid_digest"] = (
+                            self._uid_digest(
+                                int(self._ivf_pending_state["count"])
+                            )
+                        )
             self._version += 1
 
     def compact_tombstones(self) -> None:
@@ -553,6 +638,73 @@ class SearchEngine:
         self.metadata = []
         self.meta_index = MetadataIndex()
         self.columns = ColumnStore()
+        self._invalidate_ivf()
+
+    # -- IVF lifecycle (index='ivf') ----------------------------------------
+
+    def _invalidate_ivf(self) -> None:
+        self._ivf = None
+        self._ivf_built_count = 0
+        self._ivf_overflow = None
+        self._ivf_pending_state = None
+        self._ivf_dead_slots = 0
+        self._drop_ivf_sidecar()
+
+    def _uid_digest(self, n: int) -> str:
+        """Stable digest of the first n uids IN ROW ORDER. The sidecar
+        carries this so a layout can never attach onto a differently-ordered
+        row space: shard reload order can diverge from the RAM append order
+        the layout was trained against (delete→add churn backfills shard
+        holes, reordering rows on the next load while leaving the count
+        identical). Caller holds the lock."""
+        h = hashlib.blake2b(digest_size=16)
+        for u in self.uids[:n]:
+            h.update(repr(u).encode())
+            h.update(b"\x00")
+        return h.hexdigest()
+
+    def _persist_ivf_sidecar(self) -> None:
+        """Write the trained layout to ivf_sidecar (sharded databases set
+        this path — the flat class persists the layout inside its pickle
+        instead). Atomic write; append-only growth after the write is safe
+        (rows 0..count are immutable under appends), and every delete DROPS
+        the sidecar (row compaction remaps ids, so a stale layout could
+        reattach onto the wrong rows once the count grows back). The stored
+        uid digest guards the reorder case the drop can't see (churn that
+        ends at the same count but a different reload order)."""
+        if self.ivf_sidecar is None:
+            return
+        if self._ivf is not None:
+            state = dict(self._ivf.state_dict())
+            state["uid_digest"] = self._uid_digest(int(state["count"]))
+        elif self._ivf_pending_state is not None:
+            # re-persisting a not-yet-attached layout (e.g. right after the
+            # loader read it): keep its ORIGINAL digest — current uids may
+            # not be loaded yet (WAL-only corpora re-add rows at replay)
+            state = self._ivf_pending_state
+        else:
+            return
+        tmp = self.ivf_sidecar + ".tmp"
+        with open(tmp, "wb") as f:
+            pickle.dump(state, f)
+        os.replace(tmp, self.ivf_sidecar)
+
+    def _drop_ivf_sidecar(self) -> None:
+        if self.ivf_sidecar is not None:
+            try:
+                os.unlink(self.ivf_sidecar)
+            except FileNotFoundError:
+                pass
+
+    def ivf_active(self) -> bool:
+        """True when queries on this index='ivf' engine would serve from
+        the coarse probe (built, pending, or due to build). The single
+        source of the eligibility gate."""
+        return self.index_kind == "ivf" and (
+            self.count >= self.ivf_opts["build_threshold"]
+            or self._ivf is not None
+            or self._ivf_pending_state is not None
+        )
 
     # -- serving knobs and stats --------------------------------------------
 
@@ -595,8 +747,8 @@ class SearchEngine:
     def warmup(self, k: int = 10, batch: int = 1) -> None:
         """Move the cold-start costs off the first user query: sync the
         device corpus cache (the big upload after bulk ingest), build the
-        phase-1 kernels if this batch size takes the fused route, and run
-        one search of the (batch, k) shape. Serving deployments call this
+        IVF index if configured and due, build the CUDA kernels this batch
+        size's route needs, and run one search of the (batch, k) shape. Serving deployments call this
         after load and before taking traffic; it is never required for
         correctness."""
         if self.store is None or self.live_count == 0:
@@ -619,12 +771,300 @@ class SearchEngine:
             "device": str(self.store.device),
         }
 
-    def calibrate_nprobe(self, recall_target: float = 0.95, queries=None,
-                         k: int = 10, sample: int = 64, seed: int = 0) -> dict:
-        raise NotImplementedError(
-            f"calibrate_nprobe needs index='ivf', which is not ported yet "
-            f"({_IVF_ROADMAP})"
+    def ivf_stats(self) -> dict | None:
+        """Operator-facing IVF lifecycle state for stats() (None when the
+        engine is not index='ivf'): probe width and whether it was
+        calibrated, indexed vs overflow row split, tombstoned slots, and the
+        effective list count (skew splitting can raise it past nlist)."""
+        if self.index_kind != "ivf":
+            return None
+        with self.lock:
+            ivf = self._ivf
+            return {
+                "built": ivf is not None,
+                "pending_attach": self._ivf_pending_state is not None,
+                "indexed_rows": self._ivf_built_count,
+                "overflow_rows": max(0, self.count - self._ivf_built_count),
+                "dead_slots": self._ivf_dead_slots,
+                "nlist_effective": (
+                    None if ivf is None else int(ivf.centroids.shape[0])
+                ),
+                "nprobe": self.ivf_opts["nprobe"],
+                "nprobe_calibrated": self._nprobe_calibrated,
+                # duplicate centroids from skew splitting: search scales the
+                # probe slot count by nlist_effective/(nlist_effective -
+                # split_duplicates), so operators can derive the real
+                # per-query probe cost from the configured nprobe
+                "split_duplicates": 0 if ivf is None else int(ivf.n_dup),
+                "lists_dtype": self.ivf_opts["lists_dtype"],
+            }
+
+    def ivf_state(self) -> dict | None:
+        """Persistable IVF layout (centroids + slot maps; the packed list
+        tensor is rebuilt from the embeddings on load). None when unbuilt."""
+        with self.lock:
+            if self._ivf is not None:
+                return self._ivf.state_dict()
+            return self._ivf_pending_state
+
+    def set_ivf_state(self, state: dict | None) -> None:
+        """Adopt a persisted IVF layout; reattached lazily on first search."""
+        with self.lock:
+            self._ivf = None
+            self._ivf_built_count = 0
+            self._ivf_overflow = None
+            self._ivf_pending_state = state
+            self._ivf_dead_slots = 0
+            # adopting a foreign layout: its own flag decides at attach time
+            self._nprobe_calibrated = False
+
+    def _start_overflow(self, built: int) -> None:
+        self._ivf_overflow = VectorStore(
+            self.embedding_size, "float32", device=self.device
         )
+        if built < self.count:
+            self._ivf_overflow.append(self.store.view()[built:])
+            alive = self.store.alive_host
+            if alive is not None:
+                # suffix rows tombstoned before this rebuild stay dead in
+                # the fresh overflow copy (row i here is global built+i)
+                dead_suffix = np.flatnonzero(~alive[built:])
+                if dead_suffix.size:
+                    self._ivf_overflow.tombstone_rows(dead_suffix)
+
+    def _ensure_ivf(self) -> None:
+        """Build / reattach / rebuild the IVF index (caller holds the lock —
+        the reference likewise rebuilds its index under the lock when dirty,
+        reference vector_database.py:477-479)."""
+        opts = self.ivf_opts
+        if self._ivf is None and self._ivf_pending_state is not None:
+            st = self._ivf_pending_state
+            self._ivf_pending_state = None
+            dg = st.get("uid_digest")
+            row_space_ok = (
+                dg is None  # flat-pickle states are snapshot-consistent
+                or (
+                    st["count"] <= self.count
+                    and dg == self._uid_digest(int(st["count"]))
+                )
+            )
+            if not row_space_ok:
+                # the persisted layout was trained against a different row
+                # order (shard-hole backfill after delete→add churn) —
+                # attaching would map list slots onto the wrong rows.
+                # Fall through: the rebuild policy retrains cleanly.
+                st = None
+            if st is not None and 0 < st["count"] <= self.count:
+                buf, inv, _ = self._synced_corpus()
+                with self.telemetry.timed("ivf_attach"):
+                    self._ivf = self._wrap_ivf(
+                        IVFIndex.from_state(
+                            st, buf, count=st["count"], inv_norms=inv
+                        )
+                    )
+                self._ivf_built_count = st["count"]
+                if st.get("nprobe_calibrated"):
+                    # a recall-target calibration travels with the layout:
+                    # re-adopt it as the serving default (db.nprobe can
+                    # still override after load)
+                    self.ivf_opts["nprobe"] = int(st["nprobe"])
+                    self._nprobe_calibrated = True
+                self._pin_ivf_corpus()
+                self._release_mesh_build_buffer()
+                self._start_overflow(st["count"])
+                # rewrite the sidecar: engine.load()'s reset dropped the
+                # file the pending state was read from
+                self._persist_ivf_sidecar()
+        overflow_rows = self.count - self._ivf_built_count
+        stale = overflow_rows + self._ivf_dead_slots
+        if self._ivf is not None and stale <= max(
+            opts["rebuild_floor"], opts["rebuild_frac"] * self._ivf_built_count
+        ):
+            return
+        # (re)building: fold tombstoned deletes out first — the k-means and
+        # list assignment run over the store's rows, and dead rows must
+        # neither train centroids nor enter lists as live slots
+        self._compact_tombstones()
+        nlist = opts["nlist"]
+        if nlist in ("auto", None):
+            # classic IVF sizing: ~4*sqrt(n) lists, a power of two (the sizes
+            # the JAX package builds), floor 32. Resolved at BUILD time, so
+            # rebuilds rescale as the corpus grows.
+            nlist = 1 << max(
+                5, int(round(np.log2(4.0 * np.sqrt(max(self.count, 1)))))
+            )
+        ivf = IVFIndex(
+            nlist=nlist,
+            nprobe=opts["nprobe"],
+            iters=opts["iters"],
+            device_dtype=opts["lists_dtype"],
+            device=self.device,
+        )
+        buf, inv, count = self._synced_corpus()
+        with self.telemetry.timed("ivf_build"):
+            ivf.build(buf, count=count, inv_norms=inv)
+        # a manual calibration survives rebuilds: stamp the flag so
+        # persist/reload keeps re-adopting the calibrated nprobe
+        # (auto-recalibration below refreshes the value itself when
+        # recall_target is configured)
+        ivf.nprobe = int(self.ivf_opts["nprobe"])
+        ivf.nprobe_calibrated = self._nprobe_calibrated
+        self._ivf = self._wrap_ivf(ivf)
+        self._ivf_built_count = count
+        self._ivf_dead_slots = 0
+        self._pin_ivf_corpus()
+        self._release_mesh_build_buffer()
+        self._start_overflow(count)
+        if self.ivf_opts.get("recall_target"):
+            with self.telemetry.timed("nprobe_calibration"):
+                self._run_nprobe_calibration(
+                    self.ivf_opts["recall_target"], None, 10, 64, 0
+                )
+        self._persist_ivf_sidecar()
+
+    def calibrate_nprobe(self, recall_target: float = 0.95, queries=None,
+                         k: int = 10, sample: int = 64,
+                         seed: int = 0) -> dict:
+        """FAISS-autotune-style recall targeting: measure recall@k of the
+        IVF probe against THIS database's own exact scan and install the
+        smallest power-of-two nprobe that meets ``recall_target`` as the
+        default (``ivf_opts['nprobe']``). The reference has no ANN index and
+        therefore no such knob; this keeps the beyond-reference index
+        honest — 'give me at least X recall' instead of hand-tuning nprobe.
+
+        queries: optional (B, d) workload sample — the most faithful
+        calibration; defaults to ``sample`` stored rows (corpus rows are
+        slightly easy as queries — prefer a real workload when available).
+        Recall is scored over indexed rows only: the live search path merges
+        post-build overflow rows exactly, so production recall is >= the
+        calibrated figure. Returns {"nprobe", "recall", "evaluated"}.
+        """
+        if not (0.0 < recall_target <= 1.0):
+            raise ValueError("recall_target must be in (0, 1]")
+        with self.lock:
+            if self.index_kind != "ivf":
+                raise ValueError("calibrate_nprobe requires index='ivf'")
+            if self.count == 0:
+                raise ValueError("cannot calibrate an empty database")
+            if (
+                self._ivf is None
+                and self._ivf_pending_state is None
+                and self.count < self.ivf_opts["build_threshold"]
+            ):
+                # respect the lifecycle: _ensure_ivf would happily build a
+                # tiny index here, but searches gate on build_threshold
+                raise ValueError(
+                    "no IVF index built yet (corpus below build_threshold;"
+                    " add rows or lower ivf_opts['build_threshold'])"
+                )
+            self._ensure_ivf()
+            if self._ivf is None:
+                raise ValueError(
+                    "no IVF index built yet (corpus below build_threshold;"
+                    " add rows or lower ivf_opts['build_threshold'])"
+                )
+            return self._run_nprobe_calibration(
+                recall_target, queries, k, sample, seed
+            )
+
+    def _run_nprobe_calibration(self, recall_target, queries, k, sample,
+                                seed) -> dict:
+        """Measurement core (caller holds the lock and guarantees a built
+        index). Kept separate so _ensure_ivf's auto-calibration can't
+        recurse back through calibrate_nprobe -> _ensure_ivf."""
+        ivf = self._ivf.snapshot()
+        snap = self.store.snapshot()
+        built = self._ivf_built_count
+        if queries is None:
+            rng = np.random.default_rng(seed)
+            m = min(int(sample), self.count)
+            rows = np.sort(rng.choice(self.count, m, replace=False))
+            queries = self.store.view()[rows].copy()
+        if scan_ops.is_device_array(queries):
+            queries = queries.detach().cpu().numpy()
+        q = np.ascontiguousarray(queries, dtype=np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        kk = max(1, min(k, built))
+        exact_idx = np.asarray(
+            snap.search(q, min(k, self.count), None, mode=self.search_mode)[1]
+        )
+        # truth restricted to indexed rows: overflow rows are served by an
+        # exact side-scan at query time, never by the probe
+        truth = [set(int(x) for x in row if x < built) for row in exact_idx]
+        denom = sum(len(t) for t in truth)
+        if denom == 0:
+            # every exact neighbor of the calibration queries lives in the
+            # post-build overflow, which the live path always scans exactly
+            # — the probe has nothing it could miss; keep the configured
+            # nprobe rather than installing a meaningless maximum
+            return {
+                "nprobe": int(self.ivf_opts["nprobe"]),
+                "recall": 1.0,
+                "evaluated": [],
+            }
+        nlist = int(ivf.centroids.shape[0])
+        evaluated = []
+        p, best, rec = 1, nlist, 1.0
+        while True:
+            vals, ids = ivf.search(q, kk, nprobe=p)
+            # sentinel-padded slots carry arbitrary ids (often 0) — counting
+            # them as hits would overstate recall and stop a doubling early
+            hits = sum(
+                len(
+                    truth[b]
+                    & {
+                        int(i)
+                        for i, v in zip(ids[b], vals[b])
+                        if v > -1.0e38
+                    }
+                )
+                for b in range(len(truth))
+            )
+            rec = hits / denom
+            evaluated.append({"nprobe": p, "recall": round(rec, 4)})
+            if rec >= recall_target or p >= nlist:
+                best = p
+                break
+            p = min(p * 2, nlist)
+        self.ivf_opts["nprobe"] = int(best)
+        self._nprobe_calibrated = True
+        # persist with the layout: state_dict carries the calibrated value +
+        # flag, and the attach path re-adopts it as the serving default
+        self._ivf.nprobe = int(best)
+        self._ivf.nprobe_calibrated = True
+        self._persist_ivf_sidecar()
+        return {"nprobe": int(best), "recall": rec, "evaluated": evaluated}
+
+    def _pin_ivf_corpus(self) -> None:
+        """Quantized IVF lists retain the store's device buffer as the
+        exact-rescore corpus; pin it so store.sync() never writes it in
+        place under the retained reference."""
+        if self._ivf._data is not None:
+            self.store.pin(self._ivf)
+
+    def _synced_corpus(self):
+        """store.sync() + DRAIN the upload queue, under its own timer.
+
+        sync() queues host->device slab copies without waiting; the next
+        device work queues behind them, so without a drain the one-time
+        corpus transfer gets billed to whatever runs next (the ivf_build
+        timer). On a CPU store there is nothing to drain."""
+        with self.telemetry.timed("corpus_sync"):
+            buf, inv, count = self.store.sync()
+            if count and buf.device.type == "cuda":
+                torch.cuda.synchronize(buf.device)
+        return buf, inv, count
+
+    def _wrap_ivf(self, ivf):
+        """The JAX engine reshards the trained index list-per-chip on a mesh
+        here; until ``mesh=...`` is ported the index is served as it is."""
+        return ivf
+
+    def _release_mesh_build_buffer(self) -> None:
+        """The JAX engine frees the store's single-device build buffer here
+        on a mesh; a single-device engine keeps it — it IS the search
+        buffer."""
 
     def load(self, embeddings, uids, metadatas, inverted_index=None) -> None:
         self.reset()
@@ -807,23 +1247,36 @@ class SearchEngine:
         return mask, n
 
     def _scan(self, q, metadata_filter, exclude_filter, or_filters, k,
-              fetch=True, nprobe=None, hold=None):
+              fetch=True, nprobe=None, hold=None, _force_exact=False):
         """Shared search core: filter + snapshot under the lock, device scan
         outside it. Returns (vals, idx, uids, metadata) or None when the
         candidate set is empty.
 
-        hold: optional list that receives the store snapshot, for a caller
-        that must keep it alive past this call (a deferred search: while the
+        hold: optional list that receives the store snapshot(s), for a caller
+        that must keep them alive past this call (a deferred search: while a
         snapshot lives, the store does not write its tensors in place).
 
-        nprobe: accepted and validated for signature parity with the JAX
-        engine (per-call IVF probe width); unused while index='flat' is the
-        only index.
+        nprobe: per-call override of ivf_opts['nprobe'] (index='ivf' only) —
+        the standard IVF recall/latency knob, so one database can serve both
+        fast dashboards and high-recall offline jobs.
 
         Snapshot-consistency: uids/metadata are only ever appended to or
         wholesale replaced under the lock (compaction builds fresh lists),
         so the references captured here stay row-aligned with the device
-        snapshot even while writers proceed."""
+        snapshot even while writers proceed.
+
+        Routing: index='ivf' serves unfiltered queries from the
+        coarse-quantized index (+ exact scan of the post-build overflow rows,
+        merged). BROAD filters (passing >= filtered_min_frac of the corpus)
+        ride the same probe with an overfetched, device-masked candidate
+        stage; any query row that still finds fewer than search_k eligible
+        hits reruns through the exact masked scan (_force_exact), so the
+        reference's exact-count contract holds unconditionally. Selective
+        filters, filtered async dispatches and sub-threshold corpora keep the
+        exact masked scan (ANN pruning there would only cost recall)."""
+        ivf = osnap = None
+        built = 0
+        ivf_mask = None
         with self.lock:
             with self.telemetry.timed("filter"):
                 mask, n_candidates = self._candidate_mask(
@@ -832,11 +1285,37 @@ class SearchEngine:
             if n_candidates == 0:
                 return None
             search_k = min(k, n_candidates)
-            snap = self.store.snapshot()
-            if hold is not None:
-                hold.append(snap)
+            use_ivf = (
+                not _force_exact
+                and (
+                    mask is None
+                    or (
+                        fetch
+                        and n_candidates
+                        >= self.ivf_opts["filtered_min_frac"] * self.count
+                    )
+                )
+                and self.ivf_active()
+            )
+            if use_ivf:
+                self._ensure_ivf()
+                # frozen view: deletes swap the live index's tables, and
+                # this scan runs outside the lock against the uids/metadata
+                # captured below
+                ivf = self._ivf.snapshot()
+                built = self._ivf_built_count
+                if self._ivf_overflow is not None and self._ivf_overflow.count:
+                    osnap = self._ivf_overflow.snapshot()
+                    if hold is not None:
+                        hold.append(osnap)
+            else:
+                snap = self.store.snapshot()
+                if hold is not None:
+                    hold.append(snap)
             uids, metadata = self.uids, self.metadata
-            if nprobe is not None:
+            if nprobe is None:
+                nprobe = self.ivf_opts["nprobe"]
+            else:
                 # operator.index accepts any integral type (np.int64, …)
                 # but bool must not silently mean nprobe=1
                 if isinstance(nprobe, bool):
@@ -864,11 +1343,121 @@ class SearchEngine:
                     n_candidates,
                 )
             )
+            if ivf is not None and mask is not None:
+                # capacity matches the exact path's padded snapshot width so
+                # both share one _dev_mask_cache entry per filter key; the
+                # thunk itself resolves (uploads) OUTSIDE the lock below
+                ivf_mask_cap = self.store.next_device_capacity()
+                ivf_frac = n_candidates / max(1, self.count)
+        if ivf is not None:
+            with self.telemetry.timed("ivf_scan"):
+                if mask is not None:
+                    ivf_mask = (
+                        mask_dev(ivf_mask_cap)
+                        if mask_dev is not None
+                        else scan_ops.to_device(mask, self.device)
+                    )
+                if ivf_mask is not None:
+                    vals, idx = ivf.search(
+                        q, search_k, nprobe=nprobe, fetch=fetch,
+                        mask_dev=ivf_mask, mask_frac=ivf_frac,
+                    )
+                else:
+                    vals, idx = ivf.search(
+                        q, search_k, nprobe=nprobe, fetch=fetch
+                    )
+                if osnap is not None:
+                    ovals, oidx = osnap.search(
+                        q, min(search_k, osnap.count), fetch=fetch,
+                        mask=None if mask is None else mask[built:],
+                    )
+                    if fetch:
+                        vals = np.concatenate([vals, ovals], axis=1)
+                        idx = np.concatenate([idx, oidx + built], axis=1)
+                        order = np.argsort(-vals, axis=1)[:, :search_k]
+                        vals = np.take_along_axis(vals, order, axis=1)
+                        idx = np.take_along_axis(idx, order, axis=1)
+                    else:
+                        # async callers must not drain here: merge the IVF
+                        # hits with the overflow scan ON DEVICE so the
+                        # dispatch stays queued until .result() (a host-
+                        # routed overflow scan, or an index with no live
+                        # row, hands back numpy: upload those few values)
+                        km = min(
+                            search_k,
+                            int(vals.shape[1]) + int(ovals.shape[1]),
+                        )
+                        vals, idx = _merge_topk_device(
+                            *(self._as_device(t) for t in
+                              (vals, idx, ovals, oidx)),
+                            built, km,
+                        )
+            if mask is not None:
+                # count-guarantee: queries that found fewer than search_k
+                # eligible rows in the probed lists (filter correlated with
+                # cluster structure past what the overfetch covers) rerun
+                # through the exact masked scan, which serves exactly
+                # min(k, n_candidates) like the reference. Only the SHORT
+                # rows rerun — the probe work for the rest is kept.
+                vals, idx = _fetch_results(vals, idx)
+                if vals.shape[1] < search_k:
+                    short = np.arange(vals.shape[0])
+                else:
+                    short = np.flatnonzero(
+                        (vals > -1.0e38).sum(axis=1) < search_k
+                    )
+                if short.size == vals.shape[0]:
+                    return self._scan(
+                        q, metadata_filter, exclude_filter, or_filters, k,
+                        fetch=fetch, nprobe=nprobe, _force_exact=True,
+                    )
+                if short.size:
+                    # a tensor batch is sliced where it lives — the
+                    # zero-copy contract must hold on the short-row rerun
+                    # too, not just the happy path
+                    q_short = (
+                        q[torch.from_numpy(short).to(q.device)]
+                        if scan_ops.is_device_array(q)
+                        else np.asarray(q)[short]
+                    )
+                    res2 = self._scan(
+                        q_short, metadata_filter,
+                        exclude_filter, or_filters, k, fetch=fetch,
+                        nprobe=nprobe, _force_exact=True,
+                    )
+                    # splice only when the row space provably did not move
+                    # under us: appends mutate uids/metadata in place (old
+                    # row ids stay valid), deletes build FRESH lists — an
+                    # identity mismatch means rerun the whole batch against
+                    # one consistent snapshot instead
+                    if (
+                        res2 is not None
+                        and res2[2] is uids
+                        and res2[3] is metadata
+                        and res2[0].shape[1] == vals.shape[1]
+                    ):
+                        if not vals.flags.writeable:
+                            vals, idx = vals.copy(), idx.copy()
+                        vals[short] = res2[0]
+                        idx[short] = res2[1]
+                        return vals, idx, uids, metadata
+                    return self._scan(
+                        q, metadata_filter, exclude_filter, or_filters, k,
+                        fetch=fetch, nprobe=nprobe, _force_exact=True,
+                    )
+            return vals, idx, uids, metadata
         with self.telemetry.timed("device_scan"):
             vals, idx = snap.search(q, search_k, mask, mode=self.search_mode,
                                     fetch=fetch, mask_dev=mask_dev,
                                     host_sub=host_sub)
         return vals, idx, uids, metadata
+
+    def _as_device(self, t):
+        """A result array as a tensor on the engine's device (numpy from a
+        host-routed scan is uploaded; a tensor passes through)."""
+        if isinstance(t, torch.Tensor):
+            return t
+        return scan_ops.to_device(np.ascontiguousarray(t), self.device)
 
     @staticmethod
     def _format_hits(vals_row, idx_row, uids, metadata, return_distances):

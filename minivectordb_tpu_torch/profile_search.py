@@ -2,6 +2,8 @@
 
     python -m minivectordb_tpu_torch.profile_search [--rows N] [--dim D]
         [--batch B] [--k K] [--dtypes float32,mixed,bfloat16,int8]
+    python -m minivectordb_tpu_torch.profile_search --index ivf [--rows N]
+        [--batch B] [--lists-dtypes bfloat16,float32,int8] [--nprobe 32]
 
 Builds a seeded corpus straight into a ``VectorStore`` (no metadata), then
 times the stages of ``StoreSnapshot._device_search``'s fused route one by one
@@ -15,6 +17,15 @@ small metadata dict per row and times ``find_most_similar_batch`` on the host
 clock twice: as it is, and after ``gc.freeze()`` has moved the loaded objects
 out of the garbage collector's reach — the difference is what the cyclic
 collector costs a search when millions of metadata dicts are alive.
+
+With ``--index ivf`` the corpus is a seeded two-level mixture (``--centres``
+unit centres in 32 families, plus noise), an ``IVFIndex`` is built over the store's device buffer
+for each of ``--lists-dtypes``, and one ``IVFSnapshot.search`` is timed stage
+by stage: centroid scores + probe top-k, the grouping bookkeeping (or nothing,
+on the paged route), the probe kernel, the gather into (B, nprobe, P) + the
+wide top-k + id lookup, the exact rescore; then the whole search by CUDA
+events and on the host clock. Batches under 16 over float32/bfloat16 lists
+time the paged route.
 """
 
 from __future__ import annotations
@@ -31,6 +42,8 @@ import torch
 
 from minivectordb_tpu_torch.core.store import VectorStore
 from minivectordb_tpu_torch.ops import fused_scan
+from minivectordb_tpu_torch.ops import ivf as ivf_ops
+from minivectordb_tpu_torch.ops import ivf_probe
 from minivectordb_tpu_torch.ops import scan as scan_ops
 
 
@@ -156,6 +169,130 @@ def profile_api(dtype: str, corpus: np.ndarray, queries: np.ndarray, k: int,
     }
 
 
+def profile_ivf(lists_dtype: str, store: VectorStore, queries: np.ndarray,
+                k: int, nprobe: int, nlist: int, reps: int) -> dict:
+    """One IVFSnapshot.search over ``store``'s device buffer, stage by stage."""
+    buf, inv, count = store.sync()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    index = ivf_ops.IVFIndex(nlist=nlist, nprobe=nprobe, device_dtype=lists_dtype)
+    index.build(buf, count=count, inv_norms=inv)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    snap = index.snapshot()
+    lists, list_ids, list_valid = snap.tables
+    l, p, _d = lists.shape
+    b = int(queries.shape[0])
+    q = scan_ops.to_device(queries, lists.device)
+    nlist_eff = l
+    npb = min(-(-nprobe * nlist_eff // max(1, nlist_eff - snap.n_dup)), nlist_eff)
+    rescore = snap.data is not None
+    kwide = min(ivf_ops._rescore_kwide(k, lists.dtype), npb * p) if rescore else k
+    grouped = b >= 16 or snap.list_inv is not None
+    out = {
+        "index": "ivf", "lists_dtype": lists_dtype, "rows": count,
+        "dim": int(lists.shape[2]), "batch": b, "k": k, "kwide": kwide,
+        "nprobe": nprobe, "nprobe_slots": npb, "L": l, "P": p,
+        "n_dup": int(snap.n_dup), "build_s": build_s,
+        "route": "grouped" if grouped else "paged",
+        "list_tensor_bytes": lists.numel() * lists.element_size(),
+    }
+    qn, probe = ivf_probe.probe_lists(snap.centroids, q, npb)
+    out["centroid_scores_probe_topk_ms"] = _event_ms(
+        lambda: ivf_probe.probe_lists(snap.centroids, q, npb), reps)
+    if grouped:
+        g = int(min(ivf_probe.GROUP_MAX, max(8, b * npb)))
+
+        def bookkeeping():
+            step_list, step_q, pair_step, pair_slot = ivf_probe.group_pairs(probe, l, g)
+            if snap.list_inv is not None:
+                qi, qinv = ivf_probe.quantize_queries_ivf(qn)
+                return (step_list, qi.to(torch.int8)[step_q], qinv[step_q],
+                        pair_step, pair_slot)
+            return step_list, qn.to(lists.dtype)[step_q], None, pair_step, pair_slot
+
+        step_list, gq, gqinv, pair_step, pair_slot = bookkeeping()
+        out["steps"] = int(step_list.shape[0])
+        out["live_steps"] = int((step_list >= 0).sum())
+        out["touched_lists"] = int(torch.unique(probe).numel())
+        out["bookkeeping_ms"] = _event_ms(bookkeeping, reps)
+
+        def kernel():
+            if gqinv is not None:
+                return ivf_probe.grouped_scores_q(
+                    lists, gq, step_list, list_valid, snap.list_inv, gqinv)
+            return ivf_probe.grouped_scores(lists, gq, step_list, list_valid)
+
+        scores = kernel()
+
+        def select():
+            flat = scores[pair_step, pair_slot].reshape(b, npb * p)
+            vals, pos = scan_ops.topk_last_axis(flat, min(kwide, npb * p))
+            win = torch.gather(probe, -1, pos // p)
+            return vals, list_ids[win, pos % p]
+    else:
+        out["bookkeeping_ms"] = 0.0
+        qd = qn.to(lists.dtype).contiguous()
+        p32 = probe.to(torch.int32)
+
+        def kernel():
+            return ivf_probe.probe_scores(lists, qd, p32)
+
+        scores = kernel()
+
+        def select():
+            valid = list_valid[probe].reshape(b, npb * p)
+            gids = list_ids[probe].reshape(b, npb * p)
+            flat = torch.where(valid, scores, ivf_probe._MASKED_SCORE)
+            vals, pos = scan_ops.topk_last_axis(flat, min(kwide, npb * p))
+            return vals, torch.gather(gids, -1, pos)
+
+    out["probe_kernel_ms"] = _event_ms(kernel, reps)
+    vals, ids = select()
+    out["gather_topk_ids_ms"] = _event_ms(select, reps)
+    out["rescore_ms"] = (
+        _event_ms(lambda: ivf_ops._exact_rescore(
+            snap.data, snap.inv_norms, q, vals, ids, k), reps)
+        if rescore else 0.0
+    )
+    out["search_device_total_ms"] = _event_ms(
+        lambda: snap.search(q, k, nprobe=nprobe, fetch=False), reps)
+    wall = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap.search(queries, k, nprobe=nprobe)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    out["snapshot_search_wall_ms"] = statistics.median(wall)
+    return out
+
+
+def clustered_corpus(rows: int, batch: int, dim: int, centres: int, seed: int,
+                     families: int = 32):
+    """(rows, batch) numpy arrays: corpus rows and queries from one seeded
+    two-level mixture, made on the card. Unit family directions; unit centres
+    27 degrees off their family's direction (so a centre has its family's
+    other centres as siblings at cosine 0.8); a row is a centre plus isotropic
+    noise 1.18 times the centre's length. Neighbours then spill into sibling
+    lists and recall depends on nprobe, as it does on real embeddings."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def unit(*shape):
+        return scan_ops._normalize(torch.randn(shape, device="cuda", generator=g))
+
+    fam = unit(families, dim)
+    member = torch.randint(0, families, (centres,), device="cuda", generator=g)
+    c = scan_ops._normalize(fam[member] + 0.5 * unit(centres, dim))
+    noise = 1.18 / float(np.sqrt(dim))
+
+    def draw(m):
+        which = torch.randint(0, centres, (m,), device="cuda", generator=g)
+        return c[which] + noise * torch.randn((m, dim), device="cuda", generator=g)
+
+    return draw(rows).cpu().numpy(), draw(batch).cpu().numpy()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
@@ -167,6 +304,11 @@ def main() -> None:
     ap.add_argument("--dtypes", default="float32,mixed,bfloat16,int8")
     ap.add_argument("--api", action="store_true",
                     help="also time the public class, with and without gc.freeze()")
+    ap.add_argument("--index", choices=("flat", "ivf"), default="flat")
+    ap.add_argument("--lists-dtypes", default="bfloat16,float32,int8")
+    ap.add_argument("--nlist", type=int, default=1024)
+    ap.add_argument("--nprobe", type=int, default=32)
+    ap.add_argument("--centres", type=int, default=1024)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_search needs a CUDA device")
@@ -174,6 +316,18 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.index == "ivf":
+        corpus, queries = clustered_corpus(args.rows, args.batch, args.dim, args.centres,
+                                   args.seed)
+        store = VectorStore(args.dim, "float32")
+        store.append(corpus)
+        for lists_dtype in args.lists_dtypes.split(","):
+            res = profile_ivf(lists_dtype, store, queries, args.k, args.nprobe,
+                              args.nlist, args.reps)
+            res["card"] = smi
+            print(json.dumps(res), flush=True)
+            torch.cuda.empty_cache()
+        return
     rng = np.random.default_rng(args.seed)
     corpus = rng.standard_normal((args.rows, args.dim), dtype=np.float32)
     queries = rng.standard_normal((args.batch, args.dim), dtype=np.float32)

@@ -25,9 +25,12 @@ What changed underneath, against the reference:
   ``get_vector``/pickle observe normalized rows; here normalization happens
   inside the scan and stored rows are returned as stored.
 
-Not in this slice of the port (each raises ``NotImplementedError`` naming its
-ROADMAP item): ``index="ivf"`` and ``calibrate_nprobe``, ``mesh=...``,
-``hybrid_rerank_results(device=True)``.
+``index="ivf"`` puts the coarse-quantized index of ops/ivf.py behind the same
+methods; its trained layout travels in the pickle under the extra key
+``"ivf"`` (numpy arrays and builtins, the JAX package's schema).
+
+Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
+``mesh=...`` and ``hybrid_rerank_results(device=True)``.
 """
 
 from __future__ import annotations
@@ -72,9 +75,12 @@ class VectorDatabase:
         the fused scan with a zero phase-2 margin; smaller batches are
         served exactly).
         mesh: not ported yet (anything but None raises NotImplementedError).
-        index: 'flat' (exact scan); 'ivf' is not ported yet and raises
-        NotImplementedError. nlist/nprobe/ivf_opts are the IVF knobs, kept
-        and validated for signature parity.
+        index: 'flat' (exact scan) or 'ivf' — coarse-quantized ANN, built
+        lazily once the corpus passes ivf_opts['build_threshold'] rows
+        (incremental inserts overflow to an exact side-buffer until the
+        rebuild policy folds them in; the trained layout persists in the
+        pickle). nlist/nprobe are the IVF knobs; ivf_opts fine-tunes
+        {build_threshold, rebuild_frac, iters, lists_dtype, ...}.
         coalesce_window_ms: > 0 enables serving-side dynamic batching —
         concurrent find_most_similar calls from different threads merge
         into shared device dispatches (each call waits up to the window);
@@ -146,9 +152,11 @@ class VectorDatabase:
                 data["metadata"],
                 data.get("inverted_index", defaultdict(set)),
             )
-            # a pickle from the JAX package may carry a trained IVF layout
-            # under "ivf"; index="flat" has no use for it and a later
-            # persist_to_disk from here writes the five reference keys only
+            if data.get("ivf") is not None:
+                # trained IVF layout travels with the pickle; reattached to
+                # the corpus lazily on first search (one device scatter, no
+                # k-means re-run)
+                self._engine.set_ivf_state(data["ivf"])
 
     def persist_to_disk(self) -> None:
         """Pickle snapshot, schema-compatible with the reference
@@ -166,6 +174,11 @@ class VectorDatabase:
                 "inverse_id_map": dict(self._engine.inverse_id_map),
                 "inverted_index": self._engine.inverted_index,
             }
+            # extra key; the reference's loader reads only the 5 keys above,
+            # so its pickles stay loadable there
+            ivf_state = self._engine.ivf_state()
+            if ivf_state is not None:
+                data["ivf"] = ivf_state
         # atomic replace: the reference pickles in place
         # (vector_database.py:547), so a crash mid-write leaves a torn file
         # that poisons every future auto-load; tmp+rename means any crash
@@ -225,8 +238,8 @@ class VectorDatabase:
         similarities (higher is better), as in the reference FAISS-IP path
         (vector_database.py:466-536).
 
-        ``nprobe`` (index='ivf' only, which is not ported yet): validated
-        and otherwise unused.
+        ``nprobe`` (index='ivf' only): per-call override of the configured
+        probe width — the IVF recall/latency knob.
         """
         ids, distances, metadatas = self._engine.search(
             embedding,
@@ -318,8 +331,8 @@ class VectorDatabase:
 
     def warmup(self, k: int = 10, batch: int = 1) -> None:
         """Pay the cold-start costs now instead of on the first query:
-        device corpus upload, the kernel build (batch >= 16), one search of
-        the (batch, k) shape. Optional; idempotent."""
+        device corpus upload, IVF build (if configured and due), the kernel
+        build, one search of the (batch, k) shape. Optional; idempotent."""
         self._engine.warmup(k=k, batch=batch)
 
     def set_coalesce_window(self, ms: float) -> None:
@@ -330,8 +343,13 @@ class VectorDatabase:
     def calibrate_nprobe(self, recall_target: float = 0.95, queries=None,
                          k: int = 10, sample: int = 64,
                          seed: int = 0) -> dict:
-        """IVF probe-width calibration (index='ivf' only). IVF is not ported
-        yet: raises NotImplementedError naming the ROADMAP item."""
+        """Measure IVF recall@k against this database's own exact scan and
+        install the smallest nprobe meeting ``recall_target`` as the default
+        (index='ivf' only). Pass a real query workload via ``queries`` for
+        the most faithful figure (``seed`` varies the default corpus-row
+        sampling); ``ivf_opts={"recall_target": ...}`` runs this
+        automatically after every build. The calibrated value persists with
+        the pickled layout. Returns {"nprobe", "recall", "evaluated"}."""
         return self._engine.calibrate_nprobe(
             recall_target, queries=queries, k=k, sample=sample, seed=seed
         )
@@ -357,4 +375,7 @@ class VectorDatabase:
         coal = eng.coalesce_stats()
         if coal is not None:
             out["coalescing"] = coal
+        ivf = eng.ivf_stats()
+        if ivf is not None:
+            out["ivf"] = ivf
         return out

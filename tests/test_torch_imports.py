@@ -31,6 +31,7 @@ def test_import_in_fresh_process_loads_no_jax():
         "import minivectordb_tpu_torch as p\n"
         "import minivectordb_tpu_torch.convert, minivectordb_tpu_torch.ops.fused_scan\n"
         "import minivectordb_tpu_torch.kernels.build, minivectordb_tpu_torch.utils.telemetry\n"
+        "import minivectordb_tpu_torch.ops.ivf, minivectordb_tpu_torch.ops.ivf_probe\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'minivectordb_tpu'))\n"
         "assert not bad, bad\n"
@@ -81,6 +82,21 @@ def test_kernel_modules_import_without_nvcc_or_triton():
         assert f'extern "C" int {symbol}(' in src
         assert symbol in fused_scan._ARGTYPES
     # the product is computed in the kernel's own body
+    assert "cublas" not in src.lower() and "cutlass" not in src.lower()
+
+
+def test_ivf_probe_kernels_have_a_source_and_build_nothing_at_import():
+    from minivectordb_tpu_torch.kernels import build
+    from minivectordb_tpu_torch.ops import ivf_probe
+
+    assert ivf_probe._fns == {} and "ivf_probe" not in build.build_info
+    with open(os.path.join(build.CSRC_DIR, "ivf_probe.cu"), encoding="utf-8") as f:
+        src = f.read()
+    for symbol in ("ivf_probe_f32", "ivf_probe_bf16", "ivf_grouped_f32",
+                   "ivf_grouped_bf16", "ivf_grouped_i8"):
+        assert f'extern "C" int {symbol}(' in src
+        assert symbol in ivf_probe._ARGTYPES and symbol in ivf_probe.LAUNCHES
+    assert "mma.sync.aligned.m16n8k16" in src and "mma.sync.aligned.m16n8k32" in src
     assert "cublas" not in src.lower() and "cutlass" not in src.lower()
 
 

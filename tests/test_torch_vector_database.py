@@ -238,15 +238,15 @@ def test_store_state_from_numpy_carries_device_arrays():
 def test_unported_parts_raise_and_approx_serves(tmp_path, what):
     path = str(tmp_path / "x.pkl")
     if what == "ivf":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TorchDB(storage_file=path, index="ivf", device="cpu")
+        db = TorchDB(storage_file=path, index="ivf", device="cpu")
+        assert db.stats()["ivf"]["built"] is False
         with pytest.raises(ValueError):
             TorchDB(storage_file=path, index="hnsw", device="cpu")
     elif what == "mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TorchDB(storage_file=path, mesh=object(), device="cpu")
     elif what == "calibrate_nprobe":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="calibrate_nprobe requires index='ivf'"):
             TorchDB(storage_file=path, device="cpu").calibrate_nprobe()
     elif what == "hybrid_device":
         db = TorchDB(storage_file=path, device="cpu")

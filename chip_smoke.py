@@ -27,6 +27,25 @@ Phases (one JSON object per output line):
              nprobe the kernel route must equal the plain probe
              (ops/ivf.py:_ivf_search) on the same snapshot; recall@10 is
              printed, not asserted
+  encoder_path  EmbeddingModel() (the bundled builtin artifact) on texts long
+             enough for sequences of 256 and 512 (K6-f32, 2 launches a call)
+             and on short ones (no launch), and batches of 1 and of 8 through
+             its host/device router, eight calls each for long and for short
+             texts, every result equal to the card's whichever route served
+             it; then the e5-large architecture at
+             its published widths (24 layers, hidden 1024, 16 heads of 64,
+             intermediate 4096, vocabulary 250,037) with weights from a
+             seeded torch.Generator, written as an artifact directory and
+             loaded through EmbeddingModel(use_quantized_onnx_model=False,
+             alternative_model="large"): 32 texts of about 500 tokens in
+             float32 (K6-f32) and with compute_dtype="bfloat16" (K6-bf16), 24
+             launches a call; each result held against the same module with
+             the plain attention in the kernel's place
+  pipeline_path  TextSearchPipeline.search over a VectorDatabase of 262,144 x
+             1,024 (256 texts embedded by that model, the rest random unit
+             rows): 32 long queries, with and without a metadata filter, and
+             on an index="ivf" copy, against find_most_similar_batch of the
+             model's embeddings; every stored text finds itself first
   kernels    every kernel instantiation held against its plain PyTorch
              version over its whole output and timed beside it, beside one
              library call, and beside the card's bound: the phase-1 kernels
@@ -35,7 +54,13 @@ Phases (one JSON object per output line):
              probe kernels (K3 f32/bf16, K4 f32/bf16, K5) at the shapes the
              1,000,000-row IVF path produced (its lists, its step table for
              256 queries, its probe ids for 8), after a small ragged case
-             for each (P = 130, d = 6 / 12 / 100, G = 8, padding steps).
+             for each (P = 130, d = 6 / 12 / 100, G = 8, padding steps); and
+             the flash-attention kernel K6 (f32, bf16) at B = 32, nh = 16,
+             S = 512, hd = 64 with seeded ragged lengths, in the encoder's
+             (B, S, nh, hd) memory layout, after S = 256 at hd = 32 / 48 /
+             128 and a ragged case (S = 200 and S = 1, a row with one real
+             token, key tiles that hold pads only), beside
+             scaled_dot_product_attention with a boolean segment mask.
              "launches" are the counts of the path phases above: the flat
              phases, and each database of the ivf phase, are driven through
              the public class with every count at 0 and read just after;
@@ -48,6 +73,15 @@ and bfloat16-input 2e-5 (another summation order over 384 float32 terms;
 bf16 products are exact in float32), int8 exactly 0 (integer dots, the same
 two float32 multiplies in the same order); masked and past-count subtiles
 must equal -3.0e38 exactly. Database against oracle: ids equal, scores 2e-5.
+K6 against its plain version, inputs standard normal, at every position, pads
+included: float32 2e-5 (another summation order, expf against torch's exp);
+bfloat16 2e-2 (the kernel rounds the probabilities to bf16 before P V, as the
+TPU kernel does, the plain version keeps them float32; both round the output
+once) and, since a one-token row's outputs near 1 set that maximum while a
+long row's are near 0.1, for each output row |kernel - plain| <= 2^-7 *
+max|plain| over the row + 2e-3 (one bf16 step of the row's largest value,
+plus the P rounding). Embeddings (unit vectors) with the kernel against the plain attention
+in the same module: float32 2e-5; bfloat16 2e-2 and a cosine of 0.999.
 
 bound_ms is the larger of (bytes that must move) / 3.35 TB/s and
 (operations) / peak, with the H100 SXM data-sheet peaks: 67 TFLOP/s float32
@@ -56,7 +90,9 @@ rows need reading or multiplying, so both terms count those rows, not the
 padded capacity; every output value is written. For the grouped probe the
 work depends on the data: bytes are the DISTINCT touched list blocks read
 once plus the live steps' operands and outputs, operations those of the live
-steps; padding steps count nothing.
+steps; padding steps count nothing. For K6 the operations are those of the
+(query, key) pairs of one segment, 4 * nh * hd * sum_b(n_b^2 + (S - n_b)^2)
+for n_b real tokens in row b; q, k, v and the output move once each.
 """
 
 import json
@@ -73,8 +109,16 @@ import torch
 if not torch.cuda.is_available():
     sys.exit("chip_smoke.py needs a CUDA device: torch.cuda.is_available() is False")
 
-from minivectordb_tpu_torch import VectorDatabase  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from minivectordb_tpu_torch import EmbeddingModel, VectorDatabase  # noqa: E402
+from minivectordb_tpu_torch import convert as port_convert  # noqa: E402
+from minivectordb_tpu_torch.core.pipeline import TextSearchPipeline  # noqa: E402
 from minivectordb_tpu_torch.kernels import build  # noqa: E402
+from minivectordb_tpu_torch.models import configs as model_configs  # noqa: E402
+from minivectordb_tpu_torch.models import convert as model_convert  # noqa: E402
+from minivectordb_tpu_torch.models import encoder as encoder_mod  # noqa: E402
+from minivectordb_tpu_torch.ops import flash_attention as flash_ops  # noqa: E402
 from minivectordb_tpu_torch.ops import fused_scan, ivf as ivf_ops  # noqa: E402
 from minivectordb_tpu_torch.ops import ivf_probe, scan as scan_ops  # noqa: E402
 from minivectordb_tpu_torch.profile_search import clustered_corpus  # noqa: E402
@@ -86,7 +130,13 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "i8": 1979e12}
 TOL = {"f32": 2e-5, "bf16": 2e-5, "i8": 0.0}
 MASKED = float(np.float32(-3.0e38))
-SOURCES = ("phase1", "ivf_probe")
+TOL_K6 = {"f32": 2e-5, "bf16": 2e-2}
+# bfloat16 only, per output row (the hd values of one query and head):
+# |kernel - plain| <= ROW_REL * max|plain| over the row + ROW_ABS
+TOL_K6_ROW_REL = 2.0 ** -7
+TOL_K6_ROW_ABS = 2e-3
+TOL_EMBED = {"f32": 2e-5, "bf16": 2e-2}
+SOURCES = ("phase1", "ivf_probe", "flash_attention")
 
 
 def emit(obj) -> None:
@@ -124,7 +174,7 @@ def phase_env() -> str:
         [build.find_nvcc(), "--version"], capture_output=True, text=True,
         check=True,
     ).stdout.strip().splitlines()[-2:]
-    # builds csrc/phase1.cu and csrc/ivf_probe.cu from the checkout
+    # builds every source of csrc/ from the checkout
     t0 = time.perf_counter()
     for name in SOURCES:
         build.load_library(name)
@@ -409,7 +459,8 @@ def compare(kind, ops, count, mask, what):
     return err, int(dead.sum()), float(got[live].mean())
 
 
-def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict) -> dict:
+def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
+                  k6_launches: dict) -> dict:
     # small ragged case first: d not a multiple of the chunk, B below a block
     mask_s, cases_s = kernel_cases(4096, 24, 8, SEED + 2)
     ragged = {}
@@ -467,6 +518,7 @@ def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict) -> dict:
     del cases, mask
     torch.cuda.empty_cache()
     kernels += ivf_kernel_rows(ivf_shapes, ivf_launches)
+    kernels += encoder_kernel_rows(k6_launches)
     return {"kernels": kernels}
 
 
@@ -917,6 +969,413 @@ def ivf_kernel_rows(shapes: dict, launches: dict) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# K6: flash attention against its plain version
+# ---------------------------------------------------------------------------
+
+
+def attention_case(b, nh, s, hd, dtype, lengths, seed):
+    """q, k, v as the encoder hands them over: (B, nh, S, hd) views of
+    (B, S, nh*hd) projections; segment ids 1 for the first lengths[i] tokens
+    of row i and 0 for the pads."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    q, k, v = (
+        torch.randn((b, s, nh * hd), device=DEV, generator=gen).to(dtype)
+        .view(b, s, nh, hd).transpose(1, 2)
+        for _ in range(3)
+    )
+    lens = torch.as_tensor(lengths, device=DEV)
+    seg = (torch.arange(s, device=DEV)[None, :] < lens[:, None]).to(torch.int32)
+    return q, k, v, seg.contiguous()
+
+
+def compare_attention(kind, case, what) -> tuple:
+    """(max |kernel - plain| over every position, pads included; the largest
+    share of its row's limit that an error reached, None for float32)."""
+    q, k, v, seg = case
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    got = flash_ops.flash_attention(q, k, v, seg, scale)
+    torch.cuda.synchronize()
+    want = flash_ops.flash_attention_plain(q, k, v, seg, scale)
+    assert got.shape == want.shape and got.dtype == q.dtype, what
+    assert got.stride() == q.stride(), (what, "the output must have q's strides")
+    assert torch.isfinite(got.to(torch.float32)).all(), what
+    diff = (got.to(torch.float32) - want.to(torch.float32)).abs()
+    err = float(diff.max())
+    assert err <= TOL_K6[kind], (what, err)
+    if kind != "bf16":
+        return err, None
+    limit = (TOL_K6_ROW_REL * want.to(torch.float32).abs().amax(dim=-1, keepdim=True)
+             + TOL_K6_ROW_ABS)
+    share = float((diff / limit).max())
+    assert share <= 1.0, (what, "a row's error is above its limit", share)
+    return err, share
+
+
+def seeded_lengths(b, s, lo, seed):
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(lo, s + 1, size=b)
+    lens[0] = s  # one row without pads
+    return lens.tolist()
+
+
+def encoder_kernel_rows(launches: dict) -> list:
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    # small and ragged shapes first: a fault shows early
+    small = {}
+    for kind, dtype in dtypes.items():
+        errs, shares = {}, []
+
+        def held(name, case, what):
+            errs[name], share = compare_attention(kind, case, what)
+            shares.append(share)
+
+        for hd in (32, 48, 128):
+            case = attention_case(4, 8, 256, hd, dtype, [256, 200, 64, 1], SEED + 30 + hd)
+            held(f"S256_hd{hd}", case, f"K6-{kind} S=256 hd={hd}")
+        # S = 200: a ragged last tile; 70 real tokens leave the key tile
+        # 128..191 with pads only for real queries, and the tiles 0..63 with
+        # nothing a pad query may see; rows with one real token and with none
+        # padded
+        case = attention_case(4, 4, 200, 64, dtype, [70, 1, 200, 130], SEED + 40)
+        held("S200", case, f"K6-{kind} S=200")
+        case = attention_case(3, 2, 1, 64, dtype, [1, 1, 0], SEED + 41)
+        held("S1", case, f"K6-{kind} S=1")
+        small[kind] = (errs, None if kind == "f32" else max(shares))
+
+    b, nh, s, hd = 32, 16, 512, 64
+    lengths = seeded_lengths(b, s, 200, SEED + 42)
+    scale = 1.0 / float(np.sqrt(hd))
+    pairs = sum(n * n + (s - n) * (s - n) for n in lengths)
+    rows = []
+    for kind, dtype in dtypes.items():
+        case = attention_case(b, nh, s, hd, dtype, lengths, SEED + 43)
+        q, k, v, seg = case
+        err, share = compare_attention(kind, case, f"K6-{kind}")
+        same = (seg[:, None, :, None] == seg[:, None, None, :])  # (B, 1, S, S)
+
+        def run():
+            return flash_ops.flash_attention(q, k, v, seg, scale)
+
+        def plain():
+            return flash_ops.flash_attention_plain(q, k, v, seg, scale)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)
+
+        want = plain().to(torch.float32)
+        lib_err = float((library().to(torch.float32) - want).abs().max())
+        del want
+        # plain, kernel, kernel, plain: both versions inside one run
+        plain_a = event_ms(plain, 3, warmup=1)
+        ms_a = event_ms(run, 20)
+        ms_b = event_ms(run, 20)
+        plain_b = event_ms(plain, 3, warmup=1)
+        lib_ms = event_ms(library, 10)
+        item = q.element_size()
+        n_bytes = 4 * b * nh * s * hd * item + b * s * 4
+        n_ops = 4 * nh * hd * pairs
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = n_ops / PEAK_OPS_S[kind] * 1e3
+        ms = statistics.median([ms_a, ms_b])
+        rows.append({
+            "name": f"K6-{kind}",
+            "route": "cuda",
+            "source": "minivectordb_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "minivectordb_tpu/models/encoder.py:138",
+            "launches": launches[f"flash_attention_{kind}"],
+            "max_abs_err": err,
+            "tolerance": TOL_K6[kind],
+            "row_tolerance": None if kind == "f32" else
+            f"{TOL_K6_ROW_REL} * max|plain| over the row + {TOL_K6_ROW_ABS}",
+            "max_err_over_row_tolerance": share,
+            "ms": ms,
+            "plain_ms": statistics.median([plain_a, plain_b]),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "library": "scaled_dot_product_attention, boolean (B, 1, S, S) segment mask",
+            "library_max_abs_err_vs_plain": lib_err,
+            "bound_bytes": n_bytes,
+            "bound_operations": n_ops,
+            "dense_operations": 4 * b * nh * s * s * hd,
+            "dense_tflops": 4 * b * nh * s * s * hd / (ms * 1e-3) / 1e12,
+            "shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths_min": min(lengths),
+                      "lengths_mean": float(np.mean(lengths))},
+            "small_max_abs_err": small[kind][0],
+            "small_max_err_over_row_tolerance": small[kind][1],
+        })
+        del case, q, k, v, seg, same
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# encoder_path and pipeline_path: text -> embedding -> search
+# ---------------------------------------------------------------------------
+
+
+class plain_attention:
+    """Inside the block the encoder's flash route calls the plain version of
+    K6: the same module with the plain attention in the kernel's place."""
+
+    def __enter__(self):
+        self._kernel = encoder_mod.flash_ops.flash_attention
+        encoder_mod.flash_ops.flash_attention = flash_ops.flash_attention_plain
+
+    def __exit__(self, *exc):
+        encoder_mod.flash_ops.flash_attention = self._kernel
+
+
+def read_k6_launches(total: dict, want: dict, what: str) -> dict:
+    """The counts since the last reset, all made through the public classes;
+    they must equal ``want``. Adds them to ``total``."""
+    got = dict(flash_ops.LAUNCHES)
+    assert got == want, (what, got, want)
+    for name, count in got.items():
+        total[name] = total.get(name, 0) + count
+    return got
+
+
+def seeded_texts(words, n, lo, hi, seed):
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(words, size=int(rng.integers(lo, hi + 1))))
+            for _ in range(n)]
+
+
+def embed_error(kind, got, want, what) -> dict:
+    assert got.shape == want.shape and np.isfinite(got).all(), what
+    err = float(np.abs(got - want).max())
+    cos = float(np.sum(got * want, axis=1).min())
+    assert err <= TOL_EMBED[kind], (what, err)
+    assert cos >= 0.999, (what, cos)
+    assert np.abs(np.linalg.norm(got, axis=1) - 1.0).max() <= 1e-3, what
+    return {"max_abs_err": err, "min_cosine": cos}
+
+
+def timed_embeds(model, texts, reps=5):
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.extract_embeddings_batch(texts)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def drive_router(one: list, eight: list, want: np.ndarray, launches_per_device_call: int):
+    """A new EmbeddingModel() takes batches of 1 and of 8 in turn, eight calls
+    in all, so its host/device router primes on the host, times the card and
+    settles. Every result must equal ``want`` (the card's embeddings of the
+    same texts in a batch of 16, which bypasses the router) within 2e-5,
+    whichever route served it; K6 must have been launched by the device calls
+    and by nothing else."""
+    model = EmbeddingModel()
+    assert model.model.routing_stats()["host_capable"]
+    flash_ops.reset_launches()
+    routes, errs = [], {"host": 0.0, "device": 0.0}
+    for i in range(8):
+        texts = eight if i % 2 else one
+        before = model.model.routing_stats()["host_calls"]
+        got = model.extract_embeddings(texts[0]) if len(texts) == 1 else \
+            model.extract_embeddings_batch(texts)
+        got = np.asarray(got, np.float32).reshape(len(texts), -1)
+        route = "host" if model.model.routing_stats()["host_calls"] > before else "device"
+        err = float(np.abs(got - want[:len(texts)]).max())
+        assert err <= TOL_EMBED["f32"], ("router", i, route, err)
+        routes.append(route)
+        errs[route] = max(errs[route], err)
+    stats = model.model.routing_stats()
+    assert stats["host_calls"] >= 4 and stats["device_calls"] >= 2, stats
+    assert stats["host_ema_s"] is not None and stats["device_ema_s"] is not None, stats
+    got = dict(flash_ops.LAUNCHES)
+    assert got == {"flash_attention_f32": stats["device_calls"] * launches_per_device_call,
+                   "flash_attention_bf16": 0}, (got, stats)
+    return {"routes": routes, "max_abs_err_vs_batch_of_16_on_the_card": errs,
+            "routing": stats, "launches": got}
+
+
+def phase_encoder_path(tmp: str):
+    """Returns (the float32 e5-large-width model, its texts, the K6 launch
+    counts of the public calls). Every count is set to 0 before a model is
+    driven and read just after its last public call; the runs with the plain
+    attention come after the read."""
+    path_launches = {}
+    out = {"phase": "encoder_path"}
+
+    # (a) the bundled builtin artifact
+    flash_ops.reset_launches()
+    builtin = EmbeddingModel()
+    assert builtin.weights_source == "bundled-trained" and builtin.device == DEV
+    cfg = builtin.model.cfg
+    words = builtin.model.tokenizer.words
+    t256 = seeded_texts(words, 16, 150, 200, SEED + 50)
+    t512 = seeded_texts(words, 16, 300, 400, SEED + 51)
+    short = seeded_texts(words, 16, 3, 12, SEED + 52)
+    e_short = builtin.extract_embeddings_batch(short)
+    assert flash_ops.LAUNCHES["flash_attention_f32"] == 0, "short texts must not reach K6"
+    e256 = builtin.extract_embeddings_batch(t256)
+    e512 = builtin.extract_embeddings_batch(t512)
+    shapes = [builtin.model._tokenize_padded(t, 512)[0].shape for t in (short, t256, t512)]
+    assert shapes[1] == (16, 256) and shapes[2] == (16, 512) and shapes[0][1] < 256, shapes
+    got = read_k6_launches(
+        path_launches,
+        {"flash_attention_f32": 2 * cfg.layers, "flash_attention_bf16": 0}, "builtin")
+    with plain_attention():
+        p256 = builtin.extract_embeddings_batch(t256)
+        p512 = builtin.extract_embeddings_batch(t512)
+    assert e_short.shape == (16, cfg.hidden)
+    out["builtin"] = {
+        "config": {"layers": cfg.layers, "hidden": cfg.hidden, "heads": cfg.heads},
+        "token_shapes": [list(x) for x in shapes],
+        "launches": got,
+        "S256_vs_plain_attention": embed_error("f32", e256, p256, "builtin S=256"),
+        "S512_vs_plain_attention": embed_error("f32", e512, p512, "builtin S=512"),
+        "routing": builtin.model.routing_stats(),
+        # batches of at most 8 go through the host/device router: long texts
+        # (S = 512, every device call launches K6 once a layer) and short ones
+        "router_long_texts": drive_router(t512[:1], t512[:8], e512, cfg.layers),
+        "router_short_texts": drive_router(short[:1], short[:8], e_short, 0),
+    }
+    del builtin
+
+    # (b) e5-large at its published widths, weights from a seeded generator,
+    # through the artifact directory a converted checkpoint would live in
+    cfg = model_configs.E5_LARGE
+    assert (cfg.layers, cfg.hidden, cfg.heads, cfg.intermediate, cfg.vocab_size) == (
+        24, 1024, 16, 4096, 250037)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 53)
+    t0 = time.perf_counter()
+    seeded = encoder_mod.init_params(cfg, gen, DEV)
+    weights = os.path.join(tmp, "weights")
+    model_convert.save_converted(
+        port_convert.encoder_to_numpy(seeded), cfg, os.path.join(weights, "large"))
+    write_s = time.perf_counter() - t0
+    del seeded
+    torch.cuda.empty_cache()
+    os.environ["MINIVECTORDB_TORCH_WEIGHTS"] = weights
+    vocab = [f"w{i}" for i in range(50_000)]
+    texts = seeded_texts(vocab, 32, 380, 505, SEED + 54)
+    texts[0] = " ".join(vocab[:600])  # one text that is cut at 512 tokens
+    large = {}
+    models = {}
+    for kind, compute_dtype in (("f32", None), ("bf16", "bfloat16")):
+        flash_ops.reset_launches()
+        t0 = time.perf_counter()
+        model = EmbeddingModel(use_quantized_onnx_model=False, alternative_model="large",
+                               compute_dtype=compute_dtype)
+        load_s = time.perf_counter() - t0
+        assert model.weights_source == "pretrained" and model.model.cfg == cfg
+        t0 = time.perf_counter()
+        ids, mask = model.model._tokenize_padded(texts, 512)
+        tokenize_ms = (time.perf_counter() - t0) * 1e3
+        assert ids.shape == (32, 512) and int(mask[0].sum()) == 512, ids.shape
+        first = model.extract_embeddings_batch(texts)
+        entry = f"flash_attention_{kind}"
+        other = "flash_attention_bf16" if kind == "f32" else "flash_attention_f32"
+        assert flash_ops.LAUNCHES == {entry: cfg.layers, other: 0}, flash_ops.LAUNCHES
+        emb, ms = timed_embeds(model, texts)
+        assert np.array_equal(first, emb), "an embed call must repeat itself"
+        got = read_k6_launches(path_launches, {entry: 6 * cfg.layers, other: 0}, kind)
+        with plain_attention():
+            want = model.extract_embeddings_batch(texts)
+        large[kind] = {
+            "load_s": load_s,
+            "tokens_per_text_mean": float(mask.sum(axis=1).mean()),
+            "embed_ms_per_batch_median": ms,
+            "of_which_host_tokenize_ms": tokenize_ms,
+            "texts_per_s": 32 / (ms * 1e-3),
+            "launches": got,
+            "launches_per_call": cfg.layers,
+            "vs_plain_attention": embed_error(kind, emb, want, f"e5-large widths {kind}"),
+        }
+        models[kind] = (model, emb)
+    # bfloat16 against float32, for the record (no assertion beyond a cosine)
+    cos = float(np.sum(models["f32"][1] * models["bf16"][1], axis=1).min())
+    assert cos >= 0.99, cos
+    large["bf16_vs_f32_min_cosine"] = cos
+    large["artifact_write_s"] = write_s
+    large["config"] = {"layers": cfg.layers, "hidden": cfg.hidden, "heads": cfg.heads,
+                       "intermediate": cfg.intermediate, "vocab_size": cfg.vocab_size}
+    out["e5_large_widths"] = large
+    emit(out)
+    model = models["f32"][0]
+    del models
+    torch.cuda.empty_cache()
+    return model, texts, path_launches
+
+
+def phase_pipeline_path(tmp: str, model, texts, path_launches: dict) -> None:
+    n, d, k = 262_144, 1024, 10
+    stored = seeded_texts([f"w{i}" for i in range(50_000)], 256 - len(texts), 380, 505,
+                          SEED + 60)
+    stored = texts + stored  # the 32 query texts are rows 0..31
+    layers = model.model.cfg.layers
+    flash_ops.reset_launches()
+    t0 = time.perf_counter()
+    vecs = np.concatenate([model.extract_embeddings_batch(stored[i:i + 32])
+                           for i in range(0, len(stored), 32)])
+    embed_s = time.perf_counter() - t0
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 61)
+    rest = scan_ops._normalize(torch.randn((n - len(stored), d), device=DEV, generator=gen))
+    corpus = np.concatenate([vecs, rest.cpu().numpy()])
+    del rest
+    out = {"phase": "pipeline_path", "rows": n, "dim": d, "batch": len(texts), "k": k,
+           "embed_256_texts_s": embed_s}
+    flt = {"bucket": {"$lte": 9}}
+    n_calls = len(stored) // 32
+    for index in ("flat", "ivf"):
+        db = VectorDatabase(storage_file=os.path.join(tmp, f"pipe_{index}.pkl"), index=index)
+        load_s = load_db(db, corpus, pieces=2)
+        pipe = TextSearchPipeline(model, db)
+        t0 = time.perf_counter()
+        first = pipe.search(texts, k=k)  # uploads the corpus (and builds the index)
+        first_s = time.perf_counter() - t0
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = pipe.search(texts, k=k)
+            times.append((time.perf_counter() - t0) * 1e3)
+        filt = pipe.search(texts, k=k, metadata_filter=flt)
+        one = pipe.search(texts[3], k=k)
+        n_calls += 8
+        q = model.extract_embeddings_batch(texts)
+        n_calls += 1
+        want = db.find_most_similar_batch(q, k=k)
+        want_f = db.find_most_similar_batch(q, k=k, metadata_filter=flt)
+        errs = []
+        for what, got_r, want_r in (("search", res, want), ("first search", first, want),
+                                    ("filtered", filt, want_f), ("single", [one], want[3:4])):
+            want_v = np.asarray([r[1] for r in want_r], np.float32)
+            want_i = np.asarray([r[0] for r in want_r])
+            # ids equal (two may swap where their scores are tied), scores 2e-5
+            check_hits_tied(got_r, want_v, want_i, f"pipeline {index} {what}")
+            errs += [float(np.abs(np.asarray(g[1], np.float32) - w).max())
+                     for g, w in zip(got_r, want_v)]
+        assert [r[0][0] for r in res] == list(range(len(texts))), "a text must find itself"
+        assert all(abs(float(r[1][0]) - 1.0) <= 1e-4 for r in res)
+        assert all(md["bucket"] <= 9 for _i, _s, mds in filt for md in mds)
+        if index == "ivf":
+            assert db.stats()["ivf"]["built"], db.stats()["ivf"]
+        out[index] = {
+            "load_s": load_s,
+            "first_search_s": first_s,
+            "search_ms_median": statistics.median(times),
+            "max_abs_score_err_vs_embed_then_search": max(errs),
+            "checked": ["batch of 32", "filtered", "single text", "self first"],
+        }
+        del db, pipe
+        torch.cuda.empty_cache()
+    out["launches"] = read_k6_launches(
+        path_launches,
+        {"flash_attention_f32": n_calls * layers, "flash_attention_bf16": 0}, "pipeline")
+    emit(out)
+
+
 def main() -> None:
     smi = phase_env()
     with tempfile.TemporaryDirectory() as tmp:
@@ -926,11 +1385,17 @@ def main() -> None:
         launches = dict(fused_scan.LAUNCHES)
         torch.cuda.empty_cache()
         ivf_shapes, ivf_launches = phase_ivf_path(tmp)
-    emit({"phase": "launches", "flat_path": launches, "ivf_path": ivf_launches})
-    missing = [name for name, n in {**launches, **ivf_launches}.items() if n == 0]
+        torch.cuda.empty_cache()
+        model, texts, k6_launches = phase_encoder_path(tmp)
+        phase_pipeline_path(tmp, model, texts, k6_launches)
+        del model
+    emit({"phase": "launches", "flat_path": launches, "ivf_path": ivf_launches,
+          "text_path": k6_launches})
+    missing = [name for name, n in {**launches, **ivf_launches, **k6_launches}.items()
+               if n == 0]
     assert not missing, f"the main path never launched: {missing}"
     torch.cuda.empty_cache()
-    emit(phase_kernels(launches, ivf_shapes, ivf_launches))
+    emit(phase_kernels(launches, ivf_shapes, ivf_launches, k6_launches))
     print(smi, flush=True)
     emit({
         "ok": True,

@@ -9,7 +9,11 @@ a corpus over) hand state across as numpy arrays and builtins:
   ``inv_norms``, optionally the bfloat16 ``scan_buf``) become tensors on the
   port's device, byte for byte, so kernel-level tests run both packages on
   the same bytes. numpy has no bfloat16: bf16 arrays cross as ``uint16``
-  views (``np.asarray(x).view(np.uint16)``) and are reinterpreted here.
+  views (``np.asarray(x).view(np.uint16)``) and are reinterpreted here;
+- the encoder's parameter pytree as numpy arrays (what
+  ``models/convert.load_converted`` reads from a ``params.npz``, and what the
+  JAX package's ``init_params`` / ``load_converted`` give after
+  ``np.asarray``) becomes a loaded ``models.encoder.Encoder``, and back.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ import numpy as np
 import torch
 
 from minivectordb_tpu_torch.core.engine import SearchEngine
+from minivectordb_tpu_torch.models import convert as model_convert
+from minivectordb_tpu_torch.models.encoder import Encoder, EncoderConfig
 from minivectordb_tpu_torch.ops import scan as scan_ops
 
 
@@ -114,3 +120,83 @@ def ivf_state_from_numpy(state: dict) -> dict:
     if p != out["pad_len"]:
         raise ValueError(f"pad_len {out['pad_len']} but tables have {p} slots")
     return out
+
+
+_DENSE_NAMES = ("q", "k", "v", "attn_out", "ffn_in", "ffn_out")
+_LN_NAMES = ("attn_ln", "ffn_ln")
+
+
+def encoder_from_numpy(params: dict, cfg: EncoderConfig, device=None,
+                       dtype: torch.dtype = torch.float32) -> Encoder:
+    """A loaded ``Encoder`` on ``device`` from the parameter pytree.
+
+    ``params`` is the JAX package's pytree with numpy leaves (nested, or the
+    flat ``layers.0.q.w`` names of a ``params.npz``); leaves of any float type
+    are cast to ``dtype`` (the bundled artifacts hold float16). The pytree's
+    dense weights are (in, out), for ``x @ w``; the port stores them (out, in),
+    as ``torch.nn.functional.linear`` reads them, and transposes each ONCE,
+    here, never per call. ``device=None`` means the CUDA card and raises
+    without one."""
+    dev = scan_ops.resolve_device(device)
+    if "layers" not in params:
+        params = model_convert._unflatten_params(params, cfg.layers)
+    if len(params["layers"]) != cfg.layers:
+        raise ValueError(
+            f"{len(params['layers'])} layers of parameters for a config of {cfg.layers}"
+        )
+    enc = Encoder(cfg, dev, dtype)
+
+    def put(param, arr, transpose=False):
+        arr = np.asarray(arr)
+        if arr.dtype != np.float32:
+            arr = arr.astype(np.float32)
+        want = tuple(param.shape)[::-1] if transpose else tuple(param.shape)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"parameter of shape {arr.shape}, expected {want}")
+        t = scan_ops.to_device(arr, dev)
+        param.copy_(t.T if transpose else t)  # casts to the module's dtype
+
+    with torch.no_grad():
+        put(enc.word_emb, params["word_emb"])
+        put(enc.pos_emb, params["pos_emb"])
+        # only token type 0 is ever used: keep that row of a wider table
+        put(enc.type_emb, np.asarray(params["type_emb"])[:1])
+        put(enc.emb_ln.g, params["emb_ln"]["g"])
+        put(enc.emb_ln.b, params["emb_ln"]["b"])
+        for layer, lp in zip(enc.layers, params["layers"]):
+            for name in _DENSE_NAMES:
+                put(getattr(layer, name).weight, lp[name]["w"], transpose=True)
+                put(getattr(layer, name).bias, lp[name]["b"])
+            for name in _LN_NAMES:
+                put(getattr(layer, name).g, lp[name]["g"])
+                put(getattr(layer, name).b, lp[name]["b"])
+    return enc
+
+
+def encoder_to_numpy(encoder: Encoder) -> dict:
+    """The parameter pytree (float32 numpy leaves, dense weights (in, out)) of
+    a loaded ``Encoder``: what ``models/convert.save_converted`` writes and
+    either package loads."""
+    def arr(t, transpose=False):
+        a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
+        return np.ascontiguousarray(a.T) if transpose else a
+
+    def ln(mod):
+        return {"g": arr(mod.g), "b": arr(mod.b)}
+
+    params = {
+        "word_emb": arr(encoder.word_emb),
+        "pos_emb": arr(encoder.pos_emb),
+        "type_emb": arr(encoder.type_emb),
+        "emb_ln": ln(encoder.emb_ln),
+        "layers": [],
+    }
+    for layer in encoder.layers:
+        entry = {}
+        for name in _DENSE_NAMES:
+            mod = getattr(layer, name)
+            entry[name] = {"w": arr(mod.weight, transpose=True), "b": arr(mod.bias)}
+        for name in _LN_NAMES:
+            entry[name] = ln(getattr(layer, name))
+        params["layers"].append(entry)
+    return params

@@ -4,6 +4,8 @@
         [--batch B] [--k K] [--dtypes float32,mixed,bfloat16,int8]
     python -m minivectordb_tpu_torch.profile_search --index ivf [--rows N]
         [--batch B] [--lists-dtypes bfloat16,float32,int8] [--nprobe 32]
+    python -m minivectordb_tpu_torch.profile_search --embed [--batch 32]
+        [--seq 512] [--compute-dtypes float32,bfloat16]
 
 Builds a seeded corpus straight into a ``VectorStore`` (no metadata), then
 times the stages of ``StoreSnapshot._device_search``'s fused route one by one
@@ -26,6 +28,14 @@ on the paged route), the probe kernel, the gather into (B, nprobe, P) + the
 wide top-k + id lookup, the exact rescore; then the whole search by CUDA
 events and on the host clock. Batches under 16 over float32/bfloat16 lists
 time the paged route.
+
+With ``--embed`` it times one embed call at the e5-large widths (24 layers,
+hidden 1024, 16 heads of 64, intermediate 4096, vocabulary 250,037; weights
+from a seeded ``torch.Generator``) on a seeded token batch of ragged lengths,
+stage by stage with CUDA events, each stage summed over the layers: embedding
+lookup + layer norm, the q/k/v projections, the attention kernel (K6), the
+output projection, the residual layer norms, the two FFN products with GELU,
+and the pooling; then the whole ``embed_program`` by events.
 """
 
 from __future__ import annotations
@@ -41,6 +51,9 @@ import numpy as np
 import torch
 
 from minivectordb_tpu_torch.core.store import VectorStore
+from minivectordb_tpu_torch.models import configs as model_configs
+from minivectordb_tpu_torch.models import encoder as encoder_mod
+from minivectordb_tpu_torch.ops import flash_attention as flash_ops
 from minivectordb_tpu_torch.ops import fused_scan
 from minivectordb_tpu_torch.ops import ivf as ivf_ops
 from minivectordb_tpu_torch.ops import ivf_probe
@@ -267,6 +280,105 @@ def profile_ivf(lists_dtype: str, store: VectorStore, queries: np.ndarray,
     return out
 
 
+def profile_embed(compute_dtype: str, batch: int, seq: int, seed: int, reps: int) -> dict:
+    """One embed call at the e5-large widths, stage by stage. The staged pass
+    repeats ``models/encoder.py:encode`` with an event pair around every
+    stage; its result must equal ``embed_program``'s."""
+    cfg = model_configs.E5_LARGE
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    dtype = torch.bfloat16 if compute_dtype == "bfloat16" else torch.float32
+    enc = encoder_mod.init_params(cfg, gen, dev, dtype)
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(int(seq * 0.75), seq + 1, size=batch)
+    lengths[0] = seq
+    mask_np = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int64)
+    ids_np = rng.integers(4, cfg.vocab_size, (batch, seq))
+    ids_np[mask_np == 0] = cfg.pad_id
+    ids = scan_ops.to_device(ids_np, dev)
+    mask = scan_ops.to_device(mask_np, dev)
+    nh, hd = cfg.heads, cfg.hidden // cfg.heads
+    flash = encoder_mod._use_flash_attention(seq, hd, dev)
+    stages = ("embedding_lookup_ln", "qkv_projections", "attention", "output_projection",
+              "residual_layer_norms", "ffn_in_gelu", "ffn_out", "pooling")
+
+    def staged():
+        spans = {name: [] for name in stages}
+
+        def timed(name, fn):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn()
+            e1.record()
+            spans[name].append((e0, e1))
+            return out
+
+        dense, norm = encoder_mod._dense, encoder_mod._layer_norm
+        with torch.inference_mode():
+            bmask = mask.to(torch.bool)
+            seg = mask.to(torch.int32)
+
+            def embed():
+                positions = torch.cumsum(mask, dim=-1) * mask + cfg.pad_id
+                x = enc.word_emb[ids] + enc.pos_emb[positions] + enc.type_emb[0]
+                return norm(x, enc.emb_ln.g, enc.emb_ln.b, cfg.layer_norm_eps)
+
+            x = timed("embedding_lookup_ln", embed)
+            for layer in enc.layers:
+                q, k, v = timed("qkv_projections", lambda: [
+                    dense(x, p).view(batch, seq, nh, hd).transpose(1, 2)
+                    for p in (layer.q, layer.k, layer.v)])
+                if flash:
+                    ctx = timed("attention", lambda: flash_ops.flash_attention(
+                        q, k, v, seg, 1.0 / float(np.sqrt(hd))))
+                    ctx = ctx.transpose(1, 2).reshape(batch, seq, cfg.hidden)
+                else:
+                    def materialised():
+                        logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+                        logits = (logits / float(np.sqrt(hd))).masked_fill(
+                            ~bmask[:, None, None, :], torch.finfo(torch.float32).min)
+                        probs = torch.softmax(logits, dim=-1).to(x.dtype)
+                        return torch.matmul(probs, v).transpose(1, 2).reshape(
+                            batch, seq, cfg.hidden)
+                    ctx = timed("attention", materialised)
+                attn = timed("output_projection", lambda: dense(ctx, layer.attn_out))
+                x = timed("residual_layer_norms", lambda: norm(
+                    x + attn, layer.attn_ln.g, layer.attn_ln.b, cfg.layer_norm_eps))
+                hmid = timed("ffn_in_gelu", lambda: torch.nn.functional.gelu(
+                    dense(x, layer.ffn_in)))
+                ff = timed("ffn_out", lambda: dense(hmid, layer.ffn_out))
+                x = timed("residual_layer_norms", lambda: norm(
+                    x + ff, layer.ffn_ln.g, layer.ffn_ln.b, cfg.layer_norm_eps))
+            out = timed("pooling", lambda: encoder_mod.apply_cos_floor(
+                encoder_mod.mean_pool_normalize(x, mask, cfg.token_norm_pool), cfg))
+        torch.cuda.synchronize()
+        return out, {name: sum(a.elapsed_time(b) for a, b in pairs)
+                     for name, pairs in spans.items()}
+
+    flash_ops.reset_launches()
+    want = encoder_mod.embed_program(enc, ids, mask)
+    launches = dict(flash_ops.LAUNCHES)
+    got, _ = staged()
+    if not torch.equal(got, want):
+        raise AssertionError("the staged pass does not repeat embed_program")
+    runs = [staged()[1] for _ in range(reps)]
+    out = {
+        "embed": "e5-large widths", "compute_dtype": compute_dtype,
+        "batch": batch, "seq": seq, "layers": cfg.layers,
+        "tokens_real": int(lengths.sum()),
+        "attention_route": "flash_attention kernel" if flash else "materialised",
+        "kernel_launches_per_call": launches,
+    }
+    for name in stages:
+        out[name + "_ms"] = statistics.median(r[name] for r in runs)
+    out["stages_sum_ms"] = sum(out[name + "_ms"] for name in stages)
+    out["embed_program_ms"] = _event_ms(
+        lambda: encoder_mod.embed_program(enc, ids, mask), reps)
+    return out
+
+
 def clustered_corpus(rows: int, batch: int, dim: int, centres: int, seed: int,
                      families: int = 32):
     """(rows, batch) numpy arrays: corpus rows and queries from one seeded
@@ -297,7 +409,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--dim", type=int, default=384)
-    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="queries per search (default 256) or texts per embed call "
+                         "with --embed (default 32)")
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
@@ -309,13 +423,27 @@ def main() -> None:
     ap.add_argument("--nlist", type=int, default=1024)
     ap.add_argument("--nprobe", type=int, default=32)
     ap.add_argument("--centres", type=int, default=1024)
+    ap.add_argument("--embed", action="store_true",
+                    help="time one embed call at the e5-large widths, stage by stage")
+    ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--compute-dtypes", default="float32,bfloat16")
     args = ap.parse_args()
+    if args.batch is None:
+        args.batch = 32 if args.embed else 256
     if not torch.cuda.is_available():
         raise SystemExit("profile_search needs a CUDA device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.embed:
+        for compute_dtype in args.compute_dtypes.split(","):
+            res = profile_embed(compute_dtype, args.batch, args.seq, args.seed,
+                                min(args.reps, 10))
+            res["card"] = smi
+            print(json.dumps(res), flush=True)
+            torch.cuda.empty_cache()
+        return
     if args.index == "ivf":
         corpus, queries = clustered_corpus(args.rows, args.batch, args.dim, args.centres,
                                    args.seed)

@@ -1,0 +1,176 @@
+"""K6 on the CPU: the port's plain flash attention against JAX's Pallas TPU
+flash attention run in interpret mode and against JAX's own reference
+(mha_reference), on the same seeded inputs, at every position, pads included.
+
+Tolerances. float32: 2e-5 (three float32 softmax formulations that sum in
+different orders; inputs are standard normal, outputs are averages of them).
+bfloat16: 2e-2 (the TPU kernel rounds the probabilities to bf16 before P V
+and rounds its output once; the plain version keeps float32 probabilities and
+rounds once; outputs reach about 3 in magnitude, where a bf16 step is 1.6e-2).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as jax_fa
+
+from minivectordb_tpu_torch.ops import flash_attention as fa
+
+F32_TOL = 2e-5
+BF16_TOL = 2e-2
+
+
+def _case(b, nh, s, hd, lengths, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, nh, s, hd)).astype(np.float32) for _ in range(3))
+    seg = (np.arange(s)[None, :] < np.asarray(lengths)[:, None]).astype(np.int32)
+    return q, k, v, seg
+
+
+def _jax_kernel(q, k, v, seg, dtype=jnp.float32):
+    ids = jax_fa.SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg))
+    scale = float(1.0 / np.sqrt(q.shape[-1]))
+    with pltpu.force_tpu_interpret_mode():
+        out = jax_fa.flash_attention(
+            jnp.asarray(q, dtype), jnp.asarray(k, dtype), jnp.asarray(v, dtype),
+            segment_ids=ids, sm_scale=scale)
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _jax_reference(q, k, v, seg):
+    ids = jax_fa.SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg))
+    scale = float(1.0 / np.sqrt(q.shape[-1]))
+    return np.asarray(jax_fa.mha_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, segment_ids=ids,
+        sm_scale=scale))
+
+
+def _port(q, k, v, seg, dtype=torch.float32, fn=None):
+    fn = fn or fa.flash_attention
+    scale = float(1.0 / np.sqrt(q.shape[-1]))
+    out = fn(*(torch.from_numpy(x).to(dtype) for x in (q, k, v)),
+             torch.from_numpy(seg), scale)
+    assert out.dtype == dtype
+    return out.to(torch.float32).numpy()
+
+
+# ragged lengths: a full row, a row with one real token, a row with none padded
+# in its first tile only, and one whose pads fill whole 128-key tiles
+LENGTHS = {256: [256, 1, 130, 77], 512: [512, 1, 300, 120]}
+
+
+@pytest.mark.parametrize("hd", [32, 48, 64, 128])
+@pytest.mark.parametrize("s", [256, 512])
+def test_plain_equals_the_tpu_kernel_interpreted_f32(s, hd):
+    q, k, v, seg = _case(4, 2, s, hd, LENGTHS[s], seed=s + hd)
+    got = _port(q, k, v, seg)
+    want = _jax_kernel(q, k, v, seg)
+    assert got.shape == want.shape == (4, 2, s, hd)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= F32_TOL  # every position, pads included
+
+
+@pytest.mark.parametrize("hd", [32, 48, 64, 128])
+@pytest.mark.parametrize("s", [256, 512])
+def test_plain_equals_mha_reference_f32(s, hd):
+    q, k, v, seg = _case(4, 2, s, hd, LENGTHS[s], seed=1000 + s + hd)
+    got = _port(q, k, v, seg, fn=fa.flash_attention_plain)
+    assert np.abs(got - _jax_reference(q, k, v, seg)).max() <= F32_TOL
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_plain_equals_the_tpu_kernel_interpreted_bf16(hd):
+    q, k, v, seg = _case(2, 2, 256, hd, [256, 90], seed=2000 + hd)
+    got = _port(q, k, v, seg, dtype=torch.bfloat16)
+    want = _jax_kernel(q, k, v, seg, dtype=jnp.bfloat16)
+    assert np.abs(got - want).max() <= BF16_TOL
+
+
+def test_pad_queries_attend_to_pads_of_their_own_row():
+    """Segment equality, not a key-padding mask: a pad query averages the pad
+    keys' values, a real query the real keys'."""
+    q, k, v, seg = _case(1, 1, 256, 32, [100], seed=5)
+    q[:] = 0.0  # uniform attention inside a segment
+    got = _port(q, k, v, seg)
+    np.testing.assert_allclose(got[0, 0, 0], v[0, 0, :100].mean(axis=0), atol=2e-6)
+    np.testing.assert_allclose(got[0, 0, 255], v[0, 0, 100:].mean(axis=0), atol=2e-6)
+
+
+def test_any_sequence_length_and_strided_views():
+    """The function is defined for any S >= 1 (the encoder's gate is not the
+    kernel's), and for (B, nh, S, hd) views of (B, S, nh*hd) projections: the
+    result keeps q's strides, so flattening the heads again is a view."""
+    rng = np.random.default_rng(7)
+    b, s, nh, hd = 2, 37, 3, 16
+    proj = [torch.from_numpy(rng.standard_normal((b, s, nh * hd)).astype(np.float32))
+            for _ in range(3)]
+    q, k, v = (p.view(b, s, nh, hd).transpose(1, 2) for p in proj)
+    seg = torch.from_numpy((np.arange(s)[None, :] < np.array([[37], [5]])).astype(np.int32))
+    out = fa.flash_attention(q, k, v, seg, 0.25)
+    dense = fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), seg, 0.25)
+    assert torch.equal(out, dense)
+    want = _jax_reference(*(x.contiguous().numpy() for x in (q, k, v)), seg.numpy())
+    assert np.abs(out.numpy() - want).max() <= F32_TOL
+    one = fa.flash_attention(q[:, :, :1], k[:, :, :1], v[:, :, :1], seg[:, :1].contiguous(), 1.0)
+    assert torch.equal(one, v[:, :, :1])  # S = 1: softmax of one logit
+
+
+def test_mask_value_is_the_tpu_kernels():
+    assert np.float32(fa.MASK_VALUE) == np.float32(jax_fa.DEFAULT_MASK_VALUE)
+    assert np.isfinite(fa.MASK_VALUE)
+
+
+@pytest.mark.parametrize("bad, exc", [
+    ("shape", ValueError), ("dtype", TypeError), ("mixed", TypeError),
+    ("seg_shape", ValueError), ("seg_dtype", TypeError), ("empty", ValueError),
+])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
+    q = torch.zeros((2, 2, 8, 16))
+    k, v, seg = q.clone(), q.clone(), torch.ones((2, 8), dtype=torch.int32)
+    if bad == "shape":
+        k = k[:, :, :4]
+    elif bad == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "mixed":
+        v = v.to(torch.bfloat16)
+    elif bad == "seg_shape":
+        seg = seg[:, :4]
+    elif bad == "seg_dtype":
+        seg = seg.long()
+    elif bad == "empty":
+        q = k = v = torch.zeros((0, 2, 8, 16))
+        seg = torch.ones((0, 8), dtype=torch.int32)
+    with pytest.raises(exc):
+        fa.flash_attention(q, k, v, seg, 1.0)
+
+
+def test_kernel_has_a_source_counts_launches_and_builds_nothing_at_import():
+    import os
+
+    from minivectordb_tpu_torch.kernels import build
+
+    assert fa._fns == {} and "flash_attention" not in build.build_info
+    with open(os.path.join(build.CSRC_DIR, "flash_attention.cu"), encoding="utf-8") as f:
+        src = f.read()
+    for symbol in ("flash_attention_f32", "flash_attention_bf16"):
+        assert f'extern "C" int {symbol}(' in src
+        assert symbol in fa._ARGTYPES and fa.LAUNCHES[symbol] == 0
+    assert "mma.sync.aligned.m16n8k16" in src and "ldmatrix" in src
+    for word in ("cublas", "cutlass", "cudnn"):
+        assert word not in src.lower()
+    for hd in (32, 48, 64, 128):
+        assert hd in fa.HEAD_DIMS and f"FLASH_CASE({hd})" in src
+    assert f"{np.float32(fa.MASK_VALUE):.7e}".replace("e+", "e") + "f" in src
+
+
+@pytest.mark.cuda
+def test_kernel_equals_plain_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; chip_smoke.py runs this check")
+    q, k, v, seg = _case(2, 2, 200, 64, [200, 70], seed=9)
+    args = [torch.from_numpy(x).cuda() for x in (q, k, v, seg)]
+    got = fa.flash_attention(*args, 0.125)
+    want = fa.flash_attention_plain(*args, 0.125)
+    assert float((got - want).abs().max()) <= F32_TOL

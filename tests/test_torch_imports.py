@@ -32,10 +32,20 @@ def test_import_in_fresh_process_loads_no_jax():
         "import minivectordb_tpu_torch.convert, minivectordb_tpu_torch.ops.fused_scan\n"
         "import minivectordb_tpu_torch.kernels.build, minivectordb_tpu_torch.utils.telemetry\n"
         "import minivectordb_tpu_torch.ops.ivf, minivectordb_tpu_torch.ops.ivf_probe\n"
+        "import minivectordb_tpu_torch.ops.flash_attention\n"
+        "import minivectordb_tpu_torch.models.encoder, minivectordb_tpu_torch.models.configs\n"
+        "import minivectordb_tpu_torch.models.tokenizer, minivectordb_tpu_torch.models.convert\n"
+        "import minivectordb_tpu_torch.embedding_model, minivectordb_tpu_torch.core.pipeline\n"
+        "import minivectordb_tpu_torch.profile_search\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'minivectordb_tpu'))\n"
         "assert not bad, bad\n"
-        "assert sorted(p.__all__) == ['VectorDatabase', '__version__'], p.__all__\n"
+        "assert sorted(p.__all__) == ['AlternativeModel', 'EmbeddingModel', "
+        "'VectorDatabase', '__version__'], p.__all__\n"
+        "assert p.EmbeddingModel(device='cpu').weights_source == 'bundled-trained'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'minivectordb_tpu'))\n"
+        "assert not bad, bad\n"
         "print('clean', p.__version__)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

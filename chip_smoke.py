@@ -57,10 +57,15 @@ Phases (one JSON object per output line):
              for each (P = 130, d = 6 / 12 / 100, G = 8, padding steps); and
              the flash-attention kernel K6 (f32, bf16) at B = 32, nh = 16,
              S = 512, hd = 64 with seeded ragged lengths, in the encoder's
-             (B, S, nh, hd) memory layout, after S = 256 at hd = 32 / 48 /
-             128 and a ragged case (S = 200 and S = 1, a row with one real
-             token, key tiles that hold pads only), beside
-             scaled_dot_product_attention with a boolean segment mask.
+             (B, S, nh, hd) memory layout, after S = 256 at every other head
+             width (16 ... 128), ragged cases (S = 200 and S = 1, a row with
+             one real token, key tiles that hold pads only; S = 129 and 384,
+             not whole tiles) and segment ids that are not "ones, then
+             zeros" (three packed sequences and pads; the cyclic
+             (i // 37) % 3), beside scaled_dot_product_attention with a
+             boolean segment mask; its rows also give the operations the
+             kernel multiplied (whole tiles it visits) beside those counted,
+             and the TFLOP/s of each.
              "launches" are the counts of the path phases above: the flat
              phases, and each database of the ivf phase, are driven through
              the public class with every count at 0 and read just after;
@@ -93,6 +98,8 @@ once plus the live steps' operands and outputs, operations those of the live
 steps; padding steps count nothing. For K6 the operations are those of the
 (query, key) pairs of one segment, 4 * nh * hd * sum_b(n_b^2 + (S - n_b)^2)
 for n_b real tokens in row b; q, k, v and the output move once each.
+"multiplied_operations" are 4 * nh * hd * (rows x keys of a tile) * the
+tiles the kernel visits (ops/flash_attention.py:visited_tiles).
 """
 
 import json
@@ -102,6 +109,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -174,10 +182,10 @@ def phase_env() -> str:
         [build.find_nvcc(), "--version"], capture_output=True, text=True,
         check=True,
     ).stdout.strip().splitlines()[-2:]
-    # builds every source of csrc/ from the checkout
+    # builds every source of csrc/ from the checkout, one nvcc each, all at once
     t0 = time.perf_counter()
-    for name in SOURCES:
-        build.load_library(name)
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(build.load_library, SOURCES))
     build_wall_s = time.perf_counter() - t0
     # ptxas prints "Compiling entry function '<name>'" and, two lines on,
     # "Used N registers, ... bytes smem": keep those per kernel
@@ -974,10 +982,11 @@ def ivf_kernel_rows(shapes: dict, launches: dict) -> list:
 # ---------------------------------------------------------------------------
 
 
-def attention_case(b, nh, s, hd, dtype, lengths, seed):
+def attention_case(b, nh, s, hd, dtype, ids, seed):
     """q, k, v as the encoder hands them over: (B, nh, S, hd) views of
-    (B, S, nh*hd) projections; segment ids 1 for the first lengths[i] tokens
-    of row i and 0 for the pads."""
+    (B, S, nh*hd) projections. ``ids`` is a list of lengths (segment id 1 for
+    the first lengths[i] tokens of row i, 0 for the pads) or a (B, S) array
+    of segment ids."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed)
     q, k, v = (
@@ -985,9 +994,27 @@ def attention_case(b, nh, s, hd, dtype, lengths, seed):
         .view(b, s, nh, hd).transpose(1, 2)
         for _ in range(3)
     )
-    lens = torch.as_tensor(lengths, device=DEV)
-    seg = (torch.arange(s, device=DEV)[None, :] < lens[:, None]).to(torch.int32)
+    if isinstance(ids, np.ndarray):
+        seg = torch.as_tensor(ids, dtype=torch.int32, device=DEV)
+    else:
+        lens = torch.as_tensor(ids, device=DEV)
+        seg = (torch.arange(s, device=DEV)[None, :] < lens[:, None]).to(torch.int32)
     return q, k, v, seg.contiguous()
+
+
+def segment_patterns(b, s, seed):
+    """Ids other than "real tokens, then pads": "packed" holds three sequences
+    back to back and pads after them (ids 1, 2, 3, then 0; other cut points
+    in every row); "cyclic" the non-monotone (i // 37) % 3."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(s)
+    packed = np.zeros((b, s), np.int32)
+    for row in range(b):
+        cuts = np.sort(rng.choice(np.arange(1, s), size=3, replace=False))
+        packed[row] = np.searchsorted(cuts, i, side="right") + 1
+        packed[row][i >= cuts[2]] = 0
+    cyclic = np.broadcast_to(((i // 37) % 3).astype(np.int32), (b, s)).copy()
+    return {"packed": packed, "cyclic": cyclic}
 
 
 def compare_attention(kind, case, what) -> tuple:
@@ -1031,7 +1058,8 @@ def encoder_kernel_rows(launches: dict) -> list:
             errs[name], share = compare_attention(kind, case, what)
             shares.append(share)
 
-        for hd in (32, 48, 128):
+        # every head width the kernel is built for (64 is the path's shape)
+        for hd in (16, 32, 48, 80, 96, 112, 128):
             case = attention_case(4, 8, 256, hd, dtype, [256, 200, 64, 1], SEED + 30 + hd)
             held(f"S256_hd{hd}", case, f"K6-{kind} S=256 hd={hd}")
         # S = 200: a ragged last tile; 70 real tokens leave the key tile
@@ -1042,6 +1070,16 @@ def encoder_kernel_rows(launches: dict) -> list:
         held("S200", case, f"K6-{kind} S=200")
         case = attention_case(3, 2, 1, 64, dtype, [1, 1, 0], SEED + 41)
         held("S1", case, f"K6-{kind} S=1")
+        # sequences that are not whole tiles of 64 keys or 128 queries
+        for s_odd in (129, 384):
+            case = attention_case(4, 4, s_odd, 64, dtype, seeded_lengths(4, s_odd, 1, SEED + 44),
+                                  SEED + 44 + s_odd)
+            held(f"S{s_odd}", case, f"K6-{kind} S={s_odd}")
+        # segment ids that are not "ones, then zeros": tiles with several ids
+        # and id ranges that meet without one pair of equal ids
+        for name, ids in segment_patterns(4, 512, SEED + 45).items():
+            case = attention_case(4, 4, 512, 64, dtype, ids, SEED + 46)
+            held(name, case, f"K6-{kind} {name} ids")
         small[kind] = (errs, None if kind == "f32" else max(shares))
 
     b, nh, s, hd = 32, 16, 512, 64
@@ -1076,6 +1114,11 @@ def encoder_kernel_rows(launches: dict) -> list:
         item = q.element_size()
         n_bytes = 4 * b * nh * s * hd * item + b * s * 4
         n_ops = 4 * nh * hd * pairs
+        # what the kernel multiplies: whole (query rows x keys) tiles whose
+        # segment ids meet (ops/flash_attention.py:visited_tiles)
+        tile_rows, tile_keys = flash_ops.tile_shape(dtype, hd)
+        tiles = flash_ops.visited_tiles(seg, tile_rows, tile_keys)
+        n_mult = 4 * nh * hd * tiles * tile_rows * tile_keys
         t_bytes = n_bytes / PEAK_BYTES_S * 1e3
         t_ops = n_ops / PEAK_OPS_S[kind] * 1e3
         ms = statistics.median([ms_a, ms_b])
@@ -1099,6 +1142,11 @@ def encoder_kernel_rows(launches: dict) -> list:
             "library_max_abs_err_vs_plain": lib_err,
             "bound_bytes": n_bytes,
             "bound_operations": n_ops,
+            "multiplied_operations": n_mult,
+            "multiplied_tiles_per_head": tiles,
+            "tile": [tile_rows, tile_keys],
+            "tflops_counted": n_ops / (ms * 1e-3) / 1e12,
+            "tflops_multiplied": n_mult / (ms * 1e-3) / 1e12,
             "dense_operations": 4 * b * nh * s * s * hd,
             "dense_tflops": 4 * b * nh * s * s * hd / (ms * 1e-3) / 1e12,
             "shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths_min": min(lengths),

@@ -30,7 +30,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}  # one per source: sources build in parallel
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when the library was already there),
 #          "log": compiler output, "path": the shared library}
@@ -62,8 +63,11 @@ def find_nvcc() -> str:
 
 def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, then load it.
-    Raises if the compiler fails."""
+    Raises if the compiler fails. Different sources may build at once, from
+    different threads."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

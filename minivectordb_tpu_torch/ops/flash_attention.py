@@ -136,6 +136,37 @@ def flash_attention_plain(q, k, v, segment_ids, sm_scale: float):
     return out
 
 
+def tile_shape(dtype, hd: int) -> tuple[int, int]:
+    """(query rows, keys) of one tile of the kernel that serves (dtype, hd):
+    bfloat16 128 x 128; float32 128 x 64, or 64 x 64 at hd = 128
+    (csrc/flash_attention.cu: BF_BM, BF_KT; F32Cfg::BM, BN)."""
+    if dtype == torch.bfloat16:
+        return 128, 128
+    return (64 if hd == 128 else 128), 64
+
+
+def visited_tiles(segment_ids, rows: int, keys: int) -> int:
+    """How many (batch row, query tile, key tile) blocks of the (S, S) logits
+    the kernels multiply, per head: those whose ranges of segment ids [min,
+    max] meet, over the rows and keys below S (the kernels' skipping rule).
+    Measurement only: chip_smoke.py counts the operations the kernel did with
+    it beside the ones the data needs."""
+    b, s = segment_ids.shape
+
+    def ranges(t):
+        n = -(-s // t)
+        pad = n * t - s
+        seg = segment_ids.to(torch.int64)
+        lo = torch.cat([seg, seg.new_full((b, pad), 2**62)], 1).view(b, n, t).amin(-1)
+        hi = torch.cat([seg, seg.new_full((b, pad), -2**62)], 1).view(b, n, t).amax(-1)
+        return lo, hi
+
+    qlo, qhi = ranges(rows)
+    klo, khi = ranges(keys)
+    apart = (khi[:, None, :] < qlo[:, :, None]) | (klo[:, None, :] > qhi[:, :, None])
+    return int((~apart).sum())
+
+
 def _kernel_ready(t) -> bool:
     """Unit stride along hd and every row on a 16-byte boundary."""
     per16 = 16 // t.element_size()

@@ -6,6 +6,8 @@
         [--batch B] [--lists-dtypes bfloat16,float32,int8] [--nprobe 32]
     python -m minivectordb_tpu_torch.profile_search --embed [--batch 32]
         [--seq 512] [--compute-dtypes float32,bfloat16]
+    python -m minivectordb_tpu_torch.profile_search --attention
+        [--against OTHER/flash_attention.cu]
 
 Builds a seeded corpus straight into a ``VectorStore`` (no metadata), then
 times the stages of ``StoreSnapshot._device_search``'s fused route one by one
@@ -36,13 +38,24 @@ stage by stage with CUDA events, each stage summed over the layers: embedding
 lookup + layer norm, the q/k/v projections, the attention kernel (K6), the
 output projection, the residual layer norms, the two FFN products with GELU,
 and the pooling; then the whole ``embed_program`` by events.
+
+With ``--attention`` it times the attention kernel K6 alone, float32 and
+bfloat16, at the embed call's shape (B = 32, 16 heads of 64, S = 512, in the
+encoder's (B, S, nh, hd) memory, ragged lengths seeded as chip_smoke.py seeds
+them): the median of single launches and the mean of 20 back-to-back launches,
+by CUDA events. ``--against`` builds another source with the same C interface
+(an earlier version of ``csrc/flash_attention.cu``) and times it in turns with
+this one (other, this, this, other), with the largest difference between them.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import gc
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import time
@@ -51,6 +64,7 @@ import numpy as np
 import torch
 
 from minivectordb_tpu_torch.core.store import VectorStore
+from minivectordb_tpu_torch.kernels import build
 from minivectordb_tpu_torch.models import configs as model_configs
 from minivectordb_tpu_torch.models import encoder as encoder_mod
 from minivectordb_tpu_torch.ops import flash_attention as flash_ops
@@ -379,6 +393,86 @@ def profile_embed(compute_dtype: str, batch: int, seq: int, seed: int, reps: int
     return out
 
 
+def _load_other(src: str):
+    """Builds another flash_attention.cu (same C interface) with the package's
+    flags into the build directory and loads it."""
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    path = os.path.join(build.build_dir(), f"libflash_attention_other_{digest}.so")
+    os.makedirs(build.build_dir(), exist_ok=True)
+    if not os.path.exists(path):
+        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", path, src],
+                       check=True, capture_output=True)
+    lib = ctypes.CDLL(path)
+    for name, argtypes in flash_ops._ARGTYPES.items():
+        getattr(lib, name).argtypes = argtypes
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def profile_attention(against: str | None, seed: int, reps: int) -> list:
+    dev = torch.device("cuda", torch.cuda.current_device())
+    b, nh, s, hd = 32, 16, 512, 64
+    rng = np.random.default_rng(seed + 42)  # chip_smoke.py's lengths
+    lengths = rng.integers(200, s + 1, size=b)
+    lengths[0] = s
+    seg = torch.as_tensor((np.arange(s)[None, :] < lengths[:, None]).astype(np.int32),
+                          device=dev)
+    scale = 1.0 / float(np.sqrt(hd))
+    other = _load_other(against) if against else None
+    rows = []
+    for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 43)
+        q, k, v = (torch.randn((b, s, nh * hd), device=dev, generator=gen).to(dtype)
+                   .view(b, s, nh, hd).transpose(1, 2) for _ in range(3))
+        name = f"flash_attention_{kind}"
+
+        def this():
+            return flash_ops.flash_attention(q, k, v, seg, scale)
+
+        def that():
+            out = torch.empty_like(q)
+            err = getattr(other, name)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), out.data_ptr(),
+                b, nh, s, hd, *q.stride()[:3], *out.stride()[:3], scale,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name} of {against}: cudaError {err}")
+            return out
+
+        def times(fn):
+            single = _event_ms(fn, reps)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(20):
+                fn()
+            e1.record()
+            e1.synchronize()
+            return single, e0.elapsed_time(e1) / 20
+
+        want = flash_ops.flash_attention_plain(q, k, v, seg, scale).float()
+        row = {"kernel": f"K6-{kind}", "shape": [b, nh, s, hd],
+               "max_abs_err_vs_plain": float((this().float() - want).abs().max())}
+        if other is None:
+            row["ms_single"], row["ms_back_to_back"] = times(this)
+        else:
+            row["other"] = against
+            row["other_max_abs_err_vs_plain"] = float((that().float() - want).abs().max())
+            first = times(that)
+            mine = [times(this), times(this)]
+            last = times(that)
+            row["ms_single"] = [mine[0][0], mine[1][0]]
+            row["ms_back_to_back"] = [mine[0][1], mine[1][1]]
+            row["other_ms_single"] = [first[0], last[0]]
+            row["other_ms_back_to_back"] = [first[1], last[1]]
+        rows.append(row)
+        del q, k, v, want
+        torch.cuda.empty_cache()
+    return rows
+
+
 def clustered_corpus(rows: int, batch: int, dim: int, centres: int, seed: int,
                      families: int = 32):
     """(rows, batch) numpy arrays: corpus rows and queries from one seeded
@@ -427,6 +521,10 @@ def main() -> None:
                     help="time one embed call at the e5-large widths, stage by stage")
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--compute-dtypes", default="float32,bfloat16")
+    ap.add_argument("--attention", action="store_true",
+                    help="time the attention kernel K6 alone at the embed call's shape")
+    ap.add_argument("--against", default=None,
+                    help="with --attention: another flash_attention.cu to time in turns")
     args = ap.parse_args()
     if args.batch is None:
         args.batch = 32 if args.embed else 256
@@ -436,6 +534,11 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    if args.attention:
+        for res in profile_attention(args.against, args.seed, args.reps):
+            res["card"] = smi
+            print(json.dumps(res), flush=True)
+        return
     if args.embed:
         for compute_dtype in args.compute_dtypes.split(","):
             res = profile_embed(compute_dtype, args.batch, args.seq, args.seed,

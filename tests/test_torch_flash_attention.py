@@ -29,6 +29,25 @@ def _case(b, nh, s, hd, lengths, seed):
     return q, k, v, seg
 
 
+def _pattern_case(b, nh, s, hd, pattern, seed):
+    """Segment ids other than "real tokens, then pads": ``packed`` holds three
+    sequences back to back and pads after them (ids 1, 2, 3, then 0), with
+    other cut points in every batch row; ``cyclic`` is the non-monotone
+    ``(i // 37) % 3``, whose ids come back tile after tile."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((b, nh, s, hd)).astype(np.float32) for _ in range(3))
+    i = np.arange(s)
+    if pattern == "packed":
+        seg = np.zeros((b, s), np.int32)
+        for row in range(b):
+            cuts = np.sort(rng.choice(np.arange(1, s), size=3, replace=False))
+            seg[row] = np.searchsorted(cuts, i, side="right") + 1
+            seg[row][i >= cuts[2]] = 0
+    else:
+        seg = np.broadcast_to(((i // 37) % 3).astype(np.int32), (b, s)).copy()
+    return q, k, v, seg
+
+
 def _jax_kernel(q, k, v, seg, dtype=jnp.float32):
     ids = jax_fa.SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg))
     scale = float(1.0 / np.sqrt(q.shape[-1]))
@@ -86,6 +105,95 @@ def test_plain_equals_the_tpu_kernel_interpreted_bf16(hd):
     got = _port(q, k, v, seg, dtype=torch.bfloat16)
     want = _jax_kernel(q, k, v, seg, dtype=jnp.bfloat16)
     assert np.abs(got - want).max() <= BF16_TOL
+
+
+@pytest.mark.parametrize("pattern", ["packed", "cyclic"])
+@pytest.mark.parametrize("s", [384, 512])
+def test_plain_equals_the_tpu_kernel_interpreted_segment_patterns(s, pattern):
+    """Segment skipping must stay right when the ids are not "ones, then
+    zeros": a key tile may hold several ids, and a query tile's range may meet
+    a key tile's without one pair of equal ids."""
+    q, k, v, seg = _pattern_case(2, 2, s, 64, pattern, seed=3000 + s)
+    got = _port(q, k, v, seg)
+    want = _jax_kernel(q, k, v, seg)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= F32_TOL
+
+
+@pytest.mark.parametrize("pattern", ["packed", "cyclic"])
+def test_plain_equals_the_tpu_kernel_interpreted_segment_patterns_bf16(pattern):
+    q, k, v, seg = _pattern_case(2, 2, 384, 32, pattern, seed=3100)
+    got = _port(q, k, v, seg, dtype=torch.bfloat16)
+    want = _jax_kernel(q, k, v, seg, dtype=jnp.bfloat16)
+    assert np.abs(got - want).max() <= BF16_TOL
+
+
+# The TPU kernel takes key blocks of 128 only, so sequences that are not a
+# multiple of 128 (and of the port's tiles of 64) are held against JAX's
+# reference with the same segment ids.
+@pytest.mark.parametrize("pattern", ["lengths", "packed", "cyclic"])
+@pytest.mark.parametrize("s", [129, 200, 333])
+def test_plain_equals_mha_reference_any_length(s, pattern):
+    if pattern == "lengths":
+        q, k, v, seg = _case(3, 2, s, 48, [s, 1, s // 2 + 1], seed=4000 + s)
+    else:
+        q, k, v, seg = _pattern_case(3, 2, s, 48, pattern, seed=4100 + s)
+    got = _port(q, k, v, seg, fn=fa.flash_attention_plain)
+    assert np.abs(got - _jax_reference(q, k, v, seg)).max() <= F32_TOL
+
+
+def _visited_by_loops(seg, rows, keys):
+    """The kernels' skipping rule, tile by tile."""
+    b, s = seg.shape
+    count = 0
+    for row in range(b):
+        for m0 in range(0, s, rows):
+            qt = seg[row, m0:m0 + rows]
+            for n0 in range(0, s, keys):
+                kt = seg[row, n0:n0 + keys]
+                count += not (kt.max() < qt.min() or kt.min() > qt.max())
+    return count
+
+
+@pytest.mark.parametrize("pattern", ["lengths", "packed", "cyclic"])
+@pytest.mark.parametrize("s, rows, keys", [(512, 128, 64), (512, 128, 128), (200, 128, 64),
+                                           (129, 64, 64), (4500, 128, 128)])
+def test_visited_tiles_follows_the_skipping_rule(s, rows, keys, pattern):
+    """What chip_smoke.py counts as multiplied: the tiles whose id ranges
+    meet, never fewer than those holding a pair of one segment, never more
+    than all of them."""
+    if pattern == "lengths":
+        seg = (np.arange(s)[None, :] < np.array([[s], [1], [s // 3]])).astype(np.int32)
+    else:
+        seg = _pattern_case(3, 1, s, 16, pattern, seed=5000 + s)[3]
+    got = fa.visited_tiles(torch.from_numpy(seg), rows, keys)
+    assert got == _visited_by_loops(seg, rows, keys)
+    mt, nt = -(-s // rows), -(-s // keys)
+    assert got <= 3 * mt * nt
+    pairs = 0
+    for row in range(3):
+        for m0 in range(0, s, rows):
+            for n0 in range(0, s, keys):
+                pairs += bool(np.intersect1d(seg[row, m0:m0 + rows],
+                                             seg[row, n0:n0 + keys]).size)
+    assert got >= pairs
+    if pattern == "lengths" and s == 512:
+        assert got < 3 * mt * nt  # the real-by-pad corners are skipped
+
+
+def test_tile_shape_matches_the_kernels():
+    import os
+    import re
+
+    from minivectordb_tpu_torch.kernels import build
+
+    with open(os.path.join(build.CSRC_DIR, "flash_attention.cu"), encoding="utf-8") as f:
+        src = f.read()
+    consts = {name: int(re.search(rf"(?:constexpr int|#define) {name}\b\D*(\d+)", src).group(1))
+              for name in ("BN", "BF_BM", "BF_KT")}
+    assert fa.tile_shape(torch.bfloat16, 64) == (consts["BF_BM"], consts["BF_KT"]) == (128, 128)
+    assert fa.tile_shape(torch.float32, 64) == (128, consts["BN"]) == (128, 64)
+    assert fa.tile_shape(torch.float32, 128) == (64, 64)
 
 
 def test_pad_queries_attend_to_pads_of_their_own_row():
@@ -157,7 +265,10 @@ def test_kernel_has_a_source_counts_launches_and_builds_nothing_at_import():
     for symbol in ("flash_attention_f32", "flash_attention_bf16"):
         assert f'extern "C" int {symbol}(' in src
         assert symbol in fa._ARGTYPES and fa.LAUNCHES[symbol] == 0
-    assert "mma.sync.aligned.m16n8k16" in src and "ldmatrix" in src
+    for ptx in ("wgmma.mma_async.sync.aligned.m64n64k16", "cp.async.bulk.tensor",
+                "mbarrier.try_wait", "cp.async.mbarrier.arrive"):
+        assert ptx in src
+    assert "mma.sync" not in src  # the first kernels are replaced, not kept beside
     for word in ("cublas", "cutlass", "cudnn"):
         assert word not in src.lower()
     for hd in (32, 48, 64, 128):

@@ -50,7 +50,14 @@ Phases (one JSON object per output line):
              version over its whole output and timed beside it, beside one
              library call, and beside the card's bound: the phase-1 kernels
              (float32, bfloat16, int8; with and without a mask) at
-             C = 1,048,576, d = 384, B = 256, count = 1,000,000, and the IVF
+             C = 1,048,576, d = 384, B = 256, count = 1,000,000, after a
+             ragged case (d = 24: int8 takes the narrow-row kernel, which the
+             library's phase1_route reports and its own counter shows) and
+             the bf16 / int8 Hopper kernel's tiling edges at C = 65,536
+             (TILING_CASES, emitted on a line of their own; at every case
+             each subtile past `count` must be the sentinel); the narrow-row
+             kernel must not have run on the flat paths or the 1M-row case;
+             and the IVF
              probe kernels (K3 f32/bf16, K4 f32/bf16, K5) at the shapes the
              1,000,000-row IVF path produced (its lists, its step table for
              256 queries, its probe ids for 8), after a small ragged case
@@ -130,6 +137,7 @@ from minivectordb_tpu_torch.ops import flash_attention as flash_ops  # noqa: E40
 from minivectordb_tpu_torch.ops import fused_scan, ivf as ivf_ops  # noqa: E402
 from minivectordb_tpu_torch.ops import ivf_probe, scan as scan_ops  # noqa: E402
 from minivectordb_tpu_torch.profile_search import clustered_corpus  # noqa: E402
+from minivectordb_tpu_torch.profile_search import phase1_operands  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 SEED = 0
@@ -404,26 +412,6 @@ def phase_dtypes(tmp: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def kernel_cases(c: int, d: int, b: int, seed: int):
-    """Operands for the three element types from one seeded corpus."""
-    g = torch.Generator(device=DEV)
-    g.manual_seed(seed)
-    buf = torch.randn((c, d), device=DEV, generator=g)
-    q = scan_ops._normalize(torch.randn((b, d), device=DEV, generator=g))
-    mask = torch.rand((c,), device=DEV, generator=g) < 0.5
-    bf = buf.to(torch.bfloat16)
-    i8, inv8 = scan_ops.update_rows_int8(
-        torch.zeros((c, d), dtype=torch.int8, device=DEV),
-        torch.zeros((c,), device=DEV), buf, 0, in_place=True,
-    )
-    qi, qinv = scan_ops.quantize_queries_int8(q)
-    return mask, {
-        "f32": (buf, scan_ops.row_inv_norms(buf), q, None),
-        "bf16": (bf, scan_ops.row_inv_norms(bf), q.to(torch.bfloat16), None),
-        "i8": (i8, inv8, qi, qinv),
-    }
-
-
 def run_kernel(kind, ops, count, mask):
     buf, inv, q, qinv = ops
     if kind == "i8":
@@ -464,21 +452,64 @@ def compare(kind, ops, count, mask, what):
     assert torch.isfinite(got).all(), what
     err = float((got[live] - want[live]).abs().max()) if live.any() else 0.0
     assert err <= TOL[kind], (what, err)
+    # every subtile wholly past count is the sentinel (out comes from torch.empty)
+    assert bool((got[:, -(-count // 32):] == MASKED).all()), (what, "past count")
     return err, int(dead.sum()), float(got[live].mean())
+
+
+# The Hopper kernel's edges (csrc/phase1.cu, phase1_wgmma_kernel), each held
+# against the plain version for bf16 and int8, with and without a mask, at a
+# small C: B below one warpgroup's 64, not a multiple of 64, and eight query
+# blocks (bf16) / four (int8); wide rows (queries per block shrink, 128-row
+# tiles; bf16 at 1,536 streams its queries); C not a multiple of the tile;
+# `count` inside the last live tile in every case.
+TILING_CASES = [  # (C, d, B, count)
+    (65_536, D, 16, 65_536 - 100),
+    (65_536, D, 200, 60_000 + 17),
+    (65_536, D, 1_024, 50_001),
+    (65_536, 768, 256, 64_000 + 33),
+    (65_536, 1_024, 256, 40_000 + 70),
+    (65_536, 1_536, 256, 30_000 + 5),
+    (4_096 + 96, D, 256, 4_096 + 40),
+]
+
+
+def tiling_cases() -> list:
+    out = []
+    for c, d, b, count in TILING_CASES:
+        mask, cases = phase1_operands(c, d, b, SEED + 4 + d + b)
+        for kind in ("bf16", "i8"):
+            for m in (None, mask):
+                what = f"tiling {kind} C={c} d={d} B={b} count={count}" + (
+                    " mask" if m is not None else "")
+                err, _, _ = compare(kind, cases[kind], count, m, what)
+                out.append({"case": [c, d, b, count], "kind": kind, "mask": m is not None,
+                            "max_abs_err": err, "tolerance": TOL[kind]})
+        del cases, mask
+    return out
 
 
 def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
                   k6_launches: dict) -> dict:
-    # small ragged case first: d not a multiple of the chunk, B below a block
-    mask_s, cases_s = kernel_cases(4096, 24, 8, SEED + 2)
+    # small ragged case first: d not a multiple of the chunk, B below a block;
+    # int8 rows of 24 bytes take the narrow-row kernel, bf16 rows of 48 the
+    # Hopper one
+    fused_scan.reset_launches()
+    mask_s, cases_s = phase1_operands(4096, 24, 8, SEED + 2)
     ragged = {}
     for kind, ops in cases_s.items():
         for m in (None, mask_s):
             err, _, _ = compare(kind, ops, 4000, m, f"ragged {kind}")
             ragged[kind + ("_mask" if m is not None else "")] = err
+    narrow = dict(fused_scan.NARROW_LAUNCHES)
+    assert narrow["phase1_i8"] > 0 and narrow["phase1_i8_mask"] > 0, narrow
+    assert narrow["phase1_bf16"] == 0 and narrow["phase1_bf16_mask"] == 0, narrow
+    tiling = tiling_cases()
+    assert fused_scan.NARROW_LAUNCHES == narrow, "a wide row reached the narrow kernel"
+    emit({"phase": "phase1_tiling", "cases": tiling, "narrow_launches_ragged": narrow})
 
     c, b, count = 1 << 20, 256, 1_000_000
-    mask, cases = kernel_cases(c, D, b, SEED + 3)
+    mask, cases = phase1_operands(c, D, b, SEED + 3)
     names = {"f32": "K1-f32", "bf16": "K1-bf16", "i8": "K2-int8"}
     replaces = {
         "f32": "minivectordb_tpu/ops/pallas_scan.py:164",
@@ -523,6 +554,8 @@ def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
                 "mean_live_maximum": live_mean,
                 "ragged_max_abs_err": ragged[kind + suffix],
             })
+    # the 1M-row launches, like the flat paths' (main), took the Hopper kernel
+    assert fused_scan.NARROW_LAUNCHES == narrow, "the 1M-row case reached the narrow kernel"
     del cases, mask
     torch.cuda.empty_cache()
     kernels += ivf_kernel_rows(ivf_shapes, ivf_launches)
@@ -1431,14 +1464,17 @@ def main() -> None:
         phase_main_path(tmp)
         phase_dtypes(tmp)
         launches = dict(fused_scan.LAUNCHES)
+        narrow = dict(fused_scan.NARROW_LAUNCHES)
+        # bf16 / int8 rows of 384 take the Hopper kernel, never the narrow one
+        assert not any(narrow.values()), f"the flat paths reached the narrow kernel: {narrow}"
         torch.cuda.empty_cache()
         ivf_shapes, ivf_launches = phase_ivf_path(tmp)
         torch.cuda.empty_cache()
         model, texts, k6_launches = phase_encoder_path(tmp)
         phase_pipeline_path(tmp, model, texts, k6_launches)
         del model
-    emit({"phase": "launches", "flat_path": launches, "ivf_path": ivf_launches,
-          "text_path": k6_launches})
+    emit({"phase": "launches", "flat_path": launches, "flat_path_narrow": narrow,
+          "ivf_path": ivf_launches, "text_path": k6_launches})
     missing = [name for name, n in {**launches, **ivf_launches, **k6_launches}.items()
                if n == 0]
     assert not missing, f"the main path never launched: {missing}"

@@ -13,51 +13,88 @@
 //   score[b, r] = -3.0e38  where r >= count or mask[r] == 0
 //   out[b, s]   = max over the 32 rows of subtile s
 //
-// and writes out as (B, C/32). (The TPU kernel writes (C/32, B) because its
-// compiler can only regroup the major axis; its caller transposes at once.)
+// and writes out as (B, C/32), every subtile of it. (The TPU kernel writes
+// (C/32, B) because its compiler can only regroup the major axis; its caller
+// transposes at once.) `count` is a kernel argument, so no scalar upload or
+// host sync is needed; any B >= 1 and any C that is a multiple of 32.
 //
 // What bounds it on an H100: the product is 2*B*C*d operations over C*d
-// elements read once. At B = 256 float32 is bound by arithmetic: its
+// elements read once. float32 is bound by arithmetic at B = 256: its
 // multiply-adds must be IEEE float32 FMAs on the CUDA cores (no TF32), about
 // 3 ms of them at the card's peak against 0.5 ms of memory traffic. bf16 and
-// int8 are bound by memory (0.24 and 0.12 ms of corpus bytes) as long as
-// their products run on the tensor cores, which they do here through
-// mma.sync. Their chunks arrive through a 4-stage cp.async ring that keeps
-// three chunks per block in flight (register prefetch of one chunk left the
-// kernel waiting on memory latency). What limits them now
-// is traffic from L2 into the SMs: every row tile is fetched by both query
-// blocks and every row tile re-reads its query tile, four times the corpus
-// bytes in all (copied 16 bytes at a time where rows are 16-byte multiples,
-// else 4). Wider tiles or a resident query tile, wgmma and TMA are later
-// work. Both kernels share one skeleton:
-//   - a block owns 128 rows x 128 queries and walks d in chunks of 16 32-bit
-//     words (16 floats, 32 bf16, 64 int8) through shared memory;
-//   - the next chunk(s) are requested before the current chunk's arithmetic
-//     (float32: into registers; mma: by cp.async into the ring, which runs on
-//     across the block's row tiles), so memory latency hides behind it;
-//   - a warp owns exactly one 32-row subtile by 64 queries, so the subtile
-//     max never leaves the warp: an in-thread max, then __shfl_xor_sync
-//     steps; scale, mask and max all happen in registers;
-//   - a block walks up to 8 consecutive row tiles and stages its maxima in
-//     shared memory, so each query's output leaves as one 128-byte run;
-//   - row tiles that start at or past `count` are skipped (sentinel output);
-//   - two 256-thread blocks fit on an SM (at most 128 registers a thread).
-// float32 (phase1_f32_kernel): tiles are stored k-major; a thread keeps an
-// 8 x 8 register tile, so every word it reads from shared memory feeds 8 FMAs.
-// bf16 / int8 (phase1_mma_kernel): tiles are stored as they lie in memory
-// (row-major, k contiguous), which is exactly the "row.col" operand layout
-// of mma.sync m16n8k16 (bf16) and m16n8k32 (int8): each fragment register is
-// one 32-bit word read straight from shared memory, the same word index for
-// both types, with a row stride of 20 words so the 32 lanes of a fragment
-// load hit 32 different banks. A warp runs 2 x 8 mma per 8-word step.
-// Ragged edges are masked in the kernel: d need not be a multiple of the
-// chunk, B need not be a multiple of 128, C need only be a multiple of 32.
-// `count` is a kernel argument, so no scalar upload or host sync is needed.
+// int8 sit on the ridge: at B = 256 a corpus byte feeds 256 bf16 operations
+// (the card does 295 per byte of memory bandwidth) or 512 int8 ones (590),
+// 0.24 / 0.12 ms of memory and 0.20 / 0.10 ms of tensor-core work. Only
+// wgmma reaches the tensor cores' rate, the corpus should cross from device
+// memory once, and the products must overlap the stream of corpus bytes.
+//
+// float32 (phase1_f32_kernel): a block owns 128 rows x 128 queries and walks
+// d in chunks of 16 words through shared memory, stored k-major; a thread
+// keeps an 8 x 8 register tile, so every word it reads from shared memory
+// feeds 8 FMAs; the next chunk is loaded into registers during this one's
+// arithmetic; a warp owns one 32-row subtile by 64 queries, so the subtile
+// max never leaves the warp; a block walks up to 8 row tiles and stages its
+// maxima, so each query's output leaves as one 128-byte run; row tiles that
+// start at or past `count` are skipped; two 256-thread blocks fit on an SM.
+//
+// bf16 / int8 whose rows TMA can describe (d * itemsize a multiple of 16
+// bytes; phase1_wgmma_kernel): persistent, warp-specialised blocks, one per
+// SM.
+//   - Queries are wgmma's A operand (M = 64 per consumer warpgroup; 1, 2 or
+//     4 warpgroups: 64 .. 256 queries a block), corpus rows its B operand (a
+//     tile of N = 256 rows, or 128 with 4 warpgroups, whose accumulators
+//     would not fit, or where 256-row stages would leave the ring too short);
+//     both K-major, which is how rows lie in memory and what int8 wgmma
+//     requires. Products are wgmma.mma_async m64nNk16 .f32.bf16.bf16 or
+//     m64nNk32 .s32.s8.s8 with both operands read from shared memory; a
+//     128-byte k-slab of a row (64 bf16, 128 int8) is four k-steps for
+//     either type, so one skeleton serves both. N = 256 halves the barrier
+//     round trips and the query reads from shared memory per product, which
+//     bound the 128-row version's consumers at B = 256.
+//   - The block's queries are loaded once, by TMA, and stay resident in
+//     shared memory for all its corpus tiles (at d = 384: 128 bf16 queries or
+//     256 int8 ones, 96 KB). The host picks the queries per block so that the
+//     tile fits beside a ring of at least 4 stages; where not even 64 fit
+//     (bf16 beyond d = 1,280) each stage carries the query slab beside the
+//     corpus slab instead.
+//   - One producer warp has TMA load 128-byte k-slabs of the corpus tile (16
+//     or 32 KB, 128-byte swizzle) into a ring of up to 8 stages, with a
+//     "full" and an "empty" mbarrier per stage; the ring runs on across the
+//     block's tiles, so one tile's epilogue overlaps the next tile's loads.
+//     TMA's zero fill covers rows >= C and k >= d. A tile ahead, its lanes
+//     load the tile's inv and mask bytes and store inv into a 2-slot side
+//     ring, NaN for a row at or past `count` or masked out.
+//   - Where B needs more than one query block, consecutive blocks take the
+//     query blocks of one tile, so each tile leaves device memory once and
+//     the other reads hit L2. (Thread-block clusters that multicast each
+//     slab to the blocks of one tile, one L2 read per corpus byte, were
+//     correct but slower in every case measured: the consumers, not L2,
+//     bound the kernel, and the cluster couples the blocks' rings.)
+//   - Tiles that start at or past `count` hold no live row and get the
+//     sentinel without any arithmetic.
+//   - Epilogue in registers: a thread holds, for two queries, columns
+//     8j + 2(lane % 4) + {0, 1} of the tile; a 32-row subtile is four of its
+//     n8 groups: scale by inv (NaN drops out of fmaxf, so a subtile with no
+//     live row keeps -3.0e38 and the mask costs nothing here), an in-thread
+//     max of 8 values, then a two-step transposed reduction across the quad
+//     (3 shuffles per query and 4 subtiles) leaves lane i with subtile i, so
+//     each query's maxima leave as 16-byte runs, no shared-memory round trip.
+//   - Host: the shared-memory attribute, the SM count and the blocks the
+//     card holds at once are set up once per device; the tensor maps are
+//     encoded per call through cudaGetDriverEntryPoint (no -lcuda).
+// bf16 / int8 rows TMA cannot describe (d * itemsize not a multiple of 16,
+// e.g. int8 at d = 24; phase1_mma_kernel): the route is chosen by row width
+// alone (phase1_route). A block owns 128 rows x 128 queries; chunks of 16 words arrive
+// through a 4-stage cp.async ring (4-byte copies) and feed mma.sync m16n8k16
+// (bf16) / m16n8k32 (int8) from 32-bit shared-memory fragments, a warp owning
+// one 32-row subtile by 64 queries. The wrapper asks phase1_route which
+// kernel a launch took and counts the narrow one's launches apart.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libphase1.so phase1.cu
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,8 +102,8 @@
 
 namespace {
 
-constexpr int BM = 128;       // corpus rows per tile
-constexpr int BN = 128;       // queries per block
+constexpr int BM = 128;       // corpus rows per tile (f32 and narrow kernels)
+constexpr int BN = 128;       // queries per block (f32 and narrow kernels)
 constexpr int KW = 16;        // 32-bit words of a row per chunk
 constexpr int THREADS = 256;  // 8 warps: 4 subtiles x 2 query halves
 constexpr int SUBTILE = 32;   // rows per max group
@@ -75,6 +112,7 @@ constexpr int LDS = BM + 4;   // f32 kernel: shared stride of a k-row (BM == BN)
 constexpr int TLD = KW + 4;   // mma kernel: shared stride of a corpus/query row
 constexpr int OLD = MAX_RT * (BM / SUBTILE) + 1;  // staged-output stride
 constexpr float MASKED = -3.0e38f;
+constexpr int MAX_DEVICES = 64;
 
 struct BF16 {};
 struct I8 {};
@@ -107,6 +145,18 @@ __device__ __forceinline__ float scaled(BF16, float acc, float inv, float) {
 // Same order as the TPU kernel: (float(dots) * inv[row]) * qinv[query].
 __device__ __forceinline__ float scaled(I8, int acc, float inv, float qinv) {
     return __fmul_rn(__fmul_rn(static_cast<float>(acc), inv), qinv);
+}
+// The wgmma kernel takes the max over a subtile's rows before the query's
+// scale: a product with qinv > 0 (1 / the query's norm) rounds monotonically,
+// so max(round(y * qinv)) == round(max(y) * qinv), bit for bit, with one
+// multiply per subtile instead of one per row.
+__device__ __forceinline__ float row_scaled(BF16, float acc, float inv) { return acc * inv; }
+__device__ __forceinline__ float row_scaled(I8, int acc, float inv) {
+    return __fmul_rn(static_cast<float>(acc), inv);
+}
+__device__ __forceinline__ float query_scaled(BF16, float m, float) { return m; }
+__device__ __forceinline__ float query_scaled(I8, float m, float qinv) {
+    return m == MASKED ? MASKED : __fmul_rn(m, qinv);
 }
 
 // ---------------------------------------------------------------------------
@@ -249,9 +299,8 @@ phase1_f32_kernel(const uint32_t* __restrict__ buf,   // (C, dw) words
     }
 }
 
-
 // ---------------------------------------------------------------------------
-// bfloat16 / int8: mma.sync on the tensor cores, fed by a cp.async ring
+// bfloat16 / int8 rows TMA cannot describe: mma.sync fed by a cp.async ring
 // ---------------------------------------------------------------------------
 
 // Copy 4 bytes global -> shared without passing through registers; with
@@ -259,12 +308,6 @@ phase1_f32_kernel(const uint32_t* __restrict__ buf,   // (C, dw) words
 __device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src, int src_bytes) {
     const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
-}
-// The same for 16 bytes; both addresses must be 16-byte aligned.
-__device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src, int src_bytes) {
-    const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n"
                  :: "r"(d), "l"(src), "r"(src_bytes) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -279,9 +322,7 @@ constexpr int STAGES = 4;                          // chunks in the ring
 constexpr int STAGE_WORDS = (BM + BN) * TLD;       // one chunk: A tile, then B tile
 constexpr int MMA_SMEM_BYTES = (STAGES * STAGE_WORDS + BN * OLD) * 4;
 
-// VEC16: rows are a whole number of 16-byte pieces (dw % 4 == 0) and 16-byte
-// aligned, so a chunk row is copied as 4 pieces of 16 bytes instead of 16 words.
-template <typename K, bool HAS_MASK, bool VEC16>
+template <typename K, bool HAS_MASK>
 __global__ void __launch_bounds__(THREADS, 2)  // 2 blocks per SM: <= 128 registers
 phase1_mma_kernel(const uint32_t* __restrict__ buf,   // (C, dw) words
                   const uint32_t* __restrict__ q,     // (B, dw) words
@@ -311,8 +352,7 @@ phase1_mma_kernel(const uint32_t* __restrict__ buf,   // (C, dw) words
     const int nchunks = (dw + KW - 1) / KW;
     const int tile0 = blockIdx.x * rt;               // first row tile of this block
     // Only tiles that start below `count` hold a live row; the rest keep the
-    // sentinel that Os is prefilled with (right after a capacity bucket grows,
-    // that is up to half of the buffer).
+    // sentinel that Os is prefilled with.
     const int live_rows = min(C, count) - tile0 * BM;
     const int tiles_here = max(0, min(rt, (live_rows + BM - 1) / BM));
     const int total = tiles_here * nchunks;          // chunks this block walks
@@ -335,36 +375,18 @@ phase1_mma_kernel(const uint32_t* __restrict__ buf,   // (C, dw) words
             uint32_t* as = smem + (n % STAGES) * STAGE_WORDS;
             uint32_t* bs = as + BM * TLD;
             const int row0 = (tile0 + it) * BM;
-            if (VEC16) {
-                // thread -> (row tid/4 [+64], piece tid%4) of each tile
-                const int kw = ic * KW + (tid & 3) * 4;
-                const bool kin = kw < dw;
+            const int kw = ic * KW + ld_k;
+            const bool kin = kw < dw;
 #pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    const int lr = (tid >> 2) + 64 * i;
-                    const int r = row0 + lr;
-                    const int qq = q0 + lr;
-                    const bool oka = kin && r < C;
-                    const bool okb = kin && qq < B;
-                    cp_async16(&as[lr * TLD + (tid & 3) * 4],
-                               oka ? buf + (size_t)r * dw + kw : buf, oka ? 16 : 0);
-                    cp_async16(&bs[lr * TLD + (tid & 3) * 4],
-                               okb ? q + (size_t)qq * dw + kw : q, okb ? 16 : 0);
-                }
-            } else {
-                const int kw = ic * KW + ld_k;
-                const bool kin = kw < dw;
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    const int r = row0 + ld_r + 16 * i;
-                    const int qq = q0 + ld_r + 16 * i;
-                    const bool oka = kin && r < C;
-                    const bool okb = kin && qq < B;
-                    cp_async4(&as[(ld_r + 16 * i) * TLD + ld_k],
-                              oka ? buf + (size_t)r * dw + kw : buf, oka ? 4 : 0);
-                    cp_async4(&bs[(ld_r + 16 * i) * TLD + ld_k],
-                              okb ? q + (size_t)qq * dw + kw : q, okb ? 4 : 0);
-                }
+            for (int i = 0; i < 8; ++i) {
+                const int r = row0 + ld_r + 16 * i;
+                const int qq = q0 + ld_r + 16 * i;
+                const bool oka = kin && r < C;
+                const bool okb = kin && qq < B;
+                cp_async4(&as[(ld_r + 16 * i) * TLD + ld_k],
+                          oka ? buf + (size_t)r * dw + kw : buf, oka ? 4 : 0);
+                cp_async4(&bs[(ld_r + 16 * i) * TLD + ld_k],
+                          okb ? q + (size_t)qq * dw + kw : q, okb ? 4 : 0);
             }
             if (++ic == nchunks) { ic = 0; ++it; }
         }
@@ -474,20 +496,445 @@ phase1_mma_kernel(const uint32_t* __restrict__ buf,   // (C, dw) words
     }
 }
 
-// K = void launches the float32 kernel, BF16 / I8 the mma kernel.
+
+// ---------------------------------------------------------------------------
+// bfloat16 / int8 rows TMA can describe: wgmma fed by a TMA ring
+// ---------------------------------------------------------------------------
+
+// A tile is TN corpus rows (wgmma's N): 128, or 256 where the accumulators
+// fit (at most 2 consumer warpgroups) and the ring keeps MIN_STAGES stages.
+constexpr int SLAB = 128;                 // bytes of a row per k-slab: the swizzle span
+constexpr int KSTEPS = 4;                 // wgmma k-steps per slab (32 bytes each)
+constexpr int MIN_STAGES = 4, MAX_STAGES = 8;
+constexpr int NINFO = 2;                  // slots of the tiles' inv (NaN where not live)
+constexpr int BAR_BYTES = (2 * MAX_STAGES + 2 * NINFO + 1) * 8;
+constexpr int SMEM_LIMIT = 232448;        // dynamic shared memory a block may have
+
+// What the host decides per launch (see make_plan); offsets are from the
+// 1024-aligned start of the block's shared memory.
+struct Plan {
+    int C, B, count;
+    int ks;          // k-slabs of a row
+    int resident;    // 1: the query tile stays in shared memory; 0: it streams
+    int stages;      // ring stages
+    int stage_bytes; // a corpus slab (+ the block's query slab when streaming)
+    int qblocks;     // query blocks
+    int per_qblock;  // blocks walking the tiles for one query block
+    int live_tiles;  // tiles that start below min(count, C)
+    int tiles;       // all tiles of C
+    int ring, info, bars;  // shared-memory offsets
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+// waits until the phase with the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n.reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n}\n"
+            : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+// TMA: the box of a 2-d tensor map at (element x, row y) into shared memory
+// at dst, completing on the mbarrier at bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                         uint32_t bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%2, %3}], [%4];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+        : "memory");
+}
+// wgmma matrix descriptor of a K-major tile in the 128-byte swizzle that TMA
+// writes: rows of 128 bytes, 8-row core groups 1024 bytes apart (stride byte
+// offset), leading byte offset unused (1); addr 1024-aligned, or 32 bytes
+// per k-step past such an address.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+    return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
+         | (static_cast<uint64_t>(1) << 16)
+         | (static_cast<uint64_t>(1024 >> 4) << 32)
+         | (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// waits until at most N committed wgmma groups of this warp are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads across wgmma_wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&d)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+#define WG_ACC64(c) \
+    c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]), \
+    c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]), \
+    c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]), \
+    c(d[25]), c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31]), c(d[32]), \
+    c(d[33]), c(d[34]), c(d[35]), c(d[36]), c(d[37]), c(d[38]), c(d[39]), c(d[40]), \
+    c(d[41]), c(d[42]), c(d[43]), c(d[44]), c(d[45]), c(d[46]), c(d[47]), c(d[48]), \
+    c(d[49]), c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]), \
+    c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63])
+#define WG_REGS64 \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+#define WG_ACC128(c) \
+    c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]), \
+    c(d[9]), c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15]), c(d[16]), \
+    c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]), c(d[23]), c(d[24]), \
+    c(d[25]), c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31]), c(d[32]), \
+    c(d[33]), c(d[34]), c(d[35]), c(d[36]), c(d[37]), c(d[38]), c(d[39]), c(d[40]), \
+    c(d[41]), c(d[42]), c(d[43]), c(d[44]), c(d[45]), c(d[46]), c(d[47]), c(d[48]), \
+    c(d[49]), c(d[50]), c(d[51]), c(d[52]), c(d[53]), c(d[54]), c(d[55]), c(d[56]), \
+    c(d[57]), c(d[58]), c(d[59]), c(d[60]), c(d[61]), c(d[62]), c(d[63]), c(d[64]), \
+    c(d[65]), c(d[66]), c(d[67]), c(d[68]), c(d[69]), c(d[70]), c(d[71]), c(d[72]), \
+    c(d[73]), c(d[74]), c(d[75]), c(d[76]), c(d[77]), c(d[78]), c(d[79]), c(d[80]), \
+    c(d[81]), c(d[82]), c(d[83]), c(d[84]), c(d[85]), c(d[86]), c(d[87]), c(d[88]), \
+    c(d[89]), c(d[90]), c(d[91]), c(d[92]), c(d[93]), c(d[94]), c(d[95]), c(d[96]), \
+    c(d[97]), c(d[98]), c(d[99]), c(d[100]), c(d[101]), c(d[102]), c(d[103]), \
+    c(d[104]), c(d[105]), c(d[106]), c(d[107]), c(d[108]), c(d[109]), c(d[110]), \
+    c(d[111]), c(d[112]), c(d[113]), c(d[114]), c(d[115]), c(d[116]), c(d[117]), \
+    c(d[118]), c(d[119]), c(d[120]), c(d[121]), c(d[122]), c(d[123]), c(d[124]), \
+    c(d[125]), c(d[126]), c(d[127])
+#define WG_REGS128 \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+    "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+    "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+    "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+    "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+    "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+    "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+    "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}"
+
+// d (64 x N) = A (64 x k-step, shared) * B (k-step x N, shared) [+ d when
+// accumulate], both K-major: bf16 (k-step 16) summed in float32, int8
+// (k-step 32) summed exactly in int32; N = 128 or 256
+template <int N, typename T>
+__device__ void wgmma(T, typename Acc<T>::type (&d)[N / 2], uint64_t da, uint64_t db,
+                      bool accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma<128>(BF16, float (&d)[64], uint64_t da, uint64_t db,
+                                           bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WG_REGS64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_ACC64("+f")
+        : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)));
+}
+template <>
+__device__ __forceinline__ void wgmma<256>(BF16, float (&d)[128], uint64_t da, uint64_t db,
+                                           bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WG_REGS128
+        ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+        : WG_ACC128("+f")
+        : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)));
+}
+template <>
+__device__ __forceinline__ void wgmma<128>(I8, int (&d)[64], uint64_t da, uint64_t db,
+                                           bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " WG_REGS64
+        ", %64, %65, p;\n}\n"
+        : WG_ACC64("+r")
+        : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)));
+}
+template <>
+__device__ __forceinline__ void wgmma<256>(I8, int (&d)[128], uint64_t da, uint64_t db,
+                                           bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " WG_REGS128
+        ", %128, %129, p;\n}\n"
+        : WG_ACC128("+r")
+        : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)));
+}
+#undef WG_ACC64
+#undef WG_REGS64
+#undef WG_ACC128
+#undef WG_REGS128
+
+template <typename K, int WG, int TN>
+__global__ void __launch_bounds__(WG * 128 + 32, 1)
+phase1_wgmma_kernel(const __grid_constant__ CUtensorMap tbuf,  // corpus (C, d)
+                    const __grid_constant__ CUtensorMap tq,    // queries (B, d)
+                    const float* __restrict__ inv,             // (C,), 16-byte aligned
+                    const float* __restrict__ qinv,            // (B,) int8 only
+                    const uint8_t* __restrict__ mask,          // (C,) bool or null
+                    float* __restrict__ out,                   // (B, C/32)
+                    const Plan p)
+{
+    using acc_t = typename Acc<K>::type;
+    constexpr int CONSUMERS = WG * 128;
+    constexpr int QB = WG * 64;            // queries of the block
+    constexpr int QSLAB = QB * SLAB;       // bytes of one k-slab of them
+    constexpr int EPS = std::is_same<K, I8>::value ? SLAB : SLAB / 2;  // elements a slab
+    constexpr int SLAB_BYTES = TN * SLAB;  // one corpus slab: 16 or 32 KB
+    constexpr int INFO_BYTES = TN * 4;     // one tile's inv
+    constexpr int SUBS = TN / SUBTILE;     // subtiles of a tile
+    // The 128-byte swizzle repeats every 1024 bytes and the wgmma descriptors
+    // assume tiles on such boundaries: dynamic shared memory starts on one.
+    extern __shared__ __align__(1024) unsigned char shm[];
+    const uint32_t sbase = smem_u32(shm);
+    if (sbase % 1024 != 0) __trap();
+    const uint32_t ring = sbase + p.ring;
+    const uint32_t info = sbase + p.info;
+    const uint32_t bars = sbase + p.bars;
+    // barriers: full[MAX_STAGES], empty[MAX_STAGES], ifull[NINFO], iempty[NINFO], qfull
+    const uint32_t full = bars, empty = bars + 8 * MAX_STAGES;
+    const uint32_t ifull = bars + 16 * MAX_STAGES, iempty = ifull + 8 * NINFO;
+    const uint32_t qfull = iempty + 8 * NINFO;
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    // Consecutive blocks take the query blocks of one tile, so they read it
+    // from device memory once and from L2 the other times.
+    const int j0 = blockIdx.x / p.qblocks;            // the block's first tile
+    const int q0 = (blockIdx.x % p.qblocks) * QB;     // and first query
+
+    if (tid == 0) {
+        for (int s = 0; s < p.stages; ++s) {
+            mbar_init(full + 8 * s, 1);                       // the producer's expect_tx
+            mbar_init(empty + 8 * s, CONSUMERS / 32);         // every consumer warp
+        }
+        for (int i = 0; i < NINFO; ++i) {
+            mbar_init(ifull + 8 * i, 32);                     // the producer lanes' stores
+            mbar_init(iempty + 8 * i, CONSUMERS / 32);
+        }
+        mbar_init(qfull, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    if (tid >= CONSUMERS) {
+        // ------------------------------ producer warp
+        if (lane == 0 && p.resident) {
+            mbar_expect_tx(qfull, p.ks * QSLAB);
+            for (int k = 0; k < p.ks; ++k) tma_load(sbase + k * QSLAB, &tq, k * EPS, q0, qfull);
+        }
+        const int lim = min(p.count, p.C);
+        // inv and mask bytes of rows 128 j + 4 lane .. + 3 of the next tile (C
+        // is a multiple of 32), loaded a tile ahead
+        float4 nv[TN / 128];
+        uint32_t nm[TN / 128];
+        auto fetch = [&](int t) {
+#pragma unroll
+            for (int j = 0; j < TN / 128; ++j) {
+                const int r = t * TN + 128 * j + 4 * lane;
+                nv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+                nm[j] = 0;
+                if (t < p.live_tiles && r < p.C) {
+                    nv[j] = __ldg(reinterpret_cast<const float4*>(inv + r));
+                    nm[j] = mask != nullptr ? __ldg(reinterpret_cast<const uint32_t*>(mask + r))
+                                            : 0x01010101u;
+                }
+            }
+        };
+        fetch(j0);
+        int n = 0, i = 0;
+        for (int t = j0; t < p.live_tiles; t += p.per_qblock, ++i) {
+            const int row0 = t * TN;
+            const int slot = i % NINFO;
+            mbar_wait(iempty + 8 * slot, ((i / NINFO) & 1) ^ 1);
+            {   // a row that is not live gets NaN, which fmaxf passes over
+                const float nan = __int_as_float(0x7fffffff);
+#pragma unroll
+                for (int j = 0; j < TN / 128; ++j) {
+                    const int r = row0 + 128 * j + 4 * lane;
+                    const uint32_t m = nm[j];
+                    const float4 v = make_float4(
+                        r < lim && (m & 0xFFu) ? nv[j].x : nan,
+                        r + 1 < lim && (m & 0xFF00u) ? nv[j].y : nan,
+                        r + 2 < lim && (m & 0xFF0000u) ? nv[j].z : nan,
+                        r + 3 < lim && (m >> 24) ? nv[j].w : nan);
+                    *reinterpret_cast<float4*>(shm + p.info + slot * INFO_BYTES + 512 * j +
+                                               16 * lane) = v;
+                }
+                mbar_arrive(ifull + 8 * slot);
+                fetch(t + p.per_qblock);
+            }
+            for (int k = 0; k < p.ks; ++k, ++n) {
+                const int s = n % p.stages;
+                mbar_wait(empty + 8 * s, ((n / p.stages) & 1) ^ 1);
+                if (lane == 0) {
+                    const uint32_t st = ring + s * p.stage_bytes;
+                    mbar_expect_tx(full + 8 * s, SLAB_BYTES + (p.resident ? 0 : QSLAB));
+                    tma_load(st, &tbuf, k * EPS, row0, full + 8 * s);
+                    if (!p.resident) tma_load(st + SLAB_BYTES, &tq, k * EPS, q0, full + 8 * s);
+                }
+            }
+        }
+        __syncwarp();
+    } else {
+        // ------------------------------ consumer warpgroups
+        const int warp = tid >> 5;
+        const int wg = warp >> 2;
+        const int g = lane >> 2, t4 = lane & 3;
+        const int qr = wg * 64 + (warp & 3) * 16 + g;  // this thread's queries: qr, qr + 8
+        const int nsub = p.C / SUBTILE;
+        float qs[2] = {1.0f, 1.0f};
+        if (qinv != nullptr) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+                if (q0 + qr + 8 * h < p.B) qs[h] = qinv[q0 + qr + 8 * h];
+        }
+        if (p.resident) mbar_wait(qfull, 0);
+        // a release: after this warp's products that read the stage are done
+        auto release = [&](int s) {
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty + 8 * s);
+        };
+
+        acc_t acc[TN / 2];
+#pragma unroll
+        for (int e = 0; e < TN / 2; ++e) acc[e] = 0;
+        int n = 0, i = 0;
+        for (int t = j0; t < p.live_tiles; t += p.per_qblock, ++i) {
+            int prev = 0;
+            for (int k = 0; k < p.ks; ++k, ++n) {
+                const int s = n % p.stages;
+                mbar_wait(full + 8 * s, (n / p.stages) & 1);
+                const uint32_t st = ring + s * p.stage_bytes;
+                const uint32_t a = (p.resident ? sbase + k * QSLAB : st + SLAB_BYTES)
+                                 + wg * 64 * SLAB;
+                const uint64_t da = desc_sw128(a), db = desc_sw128(st);
+                wgmma_fence();
+#pragma unroll
+                for (int kk = 0; kk < KSTEPS; ++kk)  // 32 bytes a k-step: 2 in 16-byte units
+                    wgmma<TN>(K{}, acc, da + 2 * kk, db + 2 * kk, k > 0 || kk > 0);
+                wgmma_commit();
+                if (k > 0) {
+                    wgmma_wait<1>();  // the slab before is done
+                    release(prev);
+                }
+                prev = s;
+            }
+            wgmma_wait<0>();
+            fence_regs(acc);
+            release(prev);
+
+            // Epilogue. acc[4 nt + 2 h + e] is (query qr + 8 h, row 8 nt + 2 t4 + e
+            // of the tile); subtile sb is n8 groups 4 sb .. 4 sb + 3.
+            const int slot = i % NINFO;
+            mbar_wait(ifull + 8 * slot, (i / NINFO) & 1);
+            const float* iv = reinterpret_cast<const float*>(shm + p.info + slot * INFO_BYTES);
+            // the scores of rows that are not live are NaN (their inv), which
+            // fmaxf passes over: a subtile without a live row keeps MASKED
+            float m[2][SUBS];
+#pragma unroll
+            for (int sb = 0; sb < SUBS; ++sb) {
+                m[0][sb] = MASKED;
+                m[1][sb] = MASKED;
+#pragma unroll
+                for (int nn = 0; nn < 4; ++nn) {
+                    const int nt = 4 * sb + nn;
+                    const float2 sc = *reinterpret_cast<const float2*>(iv + 8 * nt + 2 * t4);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        m[h][sb] = fmaxf(m[h][sb],
+                                         fmaxf(row_scaled(K{}, acc[4 * nt + 2 * h], sc.x),
+                                               row_scaled(K{}, acc[4 * nt + 2 * h + 1], sc.y)));
+                }
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(iempty + 8 * slot);
+            // Across the quad, transposed, four subtiles at a time: after the
+            // xor-2 step a lane keeps subtiles (t4 & 2) + {0, 1} of the four,
+            // after the xor-1 step subtile t4.
+            const bool hi = (t4 & 2) != 0, lo = (t4 & 1) != 0;
+#pragma unroll
+            for (int f = 0; f < SUBS; f += 4) {
+                const int sub = SUBS * t + f + t4;
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const float* v = m[h] + f;
+                    const float a0 = fmaxf(hi ? v[2] : v[0],
+                                           __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 2));
+                    const float a1 = fmaxf(hi ? v[3] : v[1],
+                                           __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 2));
+                    const float r = fmaxf(lo ? a1 : a0, __shfl_xor_sync(0xffffffffu, lo ? a0 : a1, 1));
+                    const int q = q0 + qr + 8 * h;
+                    if (q < p.B && sub < nsub) out[(size_t)q * nsub + sub] = query_scaled(K{}, r, qs[h]);
+                }
+            }
+        }
+
+        // tiles at or past count: the sentinel, shared out like the live ones
+        for (int t = p.live_tiles + j0; t < p.tiles; t += p.per_qblock)
+            for (int idx = tid; idx < QB * SUBS; idx += CONSUMERS) {
+                const int q = q0 + idx / SUBS, sub = SUBS * t + idx % SUBS;
+                if (q < p.B && sub < nsub) out[(size_t)q * nsub + sub] = MASKED;
+            }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+// The card's SM count, once per device.
+int sm_count(int& sms) {
+    static int cache[MAX_DEVICES];
+    int dev;
+    if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+    if (dev < 0 || dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+    if (cache[dev] == 0) {
+        if (cudaError_t e = cudaDeviceGetAttribute(&cache[dev], cudaDevAttrMultiProcessorCount, dev))
+            return static_cast<int>(e);
+    }
+    sms = cache[dev];
+    return 0;
+}
+
+// K = void launches the float32 kernel, BF16 / I8 the narrow-row mma kernel.
 template <typename K>
-int launch(const void* buf, const void* q, const float* inv, const float* qinv,
-           const uint8_t* mask, float* out, int C, int dw, int B, int count,
-           void* stream)
+int launch_blocks(const void* buf, const void* q, const float* inv, const float* qinv,
+                  const uint8_t* mask, float* out, int C, int dw, int B, int count,
+                  void* stream)
 {
     if (C <= 0 || B <= 0 || dw <= 0 || C % SUBTILE != 0)
         return static_cast<int>(cudaErrorInvalidValue);
+    int sms;
+    if (int e = sm_count(sms)) return e;
     const int tiles = (C + BM - 1) / BM;
     const int qblocks = (B + BN - 1) / BN;
     // Walk several row tiles per block (wider output runs) only while that
-    // still leaves a few blocks for each of the card's 132 SMs.
+    // still leaves a few blocks for each SM.
     int rt = MAX_RT;
-    while (rt > 1 && ((tiles + rt - 1) / rt) * qblocks < 4 * 132) rt >>= 1;
+    while (rt > 1 && ((tiles + rt - 1) / rt) * qblocks < 4 * sms) rt >>= 1;
     const dim3 grid((tiles + rt - 1) / rt, qblocks);
     const auto* bw = static_cast<const uint32_t*>(buf);
     const auto* qw = static_cast<const uint32_t*>(q);
@@ -500,32 +947,181 @@ int launch(const void* buf, const void* q, const float* inv, const float* qinv,
             phase1_f32_kernel<false><<<grid, THREADS, 0, st>>>(
                 bw, qw, inv, mask, out, C, dw, B, count, rt);
     } else {
-        // more than the 48 KB a kernel gets without asking
-        const bool vec16 = dw % 4 == 0
-            && reinterpret_cast<uintptr_t>(buf) % 16 == 0
-            && reinterpret_cast<uintptr_t>(q) % 16 == 0;
-        auto* kernel = mask != nullptr
-            ? (vec16 ? phase1_mma_kernel<K, true, true> : phase1_mma_kernel<K, true, false>)
-            : (vec16 ? phase1_mma_kernel<K, false, true> : phase1_mma_kernel<K, false, false>);
-        cudaError_t e = cudaFuncSetAttribute(
-            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_BYTES);
-        if (e != cudaSuccess) return static_cast<int>(e);
+        auto* kernel = mask != nullptr ? phase1_mma_kernel<K, true> : phase1_mma_kernel<K, false>;
+        // more than the 48 KB a kernel gets without asking: set once per device
+        static bool ready[MAX_DEVICES][2];
+        int dev;
+        if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+        if (!ready[dev][mask != nullptr]) {
+            if (cudaError_t e = cudaFuncSetAttribute(
+                    kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, MMA_SMEM_BYTES))
+                return static_cast<int>(e);
+            ready[dev][mask != nullptr] = true;
+        }
         kernel<<<grid, THREADS, MMA_SMEM_BYTES, st>>>(
             bw, qw, inv, qinv, mask, out, C, dw, B, count, rt);
     }
     return static_cast<int>(cudaGetLastError());
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found through the runtime (so the
+// library needs no -lcuda)
+EncodeTiled encoder() {
+    static EncodeTiled fn = nullptr;
+    if (fn == nullptr) {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found) ==
+                cudaSuccess &&
+            found == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+    return fn;
+}
+
+// Errors of the host setup, beside the cudaError values the launch returns.
+constexpr int ERR_NO_ENCODER = 10001;  // cuTensorMapEncodeTiled not found
+constexpr int ERR_ENCODE = 10002;      // a tensor map was refused
+
+// A 2-d tensor map over rows (rows, d) of 1-byte or 2-byte elements whose
+// box is one 128-byte k-slab of box_rows rows, in the 128-byte swizzle.
+// Elements past d and rows past `rows` read as zeros.
+int make_map(CUtensorMap* map, const void* ptr, int esize, int d, int rows, int box_rows) {
+    EncodeTiled encode = encoder();
+    if (encode == nullptr) return ERR_NO_ENCODER;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * esize};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(SLAB / esize),
+                               static_cast<cuuint32_t>(box_rows)};
+    const cuuint32_t one[2] = {1, 1};
+    const CUresult res = encode(
+        map, esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+        const_cast<void*>(ptr), dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return res == CUDA_SUCCESS ? 0 : ERR_ENCODE;
+}
+
+// The query-block plan: consumer
+// warpgroups wg (64 queries each) as many as B needs, at most 4, halved
+// until their query tile fits beside MIN_STAGES stages of 128-row slabs; if
+// not even one warpgroup's fits, the queries stream with the corpus (wg as
+// B needs). Tiles of tn = 256 rows where wg <= 2 (128 accumulator registers
+// a thread) and MIN_STAGES such stages still fit, else 128. Then as many
+// stages as fit, at most MAX_STAGES.
+void make_plan(Plan& p, int esize, int C, int d, int B, int count, int& wg, int& tn) {
+    const int mblocks = (B + 63) / 64;
+    const int want = mblocks >= 3 ? 4 : mblocks;
+    p.C = C;
+    p.B = B;
+    p.count = count;
+    p.ks = (d * esize + SLAB - 1) / SLAB;
+    auto fixed = [](int t) { return NINFO * t * 4 + BAR_BYTES; };  // info slots, barriers
+    auto qtile = [&](int w) { return p.ks * 64 * w * SLAB; };
+    wg = want;
+    while (wg > 1 && fixed(128) + qtile(wg) + MIN_STAGES * 128 * SLAB > SMEM_LIMIT) wg /= 2;
+    p.resident = fixed(128) + qtile(wg) + MIN_STAGES * 128 * SLAB <= SMEM_LIMIT;
+    if (!p.resident) wg = want;
+    auto stage = [&](int t) { return t * SLAB + (p.resident ? 0 : 64 * wg * SLAB); };
+    auto room = [&](int t) { return SMEM_LIMIT - fixed(t) - (p.resident ? qtile(wg) : 0); };
+    tn = wg <= 2 && room(256) / stage(256) >= MIN_STAGES ? 256 : 128;
+    p.stage_bytes = stage(tn);
+    p.stages = min(MAX_STAGES, room(tn) / p.stage_bytes);
+    p.ring = p.resident ? qtile(wg) : 0;
+    p.info = p.ring + p.stages * p.stage_bytes;
+    p.bars = p.info + NINFO * tn * 4;
+    p.qblocks = (B + 64 * wg - 1) / (64 * wg);
+    const int live_rows = min(count, C);
+    p.live_tiles = live_rows > 0 ? (live_rows + tn - 1) / tn : 0;
+    p.tiles = (C + tn - 1) / tn;
+}
+
+// Blocks the card holds at once for this kernel, once per device (the host
+// calls cost more than a launch); the shared-memory attribute is set on the
+// way. Every launch asks for SMEM_LIMIT bytes, so a block has its SM to
+// itself.
+template <typename K, int WG, int TN>
+int resident_blocks(int& blocks) {
+    static int cache[MAX_DEVICES];
+    auto* kernel = phase1_wgmma_kernel<K, WG, TN>;
+    int dev, sms, per_sm;
+    if (int e = sm_count(sms)) return e;  // checks the device index too
+    if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+    if (cache[dev] == 0) {
+        if (cudaError_t e = cudaFuncSetAttribute(
+                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT))
+            return static_cast<int>(e);
+        if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &per_sm, kernel, WG * 128 + 32, SMEM_LIMIT))
+            return static_cast<int>(e);
+        if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+        cache[dev] = sms * per_sm;
+    }
+    blocks = cache[dev];
+    return 0;
+}
+
+template <typename K, int WG, int TN>
+int launch_wgmma_as(Plan p, const CUtensorMap& tbuf, const CUtensorMap& tq, const float* inv,
+                    const float* qinv, const uint8_t* mask, float* out, cudaStream_t stream) {
+    int blocks;
+    if (int e = resident_blocks<K, WG, TN>(blocks)) return e;
+    // the blocks of one query block walk its tiles; the query blocks run side by side
+    p.per_qblock = max(1, blocks / p.qblocks);
+    phase1_wgmma_kernel<K, WG, TN><<<p.per_qblock * p.qblocks, WG * 128 + 32, SMEM_LIMIT,
+                                     stream>>>(tbuf, tq, inv, qinv, mask, out, p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+template <typename K>
+int launch_wgmma(const void* buf, const void* q, const float* inv, const float* qinv,
+                 const uint8_t* mask, float* out, int C, int d, int B, int count,
+                 void* stream) {
+    constexpr int esize = std::is_same<K, I8>::value ? 1 : 2;
+    if (C <= 0 || B <= 0 || d <= 0 || C % SUBTILE != 0 || (d * esize) % 16 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (reinterpret_cast<uintptr_t>(buf) % 16 || reinterpret_cast<uintptr_t>(q) % 16 ||
+        reinterpret_cast<uintptr_t>(inv) % 16 || reinterpret_cast<uintptr_t>(mask) % 4)
+        return static_cast<int>(cudaErrorMisalignedAddress);
+    Plan p;
+    int wg, tn;
+    make_plan(p, esize, C, d, B, count, wg, tn);
+    CUtensorMap tbuf, tq;
+    if (int e = make_map(&tbuf, buf, esize, d, C, tn)) return e;
+    if (int e = make_map(&tq, q, esize, d, B, 64 * wg)) return e;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (wg == 4) return launch_wgmma_as<K, 4, 128>(p, tbuf, tq, inv, qinv, mask, out, st);
+    if (wg == 2)
+        return tn == 256 ? launch_wgmma_as<K, 2, 256>(p, tbuf, tq, inv, qinv, mask, out, st)
+                         : launch_wgmma_as<K, 2, 128>(p, tbuf, tq, inv, qinv, mask, out, st);
+    return tn == 256 ? launch_wgmma_as<K, 1, 256>(p, tbuf, tq, inv, qinv, mask, out, st)
+                     : launch_wgmma_as<K, 1, 128>(p, tbuf, tq, inv, qinv, mask, out, st);
+}
+
 }  // namespace
+
+// Which kernel phase1_bf16 / phase1_i8 launch for rows of d elements of
+// esize bytes: 1 the wgmma kernel (rows of a whole number of 16 bytes, the
+// row stride TMA can describe), 0 the narrow mma.sync kernel. Row width
+// alone decides; the wrapper asks it to count a launch under its kernel.
+extern "C" int phase1_route(int d, int esize) { return (d * esize) % 16 == 0 ? 1 : 0; }
 
 // buf (C, d) and q (B, d) contiguous, 4-byte aligned; mask may be null. `d`
 // is in elements: d*itemsize must be a multiple of 4 (the wrapper checks).
-// Each returns cudaGetLastError() after the launch (0 = launched).
+// bf16 and int8 rows take the kernel phase1_route names; the wgmma kernel
+// also needs buf, q and inv 16-byte aligned (the wrapper sees to it). Each
+// returns cudaGetLastError() after the launch (0 = launched), or 10001 /
+// 10002 when the driver's tensor-map encoder is missing or refuses the layout.
 extern "C" int phase1_f32(const void* buf, const void* q, const float* inv,
                           const uint8_t* mask, float* out, int C, int d, int B,
                           int count, void* stream)
 {
-    return launch<void>(buf, q, inv, nullptr, mask, out, C, d, B, count, stream);
+    return launch_blocks<void>(buf, q, inv, nullptr, mask, out, C, d, B, count, stream);
 }
 
 extern "C" int phase1_bf16(const void* buf, const void* q, const float* inv,
@@ -533,7 +1129,9 @@ extern "C" int phase1_bf16(const void* buf, const void* q, const float* inv,
                            int count, void* stream)
 {
     if (d % 2) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<BF16>(buf, q, inv, nullptr, mask, out, C, d / 2, B, count, stream);
+    if (phase1_route(d, 2))
+        return launch_wgmma<BF16>(buf, q, inv, nullptr, mask, out, C, d, B, count, stream);
+    return launch_blocks<BF16>(buf, q, inv, nullptr, mask, out, C, d / 2, B, count, stream);
 }
 
 extern "C" int phase1_i8(const void* buf, const void* qi, const float* inv,
@@ -541,5 +1139,7 @@ extern "C" int phase1_i8(const void* buf, const void* qi, const float* inv,
                          int C, int d, int B, int count, void* stream)
 {
     if (d % 4 || qinv == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<I8>(buf, qi, inv, qinv, mask, out, C, d / 4, B, count, stream);
+    if (phase1_route(d, 1))
+        return launch_wgmma<I8>(buf, qi, inv, qinv, mask, out, C, d, B, count, stream);
+    return launch_blocks<I8>(buf, qi, inv, qinv, mask, out, C, d / 4, B, count, stream);
 }

@@ -28,7 +28,12 @@ float32 and bfloat16; K2: int8), compiled at first use
 (kernels/build.py). ``subtile_maxima`` and ``subtile_maxima_int8`` launch it
 for CUDA tensors and raise on what it does not take; they use the plain
 versions below ONLY for tensors that lie on the CPU. ``LAUNCHES`` counts
-kernel launches per instantiation.
+kernel launches per instantiation. bfloat16 and int8 rows of a whole number
+of 16 bytes (what TMA can describe) take the Hopper kernel (``wgmma`` on
+resident queries, a TMA ring); narrower rows (int8 at d = 24, say) take the
+``mma.sync`` kernel, chosen by row width alone. The library's
+``phase1_route`` says which a launch took; the narrow kernel's launches are
+counted in ``NARROW_LAUNCHES`` instead.
 
 Layout: ``subtile_maxima`` returns **(B, C/SUBTILE)**. The JAX function
 returns the transpose, (C/SUBTILE, B), a constraint of its compiler, and its
@@ -68,9 +73,23 @@ LAUNCHES = {
 }
 
 
+# Launches of the mma.sync kernel that bfloat16 / int8 rows narrower than TMA
+# can describe take (csrc/phase1.cu, phase1_route), by the same names.
+NARROW_LAUNCHES = {
+    "phase1_bf16": 0, "phase1_bf16_mask": 0, "phase1_i8": 0, "phase1_i8_mask": 0,
+}
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, NARROW_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t itself where its data starts on a 16-byte boundary (every fresh
+    allocation does), else an aligned copy: TMA and 16-byte copies need it."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 _P = ctypes.c_void_p
@@ -90,7 +109,7 @@ def _kernel_fn(name: str):
     if fn is None:
         lib = build.load_library("phase1")
         fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
+        fn.argtypes = _ARGTYPES.get(name, [_I, _I])  # phase1_route: d, itemsize
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
@@ -132,6 +151,12 @@ def _check_operands(buf, inv_norms, q, mask, elem_dtypes) -> tuple[int, int, int
 def _launch(name: str, buf, args_before_mask, mask, c, d, b, count):
     """Allocate the output, launch on the current stream, do not synchronise."""
     fn = _kernel_fn(name)
+    counts = LAUNCHES
+    if name != "phase1_f32":
+        args_before_mask = [_aligned16(t) for t in args_before_mask]
+        mask = None if mask is None else _aligned16(mask)
+        if not _kernel_fn("phase1_route")(d, buf.element_size()):
+            counts = NARROW_LAUNCHES
     out = torch.empty((b, c // SUBTILE), dtype=torch.float32, device=buf.device)
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -142,7 +167,7 @@ def _launch(name: str, buf, args_before_mask, mask, c, d, b, count):
         )
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    LAUNCHES[name if mask is None else name + "_mask"] += 1
+    counts[name if mask is None else name + "_mask"] += 1
     return out
 
 
@@ -217,7 +242,9 @@ def subtile_maxima_int8_plain(buf_i8, inv_norms_i8, qi, q_inv, count, mask=None)
 
 def subtile_maxima_int8(buf_i8, inv_norms_i8, qi, q_inv, count, mask=None):
     """Phase 1, int8 (kernel K2). buf_i8 (C, d) int8, d a multiple of 4;
-    qi (B, d) int8 pre-quantized queries; q_inv (B,) float32 = 1/||qi||.
+    qi (B, d) int8 pre-quantized queries; q_inv (B,) float32 = 1/||qi||, so
+    positive (the kernel scales a subtile's maximum by it, which equals the
+    maximum of the scaled scores only for a positive factor).
     Returns (B, C/SUBTILE) float32 subtile maxima of int8-cosine scores.
     CUDA tensors launch the kernel (or raise); CPU tensors use the plain
     version."""

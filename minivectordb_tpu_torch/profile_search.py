@@ -8,6 +8,8 @@
         [--seq 512] [--compute-dtypes float32,bfloat16]
     python -m minivectordb_tpu_torch.profile_search --attention
         [--against OTHER/flash_attention.cu]
+    python -m minivectordb_tpu_torch.profile_search --phase1
+        [--against OTHER/phase1.cu]
 
 Builds a seeded corpus straight into a ``VectorStore`` (no metadata), then
 times the stages of ``StoreSnapshot._device_search``'s fused route one by one
@@ -46,6 +48,12 @@ them): the median of single launches and the mean of 20 back-to-back launches,
 by CUDA events. ``--against`` builds another source with the same C interface
 (an earlier version of ``csrc/flash_attention.cu``) and times it in turns with
 this one (other, this, this, other), with the largest difference between them.
+
+With ``--phase1`` it times the phase-1 kernels K1-bf16 and K2-int8 alone at
+the flat search's shape (C = 1,048,576, d = 384, B = 256, count = 1,000,000;
+``--rows``/``--dim``/``--batch`` change it), without and with a mask, the
+same way: each held against its plain version, and with ``--against`` another
+phase1.cu (same C interface, e.g. the parent commit's) in turns with this one.
 """
 
 from __future__ import annotations
@@ -393,21 +401,48 @@ def profile_embed(compute_dtype: str, batch: int, seq: int, seed: int, reps: int
     return out
 
 
-def _load_other(src: str):
-    """Builds another flash_attention.cu (same C interface) with the package's
+def _load_other(src: str, name: str, argtypes: dict):
+    """Builds another csrc/<name>.cu (same C interface) with the package's
     flags into the build directory and loads it."""
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(build.build_dir(), f"libflash_attention_other_{digest}.so")
+    path = os.path.join(build.build_dir(), f"lib{name}_other_{digest}.so")
     os.makedirs(build.build_dir(), exist_ok=True)
     if not os.path.exists(path):
         subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", path, src],
                        check=True, capture_output=True)
     lib = ctypes.CDLL(path)
-    for name, argtypes in flash_ops._ARGTYPES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = ctypes.c_int
+    for fn, types in argtypes.items():
+        getattr(lib, fn).argtypes = types
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def _times(fn, reps: int):
+    """(median of single launches, mean of 20 back-to-back launches), ms."""
+    single = _event_ms(fn, reps)
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(20):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return single, e0.elapsed_time(e1) / 20
+
+
+def _in_turns(row: dict, this, that, reps: int) -> None:
+    """Times this alone, or that, this, this, that into row."""
+    if that is None:
+        row["ms_single"], row["ms_back_to_back"] = _times(this, reps)
+        return
+    first = _times(that, reps)
+    mine = [_times(this, reps), _times(this, reps)]
+    last = _times(that, reps)
+    row["ms_single"] = [mine[0][0], mine[1][0]]
+    row["ms_back_to_back"] = [mine[0][1], mine[1][1]]
+    row["other_ms_single"] = [first[0], last[0]]
+    row["other_ms_back_to_back"] = [first[1], last[1]]
 
 
 def profile_attention(against: str | None, seed: int, reps: int) -> list:
@@ -419,7 +454,8 @@ def profile_attention(against: str | None, seed: int, reps: int) -> list:
     seg = torch.as_tensor((np.arange(s)[None, :] < lengths[:, None]).astype(np.int32),
                           device=dev)
     scale = 1.0 / float(np.sqrt(hd))
-    other = _load_other(against) if against else None
+    other = (_load_other(against, "flash_attention", flash_ops._ARGTYPES)
+             if against else None)
     rows = []
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         gen = torch.Generator(device=dev)
@@ -441,36 +477,85 @@ def profile_attention(against: str | None, seed: int, reps: int) -> list:
                 raise RuntimeError(f"{name} of {against}: cudaError {err}")
             return out
 
-        def times(fn):
-            single = _event_ms(fn, reps)
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(20):
-                fn()
-            e1.record()
-            e1.synchronize()
-            return single, e0.elapsed_time(e1) / 20
-
         want = flash_ops.flash_attention_plain(q, k, v, seg, scale).float()
         row = {"kernel": f"K6-{kind}", "shape": [b, nh, s, hd],
                "max_abs_err_vs_plain": float((this().float() - want).abs().max())}
-        if other is None:
-            row["ms_single"], row["ms_back_to_back"] = times(this)
-        else:
+        if other is not None:
             row["other"] = against
             row["other_max_abs_err_vs_plain"] = float((that().float() - want).abs().max())
-            first = times(that)
-            mine = [times(this), times(this)]
-            last = times(that)
-            row["ms_single"] = [mine[0][0], mine[1][0]]
-            row["ms_back_to_back"] = [mine[0][1], mine[1][1]]
-            row["other_ms_single"] = [first[0], last[0]]
-            row["other_ms_back_to_back"] = [first[1], last[1]]
+        _in_turns(row, this, that if other is not None else None, reps)
         rows.append(row)
         del q, k, v, want
         torch.cuda.empty_cache()
     return rows
+
+
+def phase1_operands(c: int, d: int, b: int, seed: int):
+    """Seeded operands of the phase-1 kernels on the card, as a search makes
+    them: a standard normal corpus in float32, as a bf16 shadow and as int8
+    rows, each with its inv norms (int8: its scales); unit queries in the same
+    three forms (int8: quantized, with 1/norm); and a mask passing half the
+    rows. Returns (mask, {kind: (buf, inv, q, qinv or None)})."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    buf = torch.randn((c, d), device="cuda", generator=g)
+    q = scan_ops._normalize(torch.randn((b, d), device="cuda", generator=g))
+    mask = torch.rand((c,), device="cuda", generator=g) < 0.5
+    bf = buf.to(torch.bfloat16)
+    i8, inv8 = scan_ops.update_rows_int8(
+        torch.zeros((c, d), dtype=torch.int8, device="cuda"),
+        torch.zeros((c,), device="cuda"), buf, 0, in_place=True)
+    qi, qinv = scan_ops.quantize_queries_int8(q)
+    return mask, {
+        "f32": (buf, scan_ops.row_inv_norms(buf), q, None),
+        "bf16": (bf, scan_ops.row_inv_norms(bf), q.to(torch.bfloat16), None),
+        "i8": (i8, inv8, qi, qinv),
+    }
+
+
+def profile_phase1(against: str | None, rows: int, dim: int, batch: int, seed: int,
+                   reps: int) -> list:
+    c = scan_ops.capacity_bucket(rows)
+    count = rows
+    other = _load_other(against, "phase1", fused_scan._ARGTYPES) if against else None
+    mask, cases = phase1_operands(c, dim, batch, seed)
+    del cases["f32"]
+    out_rows = []
+    for kind, (buf, inv, q, qinv) in cases.items():
+        name = "phase1_bf16" if kind == "bf16" else "phase1_i8"
+        for m in (None, mask):
+            if kind == "bf16":
+                def this():
+                    return fused_scan.subtile_maxima(buf, inv, q, count, m)
+                want = fused_scan.subtile_maxima_plain(buf, inv, q, count, m)
+                ptrs = [buf, q, inv]
+            else:
+                def this():
+                    return fused_scan.subtile_maxima_int8(buf, inv, q, qinv, count, m)
+                want = fused_scan.subtile_maxima_int8_plain(buf, inv, q, qinv, count, m)
+                ptrs = [buf, q, inv, qinv]
+
+            def that():
+                out = torch.empty_like(want)
+                err = getattr(other, name)(
+                    *[t.data_ptr() for t in ptrs], None if m is None else m.data_ptr(),
+                    out.data_ptr(), c, dim, batch, count,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name} of {against}: cudaError {err}")
+                return out
+
+            row = {"kernel": ("K1-bf16" if kind == "bf16" else "K2-int8")
+                   + ("-mask" if m is not None else ""),
+                   "shape": {"C": c, "d": dim, "B": batch, "count": count},
+                   "max_abs_err_vs_plain": float((this() - want).abs().max())}
+            if other is not None:
+                row["other"] = against
+                row["other_max_abs_err_vs_plain"] = float((that() - want).abs().max())
+            _in_turns(row, this, that if other is not None else None, reps)
+            out_rows.append(row)
+            del want
+    return out_rows
 
 
 def clustered_corpus(rows: int, batch: int, dim: int, centres: int, seed: int,
@@ -523,8 +608,11 @@ def main() -> None:
     ap.add_argument("--compute-dtypes", default="float32,bfloat16")
     ap.add_argument("--attention", action="store_true",
                     help="time the attention kernel K6 alone at the embed call's shape")
+    ap.add_argument("--phase1", action="store_true",
+                    help="time the phase-1 kernels K1-bf16 and K2 alone at the search's shape")
     ap.add_argument("--against", default=None,
-                    help="with --attention: another flash_attention.cu to time in turns")
+                    help="with --attention / --phase1: another flash_attention.cu / "
+                         "phase1.cu to time in turns")
     args = ap.parse_args()
     if args.batch is None:
         args.batch = 32 if args.embed else 256
@@ -536,6 +624,12 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     if args.attention:
         for res in profile_attention(args.against, args.seed, args.reps):
+            res["card"] = smi
+            print(json.dumps(res), flush=True)
+        return
+    if args.phase1:
+        for res in profile_phase1(args.against, args.rows, args.dim, args.batch,
+                                  args.seed, args.reps):
             res["card"] = smi
             print(json.dumps(res), flush=True)
         return

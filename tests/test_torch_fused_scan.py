@@ -42,12 +42,25 @@ def test_constants_match():
     assert np.float32(tfused._MASKED_SCORE) == jfused._MASKED_SCORE
 
 
+# Batch sizes of the cases that are not 8 (keyed by (cap, d, count)): the edges
+# of the Hopper kernel's tiling. 4064 rows are not a whole number of its
+# 128-row tiles; each such `count` lies inside the last live tile.
+_BATCH = {
+    (4064, 32, 4014): 13, (4096, 1024, 3996): 70, (8192, 48, 8150): 200,
+    (4608, 768, 4550): 64, (4096, 1536, 2085): 16,
+}
+_TILING_CASES = list(_BATCH)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("use_mask", [False, True])
-@pytest.mark.parametrize("cap,d,count", [(4096, 16, 3001), (4096, 24, 4096), (16384, 32, 9000)])
+@pytest.mark.parametrize(
+    "cap,d,count", [(4096, 16, 3001), (4096, 24, 4096), (16384, 32, 9000)] + _TILING_CASES
+)
 def test_subtile_maxima_plain_vs_pallas(dtype, use_mask, cap, d, count):
     """`count` = 3001 falls inside a subtile (3001 = 93 * 32 + 25)."""
-    _, _, full, q, mask = _setup(cap + d, count, d, cap, 8)
+    b = _BATCH.get((cap, d, count), 8)
+    _, _, full, q, mask = _setup(cap + d, count, d, cap, b)
     qn = _normalized(q)
     jb, tb = jnp.asarray(full), torch.from_numpy(full)
     jq, tq = jnp.asarray(qn), torch.from_numpy(qn)
@@ -63,11 +76,10 @@ def test_subtile_maxima_plain_vs_pallas(dtype, use_mask, cap, d, count):
     ).T
     tm = torch.from_numpy(mask) if use_mask else None
     got = tfused.subtile_maxima_plain(tb, ti, tq, count, tm)
-    assert got.shape == (8, cap // 32) and got.dtype == torch.float32
+    assert got.shape == (b, cap // 32) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     # masked and past-count subtiles are exactly the sentinel
     np.testing.assert_array_equal(got.numpy() == -3.0e38, want == -3.0e38)
-    assert (got.numpy()[:, -(-count // 32):] == np.float32(-3.0e38)).all()
     # on a CPU tensor the wrapper IS the plain version
     np.testing.assert_array_equal(
         tfused.subtile_maxima(tb, ti, tq, count, tm).numpy(), got.numpy()
@@ -75,9 +87,12 @@ def test_subtile_maxima_plain_vs_pallas(dtype, use_mask, cap, d, count):
 
 
 @pytest.mark.parametrize("use_mask", [False, True])
-@pytest.mark.parametrize("cap,d,count", [(4096, 16, 3001), (4096, 24, 4000), (8192, 32, 8192)])
+@pytest.mark.parametrize(
+    "cap,d,count", [(4096, 16, 3001), (4096, 24, 4000), (8192, 32, 8192)] + _TILING_CASES
+)
 def test_subtile_maxima_int8_plain_vs_pallas(use_mask, cap, d, count):
-    _, _, full, q, mask = _setup(cap + d + 1, count, d, cap, 8)
+    b = _BATCH.get((cap, d, count), 8)
+    _, _, full, q, mask = _setup(cap + d + 1, count, d, cap, b)
     ri, rinv = tscan.quantize_rows_int8_host(full)
     tqi, tqinv = tscan.quantize_queries_int8(torch.from_numpy(q))
     want = np.asarray(
@@ -146,12 +161,52 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(bad):
 
 def test_launch_counters_do_not_move_on_cpu():
     before = dict(tfused.LAUNCHES)
+    narrow = dict(tfused.NARROW_LAUNCHES)
     tfused.subtile_maxima(torch.zeros((64, 16)), torch.zeros(64), torch.zeros((8, 16)), 64)
+    bf = torch.zeros((64, 16), dtype=torch.bfloat16)
+    tfused.subtile_maxima(bf, torch.zeros(64), bf[:8], 64, torch.ones(64, dtype=torch.bool))
+    for d in (24, 32):  # a narrow and a wide int8 row
+        i8 = torch.zeros((64, d), dtype=torch.int8)
+        tfused.subtile_maxima_int8(i8, torch.zeros(64), i8[:8], torch.ones(8), 64)
     assert tfused.LAUNCHES == before
+    assert tfused.NARROW_LAUNCHES == narrow
     assert set(before) == {
         "phase1_f32", "phase1_f32_mask", "phase1_bf16", "phase1_bf16_mask",
         "phase1_i8", "phase1_i8_mask",
     }
+    assert set(narrow) == {"phase1_bf16", "phase1_bf16_mask", "phase1_i8", "phase1_i8_mask"}
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("count", [0, 4000, 4096])
+def test_plain_versions_write_the_sentinel_past_count(kind, count):
+    """Every subtile wholly at or past `count` is exactly the sentinel, and
+    none before it (no row is masked): the kernels' output comes from
+    torch.empty, so each must write those subtiles too."""
+    _, _, full, q, _ = _setup(5, 4096, 64, 4096, 12)
+    if kind == "int8":
+        ri, rinv = tscan.quantize_rows_int8_host(full)
+        qi, qinv = tscan.quantize_queries_int8(torch.from_numpy(q))
+        got = tfused.subtile_maxima_int8_plain(
+            torch.from_numpy(ri), torch.from_numpy(rinv), qi, qinv, count)
+    else:
+        dt = getattr(torch, kind)
+        tb = torch.from_numpy(full).to(dt)
+        got = tfused.subtile_maxima_plain(
+            tb, tscan.row_inv_norms(tb), torch.from_numpy(_normalized(q)).to(dt), count)
+    live = -(-count // 32)
+    assert (got[:, live:] == -3.0e38).all()
+    assert (got[:, :live] > -3.0e38).all()
+
+
+def test_misaligned_operands_are_copied_aligned():
+    base = torch.zeros(4096 + 1, dtype=torch.int8)
+    view = base[1:]
+    assert view.data_ptr() % 16 != 0
+    fixed = tfused._aligned16(view)
+    assert fixed.data_ptr() % 16 == 0 and torch.equal(fixed, view)
+    aligned = base[16:]
+    assert tfused._aligned16(aligned) is aligned
 
 
 @pytest.mark.parametrize("n_sub", [8, 26, 63, 70])

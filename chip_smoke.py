@@ -46,6 +46,24 @@ Phases (one JSON object per output line):
              rows): 32 long queries, with and without a metadata filter, and
              on an index="ivf" copy, against find_most_similar_batch of the
              model's embeddings; every stored text finds itself first
+  train_path contrastive training (models/train.py) at the e5-large widths,
+             weights from a seeded torch.Generator: batches of 8 (query,
+             passage) pairs of 200-505 seeded words through the slot's hashing
+             tokenizer, padded to S = 512 (ragged), so every encode takes the
+             flash route: K6 with its row log-sum-exp forward, K7 and K8
+             backward, 48 launches each per step (asserted). train_loop takes
+             2 steps and writes its checkpoint (step 2), then step 3; the
+             checkpoint is loaded and step 3 taken again from it, which must
+             repeat the uninterrupted step (loss 1e-5, every parameter 1e-5).
+             Prints ms per step and real tokens per second on the host clock
+             (the loss is read after every step), checkpoint save / load /
+             resume seconds. Then models/train_builtin.py's main (20 steps,
+             batch 64, S = 256: TRAINED_BUILTIN's 8 heads of 64 through
+             K6/K7/K8, 80 launches each, asserted) writes an artifact that
+             EmbeddingModel() must load from its directory. Last, after the
+             counts are read, step 1's loss and gradients are held against the
+             same module with flash_attention_plain in K6's place,
+             differentiated by autograd
   kernels    every kernel instantiation held against its plain PyTorch
              version over its whole output and timed beside it, beside one
              library call, and beside the card's bound: the phase-1 kernels
@@ -72,7 +90,13 @@ Phases (one JSON object per output line):
              (i // 37) % 3), beside scaled_dot_product_attention with a
              boolean segment mask; its rows also give the operations the
              kernel multiplied (whole tiles it visits) beside those counted,
-             and the TFLOP/s of each.
+             and the TFLOP/s of each; and K6-f32 with its log-sum-exp, K7 and
+             K8 at the training step's shape (B = 16, nh = 16, S = 512,
+             hd = 64, ragged lengths), after S = 256 at every head width, S =
+             200 / 129 / 1 and the packed and cyclic ids (there the bf16
+             forward's log-sum-exp is held too), beside SDPA's forward and
+             its autograd backward (dq, dk, dv in one call: compare it with
+             K7 + K8).
              "launches" are the counts of the path phases above: the flat
              phases, and each database of the ivf phase, are driven through
              the public class with every count at 0 and read just after;
@@ -94,6 +118,27 @@ long row's are near 0.1, for each output row |kernel - plain| <= 2^-7 *
 max|plain| over the row + 2e-3 (one bf16 step of the row's largest value,
 plus the P rounding). Embeddings (unit vectors) with the kernel against the plain attention
 in the same module: float32 2e-5; bfloat16 2e-2 and a cosine of 0.999.
+K6's log-sum-exp, K7 and K8 against their plain versions, inputs and dO standard
+normal, every position: 2e-5 (float32 sums of at most S products in another order,
+expf / ex2.approx against torch's exp; gradients reach about 3). Step 1 of the
+e5-large training against the plain-attention module (autograd through
+flash_attention_plain), per parameter tensor, |g - g_plain| <= 1e-4 |g_plain|
+(Frobenius norms): both are float32 through 24 layers, where each layer's kernels
+sum in another order than the plain version (a rounding of 2^-24 a sum, grown by
+the chained Jacobians of 24 layers and by sums over up to 8,192 tokens into each
+weight gradient); 1e-4 is 1,600 roundings of float32 and far below any change of
+the step. The loss within 1e-5, relative. The q and k projections are held to
+|g - g_plain| <= 1e-4 |g_plain of that layer's v weight| instead: their gradient
+reaches them only through dS = P * (dP - delta), whose rows sum to zero, and at
+these random weights it nearly cancels in the deep layers (a k bias's exactly: q_i .
+b_k is constant along row i, which softmax ignores; layer 23's q and k weights have
+gradient norms near 1e-6 of v's), so what float32 leaves of it is rounding: the
+TPU kernel's formulation, which the kernels keep (delta = rowsum(dO * O), P
+recomputed from the log-sum-exp), differs there from autograd's softmax backward
+by its residual of sum_j dS_ij, which v's gradient (x^T P^T dO, from the same P and
+dO) sets the scale of. The run also reports every route's distance to the float64
+gradient (materialised attention, float64 weights) and to the kernels' formulation
+in plain PyTorch, for the record.
 
 bound_ms is the larger of (bytes that must move) / 3.35 TB/s and
 (operations) / peak, with the H100 SXM data-sheet peaks: 67 TFLOP/s float32
@@ -104,13 +149,19 @@ work depends on the data: bytes are the DISTINCT touched list blocks read
 once plus the live steps' operands and outputs, operations those of the live
 steps; padding steps count nothing. For K6 the operations are those of the
 (query, key) pairs of one segment, 4 * nh * hd * sum_b(n_b^2 + (S - n_b)^2)
-for n_b real tokens in row b; q, k, v and the output move once each.
+for n_b real tokens in row b; q, k, v and the output move once each. K7
+multiplies 8 * nh * hd and K8 6 * nh * hd per pair of one segment (S and dP
+again, then dV and dK, or dQ); K7 moves q, k, v, dO in and dK, dV out, K8 q, k,
+v, dO in and dQ out, with lse and delta (float32 per row) and the ids.
 "multiplied_operations" are 4 * nh * hd * (rows x keys of a tile) * the
 tiles the kernel visits (ops/flash_attention.py:visited_tiles).
 """
 
+import contextlib
+import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -133,6 +184,10 @@ from minivectordb_tpu_torch.kernels import build  # noqa: E402
 from minivectordb_tpu_torch.models import configs as model_configs  # noqa: E402
 from minivectordb_tpu_torch.models import convert as model_convert  # noqa: E402
 from minivectordb_tpu_torch.models import encoder as encoder_mod  # noqa: E402
+from minivectordb_tpu_torch.models import train as train_mod  # noqa: E402
+from minivectordb_tpu_torch.models import train_builtin  # noqa: E402
+from minivectordb_tpu_torch.models.checkpoint import load_checkpoint  # noqa: E402
+from minivectordb_tpu_torch.models.tokenizer import HashTokenizer  # noqa: E402
 from minivectordb_tpu_torch.ops import flash_attention as flash_ops  # noqa: E402
 from minivectordb_tpu_torch.ops import fused_scan, ivf as ivf_ops  # noqa: E402
 from minivectordb_tpu_torch.ops import ivf_probe, scan as scan_ops  # noqa: E402
@@ -152,7 +207,14 @@ TOL_K6 = {"f32": 2e-5, "bf16": 2e-2}
 TOL_K6_ROW_REL = 2.0 ** -7
 TOL_K6_ROW_ABS = 2e-3
 TOL_EMBED = {"f32": 2e-5, "bf16": 2e-2}
-SOURCES = ("phase1", "ivf_probe", "flash_attention")
+TOL_LSE = 2e-5  # K6's row log-sum-exp against the plain version's
+TOL_BWD = 2e-5  # K7 / K8 against the plain backward, every position
+TOL_GRAD = 1e-4  # per parameter tensor: |g - g_plain| / |g_plain| (Frobenius; q, k: below)
+SOURCES = build.SOURCES
+# the text path's K6 entry points and the training path's
+TEXT_ENTRY_POINTS = ("flash_attention_f32", "flash_attention_bf16")
+TRAIN_ENTRY_POINTS = ("flash_attention_lse_f32", "flash_attention_bwd_dkv_f32",
+                      "flash_attention_bwd_dq_f32")
 
 
 def emit(obj) -> None:
@@ -490,7 +552,7 @@ def tiling_cases() -> list:
 
 
 def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
-                  k6_launches: dict) -> dict:
+                  k6_launches: dict, train_launches: dict) -> dict:
     # small ragged case first: d not a multiple of the chunk, B below a block;
     # int8 rows of 24 bytes take the narrow-row kernel, bf16 rows of 48 the
     # Hopper one
@@ -560,6 +622,7 @@ def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
     torch.cuda.empty_cache()
     kernels += ivf_kernel_rows(ivf_shapes, ivf_launches)
     kernels += encoder_kernel_rows(k6_launches)
+    kernels += train_kernel_rows(train_launches)
     return {"kernels": kernels}
 
 
@@ -1197,22 +1260,24 @@ def encoder_kernel_rows(launches: dict) -> list:
 # ---------------------------------------------------------------------------
 
 
-class plain_attention:
+def plain_attention():
     """Inside the block the encoder's flash route calls the plain version of
     K6: the same module with the plain attention in the kernel's place."""
+    return patched(flash_ops, flash_attention=flash_ops.flash_attention_plain)
 
-    def __enter__(self):
-        self._kernel = encoder_mod.flash_ops.flash_attention
-        encoder_mod.flash_ops.flash_attention = flash_ops.flash_attention_plain
 
-    def __exit__(self, *exc):
-        encoder_mod.flash_ops.flash_attention = self._kernel
+def flash_counts(**nonzero) -> dict:
+    """Every entry point of ops/flash_attention.py: the given counts, 0 for the
+    rest."""
+    return {name: nonzero.get(name, 0) for name in flash_ops.LAUNCHES}
 
 
 def read_k6_launches(total: dict, want: dict, what: str) -> dict:
     """The counts since the last reset, all made through the public classes;
-    they must equal ``want``. Adds them to ``total``."""
+    they must equal ``want`` (every other entry point 0). Adds them to
+    ``total``."""
     got = dict(flash_ops.LAUNCHES)
+    want = flash_counts(**want)
     assert got == want, (what, got, want)
     for name, count in got.items():
         total[name] = total.get(name, 0) + count
@@ -1271,8 +1336,8 @@ def drive_router(one: list, eight: list, want: np.ndarray, launches_per_device_c
     assert stats["host_calls"] >= 4 and stats["device_calls"] >= 2, stats
     assert stats["host_ema_s"] is not None and stats["device_ema_s"] is not None, stats
     got = dict(flash_ops.LAUNCHES)
-    assert got == {"flash_attention_f32": stats["device_calls"] * launches_per_device_call,
-                   "flash_attention_bf16": 0}, (got, stats)
+    assert got == flash_counts(
+        flash_attention_f32=stats["device_calls"] * launches_per_device_call), (got, stats)
     return {"routes": routes, "max_abs_err_vs_batch_of_16_on_the_card": errs,
             "routing": stats, "launches": got}
 
@@ -1356,7 +1421,7 @@ def phase_encoder_path(tmp: str):
         first = model.extract_embeddings_batch(texts)
         entry = f"flash_attention_{kind}"
         other = "flash_attention_bf16" if kind == "f32" else "flash_attention_f32"
-        assert flash_ops.LAUNCHES == {entry: cfg.layers, other: 0}, flash_ops.LAUNCHES
+        assert flash_ops.LAUNCHES == flash_counts(**{entry: cfg.layers}), flash_ops.LAUNCHES
         emb, ms = timed_embeds(model, texts)
         assert np.array_equal(first, emb), "an embed call must repeat itself"
         got = read_k6_launches(path_launches, {entry: 6 * cfg.layers, other: 0}, kind)
@@ -1457,6 +1522,451 @@ def phase_pipeline_path(tmp: str, model, texts, path_launches: dict) -> None:
     emit(out)
 
 
+# ---------------------------------------------------------------------------
+# train_path: contrastive training of the encoder (K6 with lse, K7, K8)
+# ---------------------------------------------------------------------------
+
+
+def train_batches(steps: int, pairs: int, seed: int) -> list:
+    """``steps`` batches of ``pairs`` (query, passage) texts of 200-505 seeded
+    words through the e5-large slot's hashing tokenizer, padded to S = 512
+    with ragged lengths: every encode takes the flash route."""
+    cfg = model_configs.E5_LARGE
+    tok = HashTokenizer(cfg.vocab_size)
+    vocab = [f"w{i}" for i in range(50_000)]
+
+    def tokenize(texts):
+        enc = tok(texts, max_length=512)
+        ids = np.full((len(texts), 512), cfg.pad_id, np.int32)
+        mask = np.zeros((len(texts), 512), np.int32)
+        for row, (e, m) in enumerate(zip(enc["input_ids"], enc["attention_mask"])):
+            ids[row, :len(e)] = e
+            mask[row, :len(m)] = m
+        return ids, mask
+
+    out = []
+    for step in range(steps):
+        q_ids, q_mask = tokenize(seeded_texts(vocab, pairs, 200, 505, seed + 2 * step))
+        p_ids, p_mask = tokenize(seeded_texts(vocab, pairs, 200, 505, seed + 2 * step + 1))
+        out.append({"q_ids": q_ids, "q_mask": q_mask, "p_ids": p_ids, "p_mask": p_mask})
+    return out
+
+
+def seeded_encoder(cfg, seed: int):
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    return encoder_mod.init_params(cfg, gen, DEV)
+
+
+@contextlib.contextmanager
+def patched(module, **attrs):
+    """Inside the block ``module``'s attributes are ``attrs``."""
+    saved = {name: getattr(module, name) for name in attrs}
+    for name, value in attrs.items():
+        setattr(module, name, value)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            setattr(module, name, value)
+
+
+# How step_gradients computes attention: the kernels (K6 with lse, K7, K8);
+# the plain attention differentiated by autograd (the reference); the
+# kernels' own formulation in plain PyTorch (FlashAttention over
+# flash_attention_lse_plain / flash_attention_bwd_plain); float64 weights
+# through the materialised attention (pooling and loss stay float32)
+GRAD_ROUTES = {
+    "kernels": contextlib.nullcontext,
+    "plain": plain_attention,
+    "plain_flash": lambda: patched(flash_ops, flash_attention_lse=flash_ops.flash_attention_lse_plain,
+                                   flash_attention_bwd=flash_ops.flash_attention_bwd_plain),
+    "float64": lambda: patched(encoder_mod, _use_flash_attention=lambda *_a: False),
+}
+
+
+def step_gradients(cfg, batch, seed: int, route: str):
+    """Loss and every parameter's gradient of one InfoNCE step from the
+    seeded weights, with attention computed by ``route`` (GRAD_ROUTES)."""
+    enc = seeded_encoder(cfg, seed)
+    if route == "float64":
+        enc = enc.to(torch.float64)
+    enc.requires_grad_(True)
+    with GRAD_ROUTES[route]():
+        loss, acc = train_mod.info_nce_loss(enc, cfg, train_mod.batch_to(batch, DEV))
+        loss.backward()
+    grads = {name: p.grad for name, p in enc.named_parameters()}
+    return float(loss.detach()), float(acc), grads
+
+
+def logit_path(name: str) -> bool:
+    """The q and k projections: their gradient reaches them through dS alone."""
+    parts = name.split(".")
+    return len(parts) > 2 and parts[-2] in ("q", "k")
+
+
+def compare_gradients(cfg, batch, seed: int) -> dict:
+    """Step 1 through K6/K7/K8 against the plain-attention module (see the
+    tolerances in the module docstring): the loss, and every parameter's
+    gradient, |g - g_plain| / |g_plain| <= TOL_GRAD, except the q and k
+    projections', held to |g - g_plain| <= TOL_GRAD * |g_plain of that
+    layer's v weight|. Also reported, not asserted: each route's distance to
+    the float64 gradient, and to the kernels' formulation in plain PyTorch."""
+    runs = {}
+    for route in GRAD_ROUTES:
+        loss, acc, grads = step_gradients(cfg, batch, seed, route)
+        runs[route] = (loss, acc, {n: g.detach().cpu() for n, g in grads.items()})
+        del grads
+        torch.cuda.empty_cache()
+    (loss_k, acc_k, g_k), (loss_p, acc_p, g_p) = runs["kernels"], runs["plain"]
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-5 * max(1.0, abs(loss_p)), (
+        loss_k, loss_p)
+    assert acc_k == acc_p, (acc_k, acc_p)
+    g_f, g_w = runs["plain_flash"][2], runs["float64"][2]
+
+    def dist(a, b):
+        return float((a.double() - b.double()).norm() / b.double().norm())
+
+    rows = {}
+    for name, want in g_p.items():
+        got, want = g_k[name].double(), want.double()
+        assert torch.isfinite(got).all(), name
+        err = float((got - want).norm())
+        if logit_path(name):
+            scale = float(g_p[name.rsplit(".", 2)[0] + ".v.weight"].double().norm())
+            assert err <= TOL_GRAD * scale, (name, err, scale)
+        else:
+            assert err <= TOL_GRAD * float(want.norm()), (name, err / float(want.norm()))
+        rows[name] = {"vs_plain": err / float(want.norm()),
+                      "vs_plain_over_v_weight": err / scale if logit_path(name) else None,
+                      "norm": float(want.norm()),
+                      "kernels_vs_float64": dist(got, g_w[name]),
+                      "plain_vs_float64": dist(want, g_w[name]),
+                      "plain_flash_vs_float64": dist(g_f[name], g_w[name]),
+                      "kernels_vs_plain_flash": dist(got, g_f[name])}
+    strict = {n: r["vs_plain"] for n, r in rows.items() if not logit_path(n)}
+    logit = {n: r["vs_plain_over_v_weight"] for n, r in rows.items() if logit_path(n)}
+    worst = sorted(rows, key=lambda n: -rows[n]["vs_plain"])[:6]
+    worst_qk = sorted((n for n in rows if logit_path(n) and not n.endswith("k.bias")),
+                      key=lambda n: -rows[n]["vs_plain"])[:4]
+    return {"losses": {route: run[0] for route, run in runs.items()}, "accuracy": acc_k,
+            "tolerance": TOL_GRAD, "params_compared": len(rows),
+            "max_rel_grad_err": max(strict.values()),
+            "max_rel_grad_err_param": max(strict, key=strict.get),
+            "median_rel_grad_err": statistics.median(strict.values()),
+            "q_k_max_err_over_v_weight_grad": max(logit.values()),
+            "q_k_max_err_param": max(logit, key=logit.get),
+            "largest_vs_plain": {n: rows[n] for n in worst},
+            "largest_vs_plain_q_k_but_k_bias": {n: rows[n] for n in worst_qk},
+            "median_kernels_vs_float64": statistics.median(
+                r["kernels_vs_float64"] for r in rows.values()),
+            "median_plain_vs_float64": statistics.median(
+                r["plain_vs_float64"] for r in rows.values())}
+
+
+def params_max_diff(a, b) -> float:
+    with torch.no_grad():
+        return max(float((x - y).abs().max()) for x, y in zip(a.parameters(), b.parameters()))
+
+
+def drive_e5_large_training(tmp: str, batches: list, seed: int) -> dict:
+    """The e5-large widths through train_loop: 2 steps (the loop's checkpoint
+    at step 2), step 3, then the checkpoint loaded and step 3 again from it.
+    Host-clock times of each step (the loss is read every step)."""
+    cfg = model_configs.E5_LARGE
+    ck = os.path.join(tmp, "train_ck.pkl")
+    marks = []
+
+    def log(_line):
+        marks.append(time.perf_counter())
+
+    enc = seeded_encoder(cfg, seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt, hist = train_mod.train_loop(
+        cfg, enc, iter(batches[:2]), steps=2, learning_rate=1e-4, checkpoint_path=ck,
+        log_every=1, log_fn=log, device=DEV)
+    t_end = time.perf_counter()
+    # from the call (or the last loss read) to each step's loss read: the
+    # first and third include train_loop's set-up, the second is one step
+    step_s = [marks[0] - t0, marks[1] - marks[0]]
+    save_s = t_end - marks[1]
+    marks.clear()
+    t0 = time.perf_counter()
+    params, _opt, hist3 = train_mod.train_loop(
+        cfg, params, iter(batches[2:3]), steps=1, start_step=2, opt_state=opt,
+        learning_rate=1e-4, log_every=1, log_fn=log, device=DEV)
+    step_s.append(marks[0] - t0)
+    hist += hist3
+    del opt, _opt
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ck_params, ck_opt, ck_step, _extra = load_checkpoint(ck)
+    load_s = time.perf_counter() - t0
+    assert ck_step == 2, ck_step
+    t0 = time.perf_counter()
+    resumed, _ropt, hist_r = train_mod.train_loop(
+        cfg, ck_params, iter(batches[2:3]), steps=1, start_step=2, opt_state=ck_opt,
+        learning_rate=1e-4, log_every=1, log_fn=lambda _l: None, device=DEV)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    del ck_params, ck_opt, _ropt
+    loss3, loss3_r = hist3[0]["loss"], hist_r[0]["loss"]
+    assert all(np.isfinite(h["loss"]) for h in hist), hist
+    assert abs(loss3 - loss3_r) <= 1e-5 * max(1.0, abs(loss3)), (loss3, loss3_r)
+    resume_diff = params_max_diff(params, resumed)
+    assert resume_diff <= 1e-5, resume_diff
+    del params, resumed
+    torch.cuda.empty_cache()
+    return {
+        "history": hist,
+        "step_s": step_s,
+        "ms_per_step": step_s[1] * 1e3,
+        "real_tokens_per_s": int(batches[1]["q_mask"].sum() + batches[1]["p_mask"].sum())
+        / step_s[1],
+        "checkpoint_save_s": save_s,
+        "checkpoint_bytes": os.path.getsize(ck),
+        "checkpoint_load_s": load_s,
+        "resume_step_s": resume_s,
+        "resumed_step_3_loss": loss3_r,
+        "resumed_vs_uninterrupted_max_param_diff": resume_diff,
+        "disk_free_bytes_after": shutil.disk_usage(tmp).free,
+    }
+
+
+def drive_train_builtin(tmp: str) -> dict:
+    """models/train_builtin.py's main on the card: TRAINED_BUILTIN's 8 heads
+    of 64 at S = 256 train through K6/K7/K8 (20 steps x 2 layers x 2
+    encodes). The artifact it writes must load through EmbeddingModel."""
+    res_dir = os.path.join(tmp, "resources")
+    out_dir = os.path.join(res_dir, "builtin")
+    argv = ["--steps", "20", "--batch", "64", "--seq", "256", "--force", "--out", out_dir]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = train_builtin.main(argv)
+    main_s = time.perf_counter() - t0
+    assert rc == 0, printed.getvalue()[-2000:]
+    with open(os.path.join(out_dir, "probes.json")) as f:
+        probes = json.load(f)
+    return {"argv": argv, "main_s": main_s, "probes": probes,
+            "log_tail": printed.getvalue().splitlines()[-3:]}
+
+
+def load_trained_artifact(tmp: str) -> dict:
+    """EmbeddingModel() reads the artifact train_builtin wrote (its directory
+    as MINIVECTORDB_TORCH_RESOURCES): unit embeddings equal to the artifact's
+    own encoder's."""
+    res_dir = os.path.join(tmp, "resources")
+    os.environ["MINIVECTORDB_TORCH_RESOURCES"] = res_dir
+    try:
+        model = EmbeddingModel()
+    finally:
+        del os.environ["MINIVECTORDB_TORCH_RESOURCES"]
+    assert model.weights_source == "bundled-trained", model.weights_source
+    texts = ["i like dogs", "the stock market fell sharply", "technology is the future"] * 4
+    got = model.extract_embeddings_batch(texts)
+    params, cfg = model_convert.load_converted(os.path.join(res_dir, "builtin"))
+    enc = port_convert.encoder_from_numpy(params, cfg, DEV)
+    tok = model.model.tokenizer
+    want = train_builtin._embed(enc, tok, texts, seq=16)
+    err = embed_error("f32", got, want, "train_builtin artifact")
+    return {"weights_source": model.weights_source, "embed_vs_artifact": err}
+
+
+def phase_train_path(tmp: str) -> dict:
+    """Returns the kernel launches of the training paths. Every count is set
+    to 0 before each path is driven and read just after; the gradient
+    comparison with the plain attention comes after the reads."""
+    cfg = model_configs.E5_LARGE
+    seed = SEED + 70
+    batches = train_batches(3, 8, SEED + 71)
+    layers = cfg.layers
+    out = {"phase": "train_path", "config": {
+        "layers": layers, "hidden": cfg.hidden, "heads": cfg.heads,
+        "intermediate": cfg.intermediate, "vocab_size": cfg.vocab_size},
+        "batch_pairs": 8, "seq": 512,
+        "real_tokens_per_step": [int(b["q_mask"].sum() + b["p_mask"].sum()) for b in batches],
+        "lengths_min": int(min(b[m].sum(axis=1).min() for b in batches
+                               for m in ("q_mask", "p_mask")))}
+    total = {}
+    flash_ops.reset_launches()
+    out["e5_large"] = drive_e5_large_training(tmp, batches, seed)
+    per_step = 2 * layers  # two encodes a step, one K6 / K7 / K8 launch a layer each
+    out["e5_large"]["launches"] = read_k6_launches(
+        total, {name: 4 * per_step for name in TRAIN_ENTRY_POINTS}, "e5-large training")
+    out["e5_large"]["launches_per_step"] = per_step
+    out["e5_large"]["steps_run"] = 4
+
+    flash_ops.reset_launches()
+    out["train_builtin"] = drive_train_builtin(tmp)
+    per_step_b = 2 * model_configs.TRAINED_BUILTIN.layers
+    out["train_builtin"]["launches"] = read_k6_launches(
+        total, {name: 20 * per_step_b for name in TRAIN_ENTRY_POINTS}, "train_builtin")
+    out["train_builtin"]["artifact"] = load_trained_artifact(tmp)
+
+    t0 = time.perf_counter()
+    out["step1_vs_plain_attention"] = compare_gradients(cfg, batches[0], seed)
+    out["step1_vs_plain_attention"]["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    emit(out)
+    return {"e5_large": out["e5_large"]["launches"],
+            "train_builtin": out["train_builtin"]["launches"], "total": total}
+
+
+# ---------------------------------------------------------------------------
+# K6 with lse, K7, K8: against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def compare_backward(case, what) -> dict:
+    """K6 with lse, K7 and K8 on one case against the plain versions, over
+    every output position, pads included. Returns the largest errors."""
+    q, k, v, seg = case
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(q.shape[2] * 131 + q.shape[3])
+    dout = torch.randn(q.shape, device=DEV, generator=gen)
+    out, lse = flash_ops.flash_attention_lse(q, k, v, seg, scale)
+    torch.cuda.synchronize()
+    pout, plse = flash_ops.flash_attention_lse_plain(q, k, v, seg, scale)
+    ops = flash_ops._bwd_operands(q, k, v, seg, out, dout, lse)
+    dk, dv = flash_ops._bwd_dkv(*ops, scale)
+    dq = flash_ops._bwd_dq(*ops, scale)
+    torch.cuda.synchronize()
+    pdq, pdk, pdv = flash_ops.flash_attention_bwd_plain(q, k, v, seg, pout, dout, plse, scale)
+    errs = {"K6-f32-lse": max(float((out - pout).abs().max()), float((lse - plse).abs().max())),
+            "K7-f32": max(float((dk - pdk).abs().max()), float((dv - pdv).abs().max())),
+            "K8-f32": float((dq - pdq).abs().max())}
+    for t in (lse, dq, dk, dv):
+        assert torch.isfinite(t).all(), what
+    assert dq.stride() == dk.stride() == dv.stride() == q.stride(), what
+    assert errs["K6-f32-lse"] <= TOL_LSE, (what, errs)
+    assert errs["K7-f32"] <= TOL_BWD and errs["K8-f32"] <= TOL_BWD, (what, errs)
+    # the bf16 forward writes its row statistic from the same epilogue
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    _ob, lse_b = flash_ops.flash_attention_lse(qb, kb, vb, seg, scale)
+    torch.cuda.synchronize()
+    _pb, plse_b = flash_ops.flash_attention_lse_plain(qb, kb, vb, seg, scale)
+    errs["K6-bf16-lse_lse_only"] = float((lse_b - plse_b).abs().max())
+    assert errs["K6-bf16-lse_lse_only"] <= TOL_LSE, (what, errs)
+    return errs
+
+
+def train_kernel_rows(launches: dict) -> list:
+    """K6-f32 with lse, K7 and K8 at the training step's shape (B = 16, nh =
+    16, S = 512, hd = 64, ragged lengths; the encoder's (B, S, nh, hd) memory),
+    after S = 256 at every head width, S = 200 / 129 / 1 and the packed and
+    cyclic ids. ``launches`` are the e5-large training path's."""
+    small = {}
+
+    def held(case, what):
+        for name, err in compare_backward(case, what).items():
+            small[name] = max(small.get(name, 0.0), err)
+
+    for hd in (16, 32, 48, 64, 80, 96, 112, 128):
+        held(attention_case(4, 4, 256, hd, torch.float32, [256, 200, 64, 1], SEED + 80 + hd),
+             f"bwd S=256 hd={hd}")
+    held(attention_case(4, 4, 200, 64, torch.float32, [70, 1, 200, 130], SEED + 81), "bwd S=200")
+    held(attention_case(4, 4, 129, 64, torch.float32, seeded_lengths(4, 129, 1, SEED + 82),
+                        SEED + 83), "bwd S=129")
+    held(attention_case(3, 2, 1, 64, torch.float32, [1, 1, 0], SEED + 84), "bwd S=1")
+    for name, ids in segment_patterns(4, 512, SEED + 85).items():
+        held(attention_case(4, 4, 512, 64, torch.float32, ids, SEED + 86), f"bwd {name} ids")
+
+    b, nh, s, hd = 16, 16, 512, 64
+    lengths = seeded_lengths(b, s, 200, SEED + 87)
+    case = attention_case(b, nh, s, hd, torch.float32, lengths, SEED + 88)
+    q, k, v, seg = case
+    errs = compare_backward(case, "training shape")
+    scale = 1.0 / float(np.sqrt(hd))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 89)
+    dout = torch.randn(q.shape, device=DEV, generator=gen)
+    out, lse = flash_ops.flash_attention_lse(q, k, v, seg, scale)
+    ops = flash_ops._bwd_operands(q, k, v, seg, out, dout, lse)
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=same, scale=scale)
+
+    def sdpa_backward():
+        return torch.autograd.grad(lib_out, (ql, kl, vl), dout, retain_graph=True)
+
+    lib_err = max(float((a - w).abs().max()) for a, w in zip(
+        sdpa_backward(), flash_ops.flash_attention_bwd_plain(q, k, v, seg, out, dout, lse, scale)))
+    pairs = sum(n * n + (s - n) * (s - n) for n in lengths)
+    tensor = b * nh * s * hd * 4
+    stats = b * nh * s * 4
+    kinds = {
+        "K6-f32-lse": (lambda: flash_ops.flash_attention_lse(q, k, v, seg, scale),
+                       lambda: flash_ops.flash_attention_lse_plain(q, k, v, seg, scale),
+                       lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale),
+                       4 * tensor + stats + b * s * 4, 4 * nh * hd * pairs,
+                       "minivectordb_tpu/models/encoder.py:138",
+                       "minivectordb_tpu_torch/csrc/flash_attention.cu",
+                       "flash_attention_lse_f32",
+                       "scaled_dot_product_attention forward, boolean (B, 1, S, S) segment mask"),
+        "K7-f32": (lambda: flash_ops._bwd_dkv(*ops, scale),
+                   lambda: flash_ops.flash_attention_bwd_plain(q, k, v, seg, out, dout, lse, scale),
+                   sdpa_backward, 6 * tensor + 2 * stats + b * s * 4, 8 * nh * hd * pairs,
+                   "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
+                   "(_flash_attention_bwd_dkv, from models/train.py:105 via encoder.py:138)",
+                   "minivectordb_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "flash_attention_bwd_dkv_f32",
+                   "autograd backward of scaled_dot_product_attention (dq, dk, dv in one call)"),
+        "K8-f32": (lambda: flash_ops._bwd_dq(*ops, scale),
+                   lambda: flash_ops.flash_attention_bwd_plain(q, k, v, seg, out, dout, lse, scale),
+                   sdpa_backward, 5 * tensor + 2 * stats + b * s * 4, 6 * nh * hd * pairs,
+                   "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
+                   "(_flash_attention_bwd_dq, from models/train.py:105 via encoder.py:138)",
+                   "minivectordb_tpu_torch/csrc/flash_attention_bwd.cu",
+                   "flash_attention_bwd_dq_f32",
+                   "autograd backward of scaled_dot_product_attention (dq, dk, dv in one call)"),
+    }
+    rows = []
+    for name, (run, plain, library, n_bytes, n_ops, replaces, source, entry,
+               lib_what) in kinds.items():
+        # plain, kernel, kernel, plain: both versions inside one run
+        plain_a = event_ms(plain, 3, warmup=1)
+        ms_a = event_ms(run, 20)
+        ms_b = event_ms(run, 20)
+        plain_b = event_ms(plain, 3, warmup=1)
+        lib_ms = event_ms(library, 10)
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = n_ops / PEAK_OPS_S["f32"] * 1e3
+        ms = statistics.median([ms_a, ms_b])
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[entry],
+            "max_abs_err": errs[name],
+            "tolerance": TOL_LSE if name == "K6-f32-lse" else TOL_BWD,
+            "ms": ms,
+            "plain_ms": statistics.median([plain_a, plain_b]),
+            "plain": ("flash_attention_lse_plain" if name == "K6-f32-lse" else
+                      "flash_attention_bwd_plain (dq, dk and dv together)"),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "library": lib_what,
+            "library_max_abs_err_vs_plain": lib_err if name != "K6-f32-lse" else None,
+            "bound_bytes": n_bytes,
+            "bound_operations": n_ops,
+            "tflops_counted": n_ops / (ms * 1e-3) / 1e12,
+            "shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths_min": min(lengths),
+                      "lengths_mean": float(np.mean(lengths))},
+            "small_max_abs_err": small[name],
+        })
+    rows[0]["bf16_lse_max_abs_err"] = max(small["K6-bf16-lse_lse_only"],
+                                          errs["K6-bf16-lse_lse_only"])
+    del case, q, k, v, seg, ops, lib_out, ql, kl, vl, same
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     smi = phase_env()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1473,13 +1983,18 @@ def main() -> None:
         model, texts, k6_launches = phase_encoder_path(tmp)
         phase_pipeline_path(tmp, model, texts, k6_launches)
         del model
+        torch.cuda.empty_cache()
+        train_launches = phase_train_path(tmp)
     emit({"phase": "launches", "flat_path": launches, "flat_path_narrow": narrow,
-          "ivf_path": ivf_launches, "text_path": k6_launches})
-    missing = [name for name, n in {**launches, **ivf_launches, **k6_launches}.items()
-               if n == 0]
+          "ivf_path": ivf_launches, "text_path": k6_launches, "train_path": train_launches})
+    path_counts = {**launches, **ivf_launches,
+                   **{n: k6_launches[n] for n in TEXT_ENTRY_POINTS},
+                   **{n: train_launches["e5_large"][n] for n in TRAIN_ENTRY_POINTS}}
+    missing = [name for name, n in path_counts.items() if n == 0]
     assert not missing, f"the main path never launched: {missing}"
     torch.cuda.empty_cache()
-    emit(phase_kernels(launches, ivf_shapes, ivf_launches, k6_launches))
+    emit(phase_kernels(launches, ivf_shapes, ivf_launches, k6_launches,
+                       train_launches["e5_large"]))
     print(smi, flush=True)
     emit({
         "ok": True,

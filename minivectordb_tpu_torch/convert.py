@@ -13,10 +13,15 @@ a corpus over) hand state across as numpy arrays and builtins:
 - the encoder's parameter pytree as numpy arrays (what
   ``models/convert.load_converted`` reads from a ``params.npz``, and what the
   JAX package's ``init_params`` / ``load_converted`` give after
-  ``np.asarray``) becomes a loaded ``models.encoder.Encoder``, and back.
+  ``np.asarray``) becomes a loaded ``models.encoder.Encoder``, and back;
+- the AdamW state of a training run (optax's ``ScaleByAdamState``: count, mu
+  and nu, the moments in the parameters' pytree layout) becomes the state of
+  a ``torch.optim.AdamW`` over an ``Encoder``'s parameters, and back.
 """
 
 from __future__ import annotations
+
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -126,6 +131,47 @@ _DENSE_NAMES = ("q", "k", "v", "attn_out", "ffn_in", "ffn_out")
 _LN_NAMES = ("attn_ln", "ffn_ln")
 
 
+def _param_paths(encoder: Encoder):
+    """(path in the JAX parameter pytree, parameter, transposed) for every
+    parameter of ``encoder``, in the pytree's order. The dense weights are
+    transposed: the pytree holds them (in, out), for ``x @ w``; the module
+    (out, in), as ``torch.nn.functional.linear`` reads them."""
+    yield ("word_emb",), encoder.word_emb, False
+    yield ("pos_emb",), encoder.pos_emb, False
+    yield ("type_emb",), encoder.type_emb, False
+    yield ("emb_ln", "g"), encoder.emb_ln.g, False
+    yield ("emb_ln", "b"), encoder.emb_ln.b, False
+    for i, layer in enumerate(encoder.layers):
+        for name in _DENSE_NAMES:
+            yield ("layers", i, name, "w"), getattr(layer, name).weight, True
+            yield ("layers", i, name, "b"), getattr(layer, name).bias, False
+        for name in _LN_NAMES:
+            yield ("layers", i, name, "g"), getattr(layer, name).g, False
+            yield ("layers", i, name, "b"), getattr(layer, name).b, False
+
+
+def _at(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _tree_of(encoder: Encoder, leaf) -> dict:
+    """The JAX parameter pytree of ``encoder`` with ``leaf(param, transposed)``
+    at every leaf."""
+    tree: dict = {}
+    for path, param, transposed in _param_paths(encoder):
+        node = tree
+        for key, below in zip(path, path[1:]):
+            if isinstance(key, int):
+                node = node[key]
+            else:
+                node = node.setdefault(
+                    key, [{} for _ in encoder.layers] if isinstance(below, int) else {})
+        node[path[-1]] = leaf(param, transposed)
+    return tree
+
+
 def encoder_from_numpy(params: dict, cfg: EncoderConfig, device=None,
                        dtype: torch.dtype = torch.float32) -> Encoder:
     """A loaded ``Encoder`` on ``device`` from the parameter pytree.
@@ -145,58 +191,88 @@ def encoder_from_numpy(params: dict, cfg: EncoderConfig, device=None,
             f"{len(params['layers'])} layers of parameters for a config of {cfg.layers}"
         )
     enc = Encoder(cfg, dev, dtype)
-
-    def put(param, arr, transpose=False):
-        arr = np.asarray(arr)
-        if arr.dtype != np.float32:
-            arr = arr.astype(np.float32)
-        want = tuple(param.shape)[::-1] if transpose else tuple(param.shape)
-        if tuple(arr.shape) != want:
-            raise ValueError(f"parameter of shape {arr.shape}, expected {want}")
-        t = scan_ops.to_device(arr, dev)
-        param.copy_(t.T if transpose else t)  # casts to the module's dtype
-
     with torch.no_grad():
-        put(enc.word_emb, params["word_emb"])
-        put(enc.pos_emb, params["pos_emb"])
-        # only token type 0 is ever used: keep that row of a wider table
-        put(enc.type_emb, np.asarray(params["type_emb"])[:1])
-        put(enc.emb_ln.g, params["emb_ln"]["g"])
-        put(enc.emb_ln.b, params["emb_ln"]["b"])
-        for layer, lp in zip(enc.layers, params["layers"]):
-            for name in _DENSE_NAMES:
-                put(getattr(layer, name).weight, lp[name]["w"], transpose=True)
-                put(getattr(layer, name).bias, lp[name]["b"])
-            for name in _LN_NAMES:
-                put(getattr(layer, name).g, lp[name]["g"])
-                put(getattr(layer, name).b, lp[name]["b"])
+        for path, param, transposed in _param_paths(enc):
+            param.copy_(_module_layout(_at(params, path), param, transposed, enc))
     return enc
+
+
+def _module_layout(arr, param, transposed: bool, encoder: Encoder) -> torch.Tensor:
+    """A pytree leaf as a float32 tensor of ``param``'s shape on its device.
+    Only token type 0 is ever used: a wider ``type_emb`` keeps that row."""
+    arr = np.asarray(arr)
+    if arr.dtype != np.float32:
+        arr = arr.astype(np.float32)
+    if param is encoder.type_emb:
+        arr = arr[:1]
+    want = tuple(param.shape)[::-1] if transposed else tuple(param.shape)
+    if tuple(arr.shape) != want:
+        raise ValueError(f"parameter of shape {arr.shape}, expected {want}")
+    t = scan_ops.to_device(arr, param.device)
+    return t.T if transposed else t
+
+
+def _to_numpy(t, transpose: bool) -> np.ndarray:
+    a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
+    return np.ascontiguousarray(a.T) if transpose else a
 
 
 def encoder_to_numpy(encoder: Encoder) -> dict:
     """The parameter pytree (float32 numpy leaves, dense weights (in, out)) of
     a loaded ``Encoder``: what ``models/convert.save_converted`` writes and
     either package loads."""
-    def arr(t, transpose=False):
-        a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
-        return np.ascontiguousarray(a.T) if transpose else a
+    return _tree_of(encoder, _to_numpy)
 
-    def ln(mod):
-        return {"g": arr(mod.g), "b": arr(mod.b)}
 
-    params = {
-        "word_emb": arr(encoder.word_emb),
-        "pos_emb": arr(encoder.pos_emb),
-        "type_emb": arr(encoder.type_emb),
-        "emb_ln": ln(encoder.emb_ln),
-        "layers": [],
+def adamw_state_to_numpy(opt_state, encoder: Encoder) -> dict:
+    """The AdamW state of ``encoder``'s parameters in the JAX layout:
+    ``{"count": int32 array, "mu": pytree, "nu": pytree}``, the moments
+    float32 with the parameters' pytree structure (dense moments (in, out)).
+    ``opt_state`` is a ``torch.optim.AdamW``'s ``state`` (parameter ->
+    ``step``, ``exp_avg``, ``exp_avg_sq``); a parameter without state (no
+    step taken yet) gets zero moments. optax's ``ScaleByAdamState`` holds the
+    same three: ``optax.ScaleByAdamState(**d)`` rebuilds it."""
+    steps = {int(st["step"]) for st in opt_state.values() if "step" in st}
+    if len(steps) > 1:
+        raise ValueError(f"the parameters' AdamW steps differ: {sorted(steps)}")
+
+    def moment(key):
+        def leaf(param, transpose):
+            st = opt_state.get(param)
+            if not st:
+                return np.zeros(tuple(param.shape)[::-1] if transpose else param.shape,
+                                np.float32)
+            return _to_numpy(st[key], transpose)
+        return leaf
+
+    return {
+        "count": np.asarray(steps.pop() if steps else 0, dtype=np.int32),
+        "mu": _tree_of(encoder, moment("exp_avg")),
+        "nu": _tree_of(encoder, moment("exp_avg_sq")),
     }
-    for layer in encoder.layers:
-        entry = {}
-        for name in _DENSE_NAMES:
-            mod = getattr(layer, name)
-            entry[name] = {"w": arr(mod.weight, transpose=True), "b": arr(mod.bias)}
-        for name in _LN_NAMES:
-            entry[name] = ln(getattr(layer, name))
-        params["layers"].append(entry)
-    return params
+
+
+def adamw_state_from_numpy(state, encoder: Encoder, optimizer) -> None:
+    """Loads an AdamW state into ``optimizer`` (a ``torch.optim.AdamW`` over
+    ``encoder``'s parameters). ``state`` is ``adamw_state_to_numpy``'s dict,
+    or what a JAX checkpoint holds for ``optax.adamw``: the tuple
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())`` (read
+    without optax by ``models/checkpoint.py``). Moments of a wider
+    ``type_emb`` (a converted checkpoint) keep row 0, as the parameter does."""
+    if isinstance(state, Mapping):
+        count, mu, nu = state["count"], state["mu"], state["nu"]
+    else:
+        count, mu, nu = tuple(state[0])[:3]  # ScaleByAdamState(count, mu, nu)
+    if "layers" not in mu or len(mu["layers"]) != len(encoder.layers):
+        raise ValueError("the AdamW state does not have the encoder's layers")
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    for path, param, transposed in _param_paths(encoder):
+
+        def moment(tree):
+            t = _module_layout(_at(tree, path), param, transposed, encoder)
+            return t.to(param.dtype).contiguous()
+
+        optimizer.state[param] = {"step": step.clone(), "exp_avg": moment(mu),
+                                  "exp_avg_sq": moment(nu)}
+
+

@@ -13,7 +13,11 @@
 // segment ids are the attention mask (real tokens 1, pads 0), so a pad query
 // attends to the pad keys of its own row; every query sees at least itself.
 // The output has q's element type; bf16 is rounded once, from the float32
-// accumulator divided by the float32 sum.
+// accumulator divided by the float32 sum. The entry points flash_attention_lse_*
+// also write each row's log-sum-exp, m + log(l) in float32 (natural log), from
+// the epilogue that divides by l: the row statistic the backward kernels of
+// csrc/flash_attention_bwd.cu recompute the probabilities from. The inference
+// entry points pass a null pointer and write nothing more.
 //
 // What both kernels share. An item is one (batch, head) and a tile of BM
 // query rows; the keys are cut into tiles (BF_KT = 128 for bf16, BN = 64 for
@@ -100,6 +104,7 @@ constexpr int BN = 64;  // keys per tile of the float32 kernel
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have
 constexpr float MASK_VALUE = -2.3819763e38f;  // float32(-0.7 * float32 max)
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 // Meta::flags: first / last tile of its item; UNIFORM: the tile lies below S
 // and all its keys have one segment id
 constexpr int FIRST = 1, LAST = 2, UNIFORM = 4;
@@ -387,7 +392,8 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_f32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv, bool hb_swap, const int* __restrict__ seg,
-                 float* __restrict__ out, int NH, int S, Strides os, float scale_log2,
+                 float* __restrict__ out, float* __restrict__ lse, int NH, int S, Strides os,
+                 float scale_log2,
                  int mtiles, int items)
 {
     using C = F32Cfg<HD>;
@@ -573,6 +579,8 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
             if (r >= S) continue;
             float* orow = ob + (size_t)r * os.s;
             const float inv = 1.f / l[i];
+            // the row's log-sum-exp of the natural-domain logits, for the backward
+            if (lse != nullptr && tx == 0) lse[(size_t)bh * S + r] = m[i] * LN2 + logf(l[i]);
             if constexpr (VEC) {
 #pragma unroll
                 for (int c4 = 0; c4 < CW / 4; ++c4)
@@ -814,7 +822,8 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, bool hb_swap, const int* __restrict__ seg,
-                  uint16_t* __restrict__ out, int NH, int S, Strides os, float scale_log2,
+                  uint16_t* __restrict__ out, float* __restrict__ lse, int NH, int S, Strides os,
+                  float scale_log2,
                   int mtiles, int items)
 {
     using L = BfLayout<HD>;
@@ -1035,6 +1044,13 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
         // warpgroup's own rows of the query slot (no longer read), then leave
         // as whole 16-byte pieces, a warp writing whole rows.
         const float inv[2] = {1.f / lrow[0], 1.f / lrow[1]};
+        if (lse != nullptr && t4 == 0) {  // the rows' log-sum-exp, for the backward
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+                const int r = m0 + row0 + 8 * hh;
+                if (r < S) lse[(size_t)bh * S + r] = mrow[hh] * LN2 + logf(lrow[hh]);
+            }
+        }
         unsigned char* stage = smem + L::Q + slot * QB;
 #pragma unroll
         for (int nt = 0; nt < NT_O; ++nt)
@@ -1065,6 +1081,7 @@ struct Problem {
     const void *q, *k, *v;
     const int* seg;
     void* out;
+    float* lse;  // (B, NH, S) row log-sum-exp, or null
     int B, NH, S;
     Strides in, os;
     float sm_scale;
@@ -1182,7 +1199,7 @@ int launch_f32(const Problem& p) {
     if (int e = make_map(&tk, p.k, false, p, HD, BN, true, hb_swap)) return e;
     if (int e = make_map(&tv, p.v, false, p, HD, BN, false, hb_swap)) return e;
     flash_f32_kernel<HD><<<blocks, THREADS, smem, p.stream>>>(
-        tq, tk, tv, hb_swap, p.seg, static_cast<float*>(p.out), p.NH, p.S, p.os,
+        tq, tk, tv, hb_swap, p.seg, static_cast<float*>(p.out), p.lse, p.NH, p.S, p.os,
         p.sm_scale * LOG2E, mtiles, items);
     return static_cast<int>(cudaGetLastError());
 }
@@ -1201,7 +1218,7 @@ int launch_bf16(const Problem& p) {
     if (int e = make_map(&tk, p.k, true, p, HD, BF_KT, true, hb_swap)) return e;
     if (int e = make_map(&tv, p.v, true, p, HD, BF_KT, true, hb_swap)) return e;
     flash_bf16_kernel<HD><<<blocks, THREADS, smem, p.stream>>>(
-        tq, tk, tv, hb_swap, p.seg, static_cast<uint16_t*>(p.out), p.NH, p.S, p.os,
+        tq, tk, tv, hb_swap, p.seg, static_cast<uint16_t*>(p.out), p.lse, p.NH, p.S, p.os,
         p.sm_scale * LOG2E, mtiles, items);
     return static_cast<int>(cudaGetLastError());
 }
@@ -1230,7 +1247,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    long long out_b, long long out_h, long long out_s,
                                    float sm_scale, void* stream)
 {
-    const Problem p{q, k, v, seg, out, B, NH, S, {in_b, in_h, in_s},
+    const Problem p{q, k, v, seg, out, nullptr, B, NH, S, {in_b, in_h, in_s},
                     {out_b, out_h, out_s}, sm_scale, static_cast<cudaStream_t>(stream)};
     return dispatch<false>(p, HD);
 }
@@ -1241,7 +1258,32 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     long long out_b, long long out_h, long long out_s,
                                     float sm_scale, void* stream)
 {
-    const Problem p{q, k, v, seg, out, B, NH, S, {in_b, in_h, in_s},
+    const Problem p{q, k, v, seg, out, nullptr, B, NH, S, {in_b, in_h, in_s},
+                    {out_b, out_h, out_s}, sm_scale, static_cast<cudaStream_t>(stream)};
+    return dispatch<true>(p, HD);
+}
+
+// The same, and lse (B, NH, S) float32, contiguous, receives each row's
+// log-sum-exp m + log(l) of the scaled, masked logits (natural log): the row
+// statistic flash attention's backward (csrc/flash_attention_bwd.cu) needs.
+extern "C" int flash_attention_lse_f32(const void* q, const void* k, const void* v,
+                                       const int* seg, void* out, float* lse, int B, int NH,
+                                       int S, int HD, long long in_b, long long in_h,
+                                       long long in_s, long long out_b, long long out_h,
+                                       long long out_s, float sm_scale, void* stream)
+{
+    const Problem p{q, k, v, seg, out, lse, B, NH, S, {in_b, in_h, in_s},
+                    {out_b, out_h, out_s}, sm_scale, static_cast<cudaStream_t>(stream)};
+    return dispatch<false>(p, HD);
+}
+
+extern "C" int flash_attention_lse_bf16(const void* q, const void* k, const void* v,
+                                        const int* seg, void* out, float* lse, int B, int NH,
+                                        int S, int HD, long long in_b, long long in_h,
+                                        long long in_s, long long out_b, long long out_h,
+                                        long long out_s, float sm_scale, void* stream)
+{
+    const Problem p{q, k, v, seg, out, lse, B, NH, S, {in_b, in_h, in_s},
                     {out_b, out_h, out_s}, sm_scale, static_cast<cudaStream_t>(stream)};
     return dispatch<true>(p, HD);
 }

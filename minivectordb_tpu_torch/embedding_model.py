@@ -17,8 +17,9 @@ Weights, in this order: a converted checkpoint (an artifact directory under
 ``MINIVECTORDB_TORCH_WEIGHTS``, or an HF checkpoint in the local cache), the
 bundled trained artifact of the slot, or a seeded random encoder of the same
 output width (with a warning). The bundled artifacts are read as data files
-from ``minivectordb_tpu/resources/<slot>/`` beside this package; nothing of
-that package is imported.
+from ``minivectordb_tpu/resources/<slot>/`` beside this package (or from
+``MINIVECTORDB_TORCH_RESOURCES``, where models/train_builtin.py can write
+one); nothing of that package is imported.
 
 One embed call is one forward of ``models/encoder.py:embed_program`` over the
 whole batch. Token batches are padded to a power-of-two batch and a sequence
@@ -186,6 +187,12 @@ class _TorchEncoder:
 
 
 def _resources_dir() -> str:
+    """Where the slots' trained artifacts live: ``MINIVECTORDB_TORCH_RESOURCES``
+    (e.g. a directory models/train_builtin.py wrote ``builtin/`` into), else
+    the JAX package's bundled resources, read by path."""
+    override = os.environ.get("MINIVECTORDB_TORCH_RESOURCES")
+    if override:
+        return override
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     return os.path.join(root, "minivectordb_tpu", "resources")
 

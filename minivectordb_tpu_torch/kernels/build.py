@@ -30,6 +30,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# every source of csrc/: the phase-1 scan (K1, K2), the IVF probes (K3-K5),
+# flash attention's forward (K6) and its backward (K7, K8)
+SOURCES = ("phase1", "ivf_probe", "flash_attention", "flash_attention_bwd")
+
 _lock = threading.Lock()  # guards _name_locks
 _name_locks: dict[str, threading.Lock] = {}  # one per source: sources build in parallel
 _libs: dict[str, ctypes.CDLL] = {}
@@ -65,6 +69,8 @@ def load_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its library is missing, then load it.
     Raises if the compiler fails. Different sources may build at once, from
     different threads."""
+    if name not in SOURCES:
+        raise ValueError(f"{name!r} is not a source of csrc/ {SOURCES}")
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:

@@ -7,9 +7,11 @@ checkpoints (models/convert.py, convert.py:encoder_from_numpy) or from a
 seeded initialiser.
 
 PyTorch's idiom where the JAX module is functional: ``Encoder`` is an
-``nn.Module`` of ``EncoderLayer``s holding ``nn.Parameter``s, used in eval
-mode under ``torch.inference_mode()`` (only the forward is on this path); the
-device is explicit; ``init_params`` takes a ``torch.Generator``. Pooling and
+``nn.Module`` of ``EncoderLayer``s holding ``nn.Parameter``s; the serving
+entry points (``embed_program``) run under ``torch.inference_mode()``, while
+``encode`` runs under the caller's grad mode, so training (models/train.py)
+differentiates it with ``torch.autograd``; the device is explicit;
+``init_params`` takes a ``torch.Generator``. Pooling and
 the cosine floor are plain functions on tensors. Dense weights are stored the
 way ``torch.nn.functional.linear`` wants them, (out, in): the JAX pytree's
 (in, out) matrices are transposed once when they are loaded.
@@ -21,8 +23,9 @@ products are IEEE float32 (TF32 stays off, ops/scan.py). Attention takes one
 of two routes, chosen as the JAX module chooses: sequences of 256 and more
 (a multiple of 128, head width >= 32) on a CUDA device go through the
 hand-written flash-attention kernel (ops/flash_attention.py, segment ids =
-the attention mask); everything else materialises the (S, S) logits and masks
-keys only. The two differ at pad positions alone, which both pools drop.
+the attention mask; with a gradient, its backward kernels too); everything
+else materialises the (S, S) logits and masks keys only. The two differ at pad
+positions alone, which both pools drop.
 """
 
 from __future__ import annotations
@@ -99,9 +102,10 @@ class EncoderLayer(nn.Module):
 
 class Encoder(nn.Module):
     """The encoder's parameters and its forward pass (``encode``). Built in
-    eval mode with ``requires_grad`` off: this slice runs the forward only.
-    Parameters are uninitialised until ``init_params`` or
-    ``convert.encoder_from_numpy`` fills them."""
+    eval mode with ``requires_grad`` off (the module has no dropout, so eval
+    and train mode compute the same); training switches ``requires_grad`` on
+    (models/train.py:init_training). Parameters are uninitialised until
+    ``init_params`` or ``convert.encoder_from_numpy`` fills them."""
 
     def __init__(self, cfg: EncoderConfig, device="cpu", dtype=torch.float32):
         super().__init__()
@@ -206,26 +210,27 @@ def encode(encoder: Encoder, input_ids, attention_mask, allow_flash: bool = True
     input_ids / attention_mask: (B, S) integer tensors on the encoder's
     device. Post-LN transformer matching XLM-RoBERTa; position ids follow the
     XLM-R convention (pad positions get pad_id, real tokens count from
-    pad_id + 1). ``allow_flash=False`` forces the materialised attention."""
+    pad_id + 1). ``allow_flash=False`` forces the materialised attention.
+    Runs under the caller's grad mode: the serving callers enter
+    ``torch.inference_mode()`` themselves, training records the graph."""
     cfg = encoder.cfg
-    with torch.inference_mode():
-        attention_mask = attention_mask.to(torch.int64)
-        mask = attention_mask.to(torch.bool)
-        positions = torch.cumsum(attention_mask, dim=-1) * attention_mask + cfg.pad_id
-        x = (
-            encoder.word_emb[input_ids.to(torch.int64)]
-            + encoder.pos_emb[positions]
-            + encoder.type_emb[0]
-        )
-        x = _layer_norm(x, encoder.emb_ln.g, encoder.emb_ln.b, cfg.layer_norm_eps)
-        for layer in encoder.layers:
-            attn = _attention(x, layer, mask, cfg, allow_flash)
-            x = _layer_norm(x + attn, layer.attn_ln.g, layer.attn_ln.b,
-                            cfg.layer_norm_eps)
-            ff = _dense(F.gelu(_dense(x, layer.ffn_in)), layer.ffn_out)
-            x = _layer_norm(x + ff, layer.ffn_ln.g, layer.ffn_ln.b,
-                            cfg.layer_norm_eps)
-        return x
+    attention_mask = attention_mask.to(torch.int64)
+    mask = attention_mask.to(torch.bool)
+    positions = torch.cumsum(attention_mask, dim=-1) * attention_mask + cfg.pad_id
+    x = (
+        encoder.word_emb[input_ids.to(torch.int64)]
+        + encoder.pos_emb[positions]
+        + encoder.type_emb[0]
+    )
+    x = _layer_norm(x, encoder.emb_ln.g, encoder.emb_ln.b, cfg.layer_norm_eps)
+    for layer in encoder.layers:
+        attn = _attention(x, layer, mask, cfg, allow_flash)
+        x = _layer_norm(x + attn, layer.attn_ln.g, layer.attn_ln.b,
+                        cfg.layer_norm_eps)
+        ff = _dense(F.gelu(_dense(x, layer.ffn_in)), layer.ffn_out)
+        x = _layer_norm(x + ff, layer.ffn_ln.g, layer.ffn_ln.b,
+                        cfg.layer_norm_eps)
+    return x
 
 
 def _unit(x):

@@ -489,9 +489,15 @@ def write_rows_pre(buf, inv_norms, rows, inorm, start, in_place: bool):
 def clear_mask_rows(mask: torch.Tensor, rows: np.ndarray) -> torch.Tensor:
     """A copy of ``mask`` with ``rows`` set False. NEVER in place: snapshots
     captured before the delete hold the previous alive mask and must keep
-    reading it (a capacity-wide bool tensor is 1 MB at 1M rows)."""
+    reading it (a capacity-wide bool tensor is 1 MB at 1M rows).
+
+    Rows at or past ``mask.shape[0]`` are dropped, as JAX's
+    ``.at[rows].set(False)`` drops them: a row appended since the last sync
+    lies past the device capacity, and that sync rebuilds the mask at the new
+    capacity anyway."""
     out = mask.clone()
-    idx = to_device(np.asarray(rows, dtype=np.int64), mask.device)
+    rows = np.asarray(rows, dtype=np.int64)
+    idx = to_device(rows[rows < mask.shape[0]], mask.device)
     out[idx] = False
     return out
 

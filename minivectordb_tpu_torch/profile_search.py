@@ -10,6 +10,8 @@
         [--against OTHER/flash_attention.cu]
     python -m minivectordb_tpu_torch.profile_search --phase1
         [--against OTHER/phase1.cu]
+    python -m minivectordb_tpu_torch.profile_search --train [--batch 8]
+        [--seq 512]
 
 Builds a seeded corpus straight into a ``VectorStore`` (no metadata), then
 times the stages of ``StoreSnapshot._device_search``'s fused route one by one
@@ -45,7 +47,8 @@ With ``--attention`` it times the attention kernel K6 alone, float32 and
 bfloat16, at the embed call's shape (B = 32, 16 heads of 64, S = 512, in the
 encoder's (B, S, nh, hd) memory, ragged lengths seeded as chip_smoke.py seeds
 them): the median of single launches and the mean of 20 back-to-back launches,
-by CUDA events. ``--against`` builds another source with the same C interface
+by CUDA events; and float32 K6 writing its row log-sum-exp (the training
+forward) in turns with the inference launch. ``--against`` builds another source with the same C interface
 (an earlier version of ``csrc/flash_attention.cu``) and times it in turns with
 this one (other, this, this, other), with the largest difference between them.
 
@@ -54,6 +57,17 @@ the flat search's shape (C = 1,048,576, d = 384, B = 256, count = 1,000,000;
 ``--rows``/``--dim``/``--batch`` change it), without and with a mask, the
 same way: each held against its plain version, and with ``--against`` another
 phase1.cu (same C interface, e.g. the parent commit's) in turns with this one.
+
+With ``--train`` it times one contrastive training step (models/train.py) at
+the e5-large widths, float32, on ``--batch`` seeded (query, passage) pairs of
+token ids with ragged lengths of at most ``--seq`` (default 8 pairs, S = 512),
+stage by stage with CUDA events: the forward (InfoNCE loss through both
+encodes), of which the K6 launches (with the row log-sum-exp); the backward
+(``loss.backward()``), of which K7 and K8, the rest being the dense layers'
+and layer norms' backward, the embedding's and delta = rowsum(dO * O); and
+the AdamW step. The kernels' spans come from an event pair around each
+launch. Medians over ``--reps`` steps (at most 10) after a warm-up step, and
+the whole step on the host clock.
 """
 
 from __future__ import annotations
@@ -75,6 +89,7 @@ from minivectordb_tpu_torch.core.store import VectorStore
 from minivectordb_tpu_torch.kernels import build
 from minivectordb_tpu_torch.models import configs as model_configs
 from minivectordb_tpu_torch.models import encoder as encoder_mod
+from minivectordb_tpu_torch.models import train as train_mod
 from minivectordb_tpu_torch.ops import flash_attention as flash_ops
 from minivectordb_tpu_torch.ops import fused_scan
 from minivectordb_tpu_torch.ops import ivf as ivf_ops
@@ -401,6 +416,87 @@ def profile_embed(compute_dtype: str, batch: int, seq: int, seed: int, reps: int
     return out
 
 
+def profile_train(batch: int, seq: int, seed: int, reps: int) -> dict:
+    """One training step at the e5-large widths, stage by stage (see the
+    module docstring)."""
+    cfg = model_configs.E5_LARGE
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    enc, _state, optimizer = train_mod.init_training(
+        cfg, encoder_mod.init_params(cfg, gen, dev), device=dev)
+    rng = np.random.default_rng(seed)
+
+    def tokens():
+        lengths = rng.integers(200, seq + 1, size=batch)
+        mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32)
+        ids = rng.integers(4, cfg.vocab_size, (batch, seq)).astype(np.int32)
+        ids[mask == 0] = cfg.pad_id
+        return ids, mask
+
+    (q_ids, q_mask), (p_ids, p_mask) = tokens(), tokens()
+    data = train_mod.batch_to({"q_ids": q_ids, "q_mask": q_mask, "p_ids": p_ids,
+                          "p_mask": p_mask}, dev)
+    spans: dict = {}
+    launch = flash_ops._launch
+
+    def timed_launch(name, *args):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        launch(name, *args)
+        e1.record()
+        spans.setdefault(name, []).append((e0, e1))
+
+    def step():
+        spans.clear()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        optimizer.zero_grad(set_to_none=True)
+        loss, _acc = train_mod.info_nce_loss(enc, cfg, data)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        optimizer.step()
+        ev[3].record()
+        ev[3].synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        k = {name: sum(a.elapsed_time(b) for a, b in pairs) for name, pairs in spans.items()}
+        counts = {name: len(pairs) for name, pairs in spans.items()}
+        fwd, bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        k7 = k.get("flash_attention_bwd_dkv_f32", 0.0)
+        k8 = k.get("flash_attention_bwd_dq_f32", 0.0)
+        return {
+            "forward_ms": fwd,
+            "of_which_k6_lse_ms": k.get("flash_attention_lse_f32", 0.0),
+            "backward_ms": bwd,
+            "of_which_k7_ms": k7,
+            "of_which_k8_ms": k8,
+            "backward_rest_ms": bwd - k7 - k8,
+            "optimizer_ms": ev[2].elapsed_time(ev[3]),
+            "step_device_ms": ev[0].elapsed_time(ev[3]),
+            "step_wall_ms": wall,
+        }, counts, float(loss)
+
+    flash_ops._launch = timed_launch
+    try:
+        step()  # warm-up: library handles, the kernels' first launches
+        runs = [step() for _ in range(reps)]
+    finally:
+        flash_ops._launch = launch
+    out = {"train": "e5-large widths", "dtype": "float32", "pairs": batch, "seq": seq,
+           "layers": cfg.layers,
+           "real_tokens_per_step": int(q_mask.sum() + p_mask.sum()),
+           "kernel_launches_per_step": runs[0][1],
+           "loss_first_last": [runs[0][2], runs[-1][2]],
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)}
+    for name in runs[0][0]:
+        out[name] = statistics.median(r[0][name] for r in runs)
+    out["real_tokens_per_s_device"] = out["real_tokens_per_step"] / (out["step_device_ms"] * 1e-3)
+    return out
+
+
 def _load_other(src: str, name: str, argtypes: dict):
     """Builds another csrc/<name>.cu (same C interface) with the package's
     flags into the build directory and loads it."""
@@ -454,8 +550,8 @@ def profile_attention(against: str | None, seed: int, reps: int) -> list:
     seg = torch.as_tensor((np.arange(s)[None, :] < lengths[:, None]).astype(np.int32),
                           device=dev)
     scale = 1.0 / float(np.sqrt(hd))
-    other = (_load_other(against, "flash_attention", flash_ops._ARGTYPES)
-             if against else None)
+    entries = {n: flash_ops._ARGTYPES[n] for n in ("flash_attention_f32", "flash_attention_bf16")}
+    other = _load_other(against, "flash_attention", entries) if against else None
     rows = []
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         gen = torch.Generator(device=dev)
@@ -485,6 +581,14 @@ def profile_attention(against: str | None, seed: int, reps: int) -> list:
             row["other_max_abs_err_vs_plain"] = float((that().float() - want).abs().max())
         _in_turns(row, this, that if other is not None else None, reps)
         rows.append(row)
+        if kind == "f32":
+            # the training forward: the same kernel writing its row log-sum-exp,
+            # in turns with the inference launch
+            lse = {"kernel": "K6-f32-lse", "shape": [b, nh, s, hd]}
+            _in_turns(lse, lambda: flash_ops.flash_attention_lse(q, k, v, seg, scale),
+                      this, reps)
+            lse["other"] = "K6-f32 without lse (flash_attention_f32)"
+            rows.append(lse)
         del q, k, v, want
         torch.cuda.empty_cache()
     return rows
@@ -610,12 +714,14 @@ def main() -> None:
                     help="time the attention kernel K6 alone at the embed call's shape")
     ap.add_argument("--phase1", action="store_true",
                     help="time the phase-1 kernels K1-bf16 and K2 alone at the search's shape")
+    ap.add_argument("--train", action="store_true",
+                    help="time one training step at the e5-large widths, stage by stage")
     ap.add_argument("--against", default=None,
                     help="with --attention / --phase1: another flash_attention.cu / "
                          "phase1.cu to time in turns")
     args = ap.parse_args()
     if args.batch is None:
-        args.batch = 32 if args.embed else 256
+        args.batch = 32 if args.embed else 8 if args.train else 256
     if not torch.cuda.is_available():
         raise SystemExit("profile_search needs a CUDA device")
     smi = subprocess.run(
@@ -632,6 +738,11 @@ def main() -> None:
                                   args.seed, args.reps):
             res["card"] = smi
             print(json.dumps(res), flush=True)
+        return
+    if args.train:
+        res = profile_train(args.batch, args.seq, args.seed, min(args.reps, 10))
+        res["card"] = smi
+        print(json.dumps(res), flush=True)
         return
     if args.embed:
         for compute_dtype in args.compute_dtypes.split(","):

@@ -37,14 +37,18 @@ def test_import_in_fresh_process_loads_no_jax():
         "import minivectordb_tpu_torch.models.tokenizer, minivectordb_tpu_torch.models.convert\n"
         "import minivectordb_tpu_torch.embedding_model, minivectordb_tpu_torch.core.pipeline\n"
         "import minivectordb_tpu_torch.profile_search\n"
+        "import minivectordb_tpu_torch.models.train, minivectordb_tpu_torch.models.checkpoint\n"
+        "import minivectordb_tpu_torch.models.train_builtin\n"
+        "import minivectordb_tpu_torch.models.builtin_data\n"
+        "import minivectordb_tpu_torch.models.quality_probes\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'minivectordb_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'minivectordb_tpu'))\n"
         "assert not bad, bad\n"
         "assert sorted(p.__all__) == ['AlternativeModel', 'EmbeddingModel', "
         "'VectorDatabase', '__version__'], p.__all__\n"
         "assert p.EmbeddingModel(device='cpu').weights_source == 'bundled-trained'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'minivectordb_tpu'))\n"
+        "('jax', 'jaxlib', 'optax', 'minivectordb_tpu'))\n"
         "assert not bad, bad\n"
         "print('clean', p.__version__)\n"
     )

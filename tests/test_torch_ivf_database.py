@@ -364,3 +364,44 @@ def test_a_flat_database_carries_a_loaded_layout_through(crossed, tmp_path):
     db.persist_to_disk()
     with open(path, "rb") as f:
         assert pickle.load(f)["ivf"]["count"] == N - 3
+
+
+def test_delete_of_an_overflow_row_past_the_device_capacity_matches_jax(tmp_path):
+    """Fault F1 on the IVF overflow store: the row "X" appended after the last
+    sync lies past the device alive mask. Its delete must succeed, and the
+    filtered search after it must not return it (the reference returns
+    (1100, 2900))."""
+    rng = np.random.default_rng(12)
+    d = 16
+    opts = {"build_threshold": 2000, "nlist": 8, "nprobe": 8, "iters": 3,
+            "rebuild_frac": 10.0}
+    first = rng.standard_normal((2000, d)).astype(np.float32)
+    more = rng.standard_normal((1024, d)).astype(np.float32)
+    v_x = rng.standard_normal(d).astype(np.float32)
+    flt = {"tag": "rare"}
+    out = {}
+    for cls in (JaxDB, TorchDB):
+        kw = {"device": "cpu"} if cls is TorchDB else {}
+        db = cls(storage_file=str(tmp_path / f"{cls.__module__}.pkl"), index="ivf",
+                 ivf_opts=dict(opts), **kw)
+        db.store_embeddings_batch(list(range(2000)), first,
+                                  [{"tag": "rare" if i % 50 == 0 else "common"}
+                                   for i in range(2000)])
+        db.find_most_similar(first[0], k=3)  # builds the index
+        db.store_embeddings_batch(list(range(2000, 3024)), more,
+                                  [{"tag": "rare" if i % 50 == 0 else "common"}
+                                   for i in range(2000, 3024)])
+        db.delete_embedding(2500)
+        db.find_most_similar(first[1], k=3)
+        db.store_embedding("X", v_x, {"tag": "rare"})
+        before = db.find_most_similar(v_x, k=2, metadata_filter=flt)
+        db.delete_embedding("X")
+        after = db.find_most_similar(v_x, k=2, metadata_filter=flt)
+        out[cls] = (before, after, len(db.id_map))
+    (jb, ja, jn), (tb, ta, tn) = out[JaxDB], out[TorchDB]
+    assert tn == jn == 3023
+    assert list(tb[0]) == list(jb[0]) and tb[0][0] == "X"
+    assert "X" not in ta[0]
+    assert list(ta[0]) == list(ja[0])
+    np.testing.assert_allclose(np.asarray(ta[1], np.float64), np.asarray(ja[1], np.float64),
+                               rtol=0, atol=2e-5)

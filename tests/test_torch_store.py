@@ -307,3 +307,33 @@ def test_eager_delete_rows_and_replace_row(dtype):
     assert ts.count == js.count == 1196 and ts._dirty_from == js._dirty_from == 3
     np.testing.assert_array_equal(ts.view(), js.view())
     _same(js.snapshot()._device_search(q, 5), ts.snapshot()._device_search(q, 5), dtype)
+
+
+def test_delete_of_a_row_past_the_device_capacity_matches_jax(monkeypatch, tmp_path):
+    """Fault F1: a row appended since the last sync lies past the device alive
+    mask; tombstoning it must drop that index, as JAX's
+    ``.at[rows].set(False)`` does, and not raise half way through the delete.
+    Flat database on its device route (host scan disabled), both packages."""
+    from minivectordb_tpu.vector_database import VectorDatabase as JaxDB
+    from minivectordb_tpu_torch import VectorDatabase as TorchDB
+
+    monkeypatch.setattr(jstore, "_HOST_SCAN_MAX_BYTES", 0)
+    monkeypatch.setattr(tstore, "_HOST_SCAN_MAX_BYTES", 0)
+    rng = np.random.default_rng(11)
+    rows = rng.standard_normal((4097, 16)).astype(np.float32)
+    dbs = {"jax": JaxDB(storage_file=str(tmp_path / "j.pkl")),
+           "torch": TorchDB(storage_file=str(tmp_path / "t.pkl"), device="cpu")}
+    hits = {}
+    for name, db in dbs.items():
+        db.store_embeddings_batch(list(range(4096)), rows[:4096],
+                                  [{"i": i} for i in range(4096)])
+        db.delete_embedding(0)
+        db.find_most_similar(rows[1], k=3)  # syncs: the alive mask is 4,096 wide
+        db.store_embedding(4096, rows[4096], {"i": 4096})
+        db.delete_embedding(4096)  # row 4,096: past the mask
+        hits[name] = db.find_most_similar(rows[4096], k=5)
+        assert len(db.id_map) == 4095
+    assert 4096 not in hits["torch"][0]
+    assert list(hits["torch"][0]) == list(hits["jax"][0])
+    np.testing.assert_allclose(np.asarray(hits["torch"][1], np.float64),
+                               np.asarray(hits["jax"][1], np.float64), rtol=0, atol=1e-5)

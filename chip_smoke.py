@@ -64,6 +64,15 @@ Phases (one JSON object per output line):
              counts are read, step 1's loss and gradients are held against the
              same module with flash_attention_plain in K6's place,
              differentiated by autograd
+  train_path_bf16  the same e5-large training in bfloat16: seeded bfloat16
+             weights, bfloat16 activations, gradients and AdamW moments, so
+             every encode takes K6-bf16 with its log-sum-exp and the bfloat16
+             K7/K8, 48 launches each a step, and no float32 entry point
+             (asserted); train_loop's 2 steps with a checkpoint whose leaves
+             must all be bfloat16, step 3, then step 3 again from the
+             checkpoint, which must repeat it bit for bit (the kernels use no
+             atomics). Last, after the counts are read, step 1's gradients
+             against a float32 run of the same weights (below)
   kernels    every kernel instantiation held against its plain PyTorch
              version over its whole output and timed beside it, beside one
              library call, and beside the card's bound: the phase-1 kernels
@@ -96,7 +105,10 @@ Phases (one JSON object per output line):
              200 / 129 / 1 and the packed and cyclic ids (there the bf16
              forward's log-sum-exp is held too), beside SDPA's forward and
              its autograd backward (dq, dk, dv in one call: compare it with
-             K7 + K8).
+             K7 + K8); and K6-bf16 with its log-sum-exp and the bfloat16 K7
+             and K8 at the same shape and cases (the backward given
+             K6-bf16's output and log-sum-exp), beside SDPA's bfloat16
+             forward and backward with the same mask.
              "launches" are the counts of the path phases above: the flat
              phases, and each database of the ivf phase, are driven through
              the public class with every count at 0 and read just after;
@@ -139,6 +151,32 @@ by its residual of sum_j dS_ij, which v's gradient (x^T P^T dO, from the same P 
 dO) sets the scale of. The run also reports every route's distance to the float64
 gradient (materialised attention, float64 weights) and to the kernels' formulation
 in plain PyTorch, for the record.
+
+bfloat16 K7 / K8 against the plain backward given the same forward output and
+log-sum-exp, per gradient tensor: |kernel - plain| <= 2^-7 * max|plain| + 2e-3.
+Both round P and dS * scale to bfloat16 where the TPU kernels do and sum in
+float32, but the kernel's P (ex2.approx) and its float32 sums differ from the
+plain version's in the last float32 bits, so a value that lies near a bfloat16
+rounding boundary can round the other way; an output element moves by at most
+about one of its own bfloat16 ulps (2^-7 of the largest value bounds that),
+and where a row of dS is pure rounding (a query that sees one key: dP - delta
+cancels) both are noise of about 1e-6. Step 1 of the bfloat16 e5-large
+training against a float32 run from the same weights (cast: the same values),
+distance |g - g_32| / |g_32| per tensor (Frobenius): the kernels' must be at
+most 4x the bfloat16 plain-attention module's for every tensor outside the q
+and k projections, and the median of those at most 2x. Both bfloat16 routes
+share every rounding outside attention (dense layers, layer norms, GELU,
+residuals, through 24 layers), which dominates their distance to float32;
+inside attention the kernels round P and dS before their sums, the plain
+module rounds the attention's outputs and gradients after them, errors of one
+size. The q and k projections are measured on the scale of their layer's v
+weight's gradient (as above) and held to 4x the distance of the kernels' own
+formulation in plain PyTorch and to 2^-4: their gradient reaches them through
+dS alone, the TPU kernels round dS to bfloat16 before dQ = dS K and
+dK = dS^T Q, and where the deep layers' keys nearly coincide (these random
+weights) that rounding leaves a residual of about 2^-9 |dS| |k| against a
+cancellation the plain module keeps in float32 (about 1.6e-2 of the v
+gradient's scale), so the plain module is no yardstick there.
 
 bound_ms is the larger of (bytes that must move) / 3.35 TB/s and
 (operations) / peak, with the H100 SXM data-sheet peaks: 67 TFLOP/s float32
@@ -210,11 +248,24 @@ TOL_EMBED = {"f32": 2e-5, "bf16": 2e-2}
 TOL_LSE = 2e-5  # K6's row log-sum-exp against the plain version's
 TOL_BWD = 2e-5  # K7 / K8 against the plain backward, every position
 TOL_GRAD = 1e-4  # per parameter tensor: |g - g_plain| / |g_plain| (Frobenius; q, k: below)
+# bfloat16 K7 / K8 against the plain backward, per gradient tensor:
+# |kernel - plain| <= BWD_BF16_REL * max|plain| + BWD_BF16_ABS
+TOL_BWD_BF16_REL = 2.0 ** -7
+TOL_BWD_BF16_ABS = 2e-3
+# bfloat16 step 1 against a float32 run of the same weights (see below): the
+# kernels' distance <= GRAD_BF16_FACTOR x the reference route's, per tensor,
+# and the median's <= GRAD_BF16_MEDIAN_FACTOR x; the q and k projections'
+# distance (over the v weight's gradient) also <= GRAD_BF16_QK_CAP
+GRAD_BF16_FACTOR = 4.0
+GRAD_BF16_MEDIAN_FACTOR = 2.0
+GRAD_BF16_QK_CAP = 2.0 ** -4
 SOURCES = build.SOURCES
-# the text path's K6 entry points and the training path's
+# the text path's K6 entry points and the training paths'
 TEXT_ENTRY_POINTS = ("flash_attention_f32", "flash_attention_bf16")
 TRAIN_ENTRY_POINTS = ("flash_attention_lse_f32", "flash_attention_bwd_dkv_f32",
                       "flash_attention_bwd_dq_f32")
+TRAIN_BF16_ENTRY_POINTS = ("flash_attention_lse_bf16", "flash_attention_bwd_dkv_bf16",
+                           "flash_attention_bwd_dq_bf16")
 
 
 def emit(obj) -> None:
@@ -552,7 +603,7 @@ def tiling_cases() -> list:
 
 
 def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
-                  k6_launches: dict, train_launches: dict) -> dict:
+                  k6_launches: dict, train_launches: dict, train_bf16_launches: dict) -> dict:
     # small ragged case first: d not a multiple of the chunk, B below a block;
     # int8 rows of 24 bytes take the narrow-row kernel, bf16 rows of 48 the
     # Hopper one
@@ -623,6 +674,7 @@ def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
     kernels += ivf_kernel_rows(ivf_shapes, ivf_launches)
     kernels += encoder_kernel_rows(k6_launches)
     kernels += train_kernel_rows(train_launches)
+    kernels += train_bf16_kernel_rows(train_bf16_launches)
     return {"kernels": kernels}
 
 
@@ -1552,10 +1604,10 @@ def train_batches(steps: int, pairs: int, seed: int) -> list:
     return out
 
 
-def seeded_encoder(cfg, seed: int):
+def seeded_encoder(cfg, seed: int, dtype=torch.float32):
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed)
-    return encoder_mod.init_params(cfg, gen, DEV)
+    return encoder_mod.init_params(cfg, gen, DEV, dtype)
 
 
 @contextlib.contextmanager
@@ -1585,10 +1637,13 @@ GRAD_ROUTES = {
 }
 
 
-def step_gradients(cfg, batch, seed: int, route: str):
+def step_gradients(cfg, batch, seed: int, route: str, dtype=torch.float32, run_in=None):
     """Loss and every parameter's gradient of one InfoNCE step from the
-    seeded weights, with attention computed by ``route`` (GRAD_ROUTES)."""
-    enc = seeded_encoder(cfg, seed)
+    weights seeded in ``dtype`` (cast to ``run_in`` when given), with
+    attention computed by ``route`` (GRAD_ROUTES)."""
+    enc = seeded_encoder(cfg, seed, dtype)
+    if run_in is not None:
+        enc = enc.to(run_in)
     if route == "float64":
         enc = enc.to(torch.float64)
     enc.requires_grad_(True)
@@ -1664,23 +1719,107 @@ def compare_gradients(cfg, batch, seed: int) -> dict:
                 r["plain_vs_float64"] for r in rows.values())}
 
 
+def compare_gradients_bf16(cfg, batch, seed: int) -> dict:
+    """Step 1 in bfloat16 from seeded bfloat16 weights, against a float32 run
+    of the same step from the same weights (cast, so exactly the same
+    values; float32 kernels K6/K7/K8). Each route's distance to it per
+    parameter tensor, |g - g_32| / |g_32| (Frobenius), or for the q and k
+    projections |g - g_32| / |g_32 of that layer's v weight| (as
+    compare_gradients scales them): "kernels" (K6-bf16 with lse, K7/K8-bf16), "plain" (the
+    bfloat16 module with flash_attention_plain in the kernel's place,
+    differentiated by autograd) and "plain_flash" (the kernels' formulation
+    in plain PyTorch, rounding where they round). Asserted: every tensor but
+    the q and k projections, kernels <= GRAD_BF16_FACTOR x plain, and the
+    median of those <= GRAD_BF16_MEDIAN_FACTOR x plain's; the q and k
+    projections, kernels <= GRAD_BF16_FACTOR x plain_flash and <=
+    GRAD_BF16_QK_CAP (see the module docstring)."""
+    runs = {}
+    for route, dtype, run_in, how in (("float32", torch.bfloat16, torch.float32, "kernels"),
+                                      ("kernels", torch.bfloat16, None, "kernels"),
+                                      ("plain", torch.bfloat16, None, "plain"),
+                                      ("plain_flash", torch.bfloat16, None, "plain_flash")):
+        loss, acc, grads = step_gradients(cfg, batch, seed, how, dtype, run_in)
+        runs[route] = (loss, acc, {n: g.detach().to("cpu", torch.float64)
+                                   for n, g in grads.items()})
+        del grads
+        torch.cuda.empty_cache()
+    ref = runs["float32"][2]
+    for route, (loss, _acc, grads) in runs.items():
+        assert np.isfinite(loss), (route, loss)
+        for name, g in grads.items():
+            assert torch.isfinite(g).all(), (route, name)
+    rows = {}
+    for name, want in ref.items():
+        qk = logit_path(name)
+        scale = float((ref[name.rsplit(".", 2)[0] + ".v.weight"] if qk else want).norm())
+        d = {route: float((runs[route][2][name] - want).norm()) / scale
+             for route in ("kernels", "plain", "plain_flash")}
+        if qk:
+            assert d["kernels"] <= GRAD_BF16_FACTOR * d["plain_flash"], (name, d)
+            assert d["kernels"] <= GRAD_BF16_QK_CAP, (name, d)
+        else:
+            assert d["kernels"] <= GRAD_BF16_FACTOR * d["plain"], (name, d)
+        rows[name] = d
+    others = [n for n in rows if not logit_path(n)]
+    qks = [n for n in rows if logit_path(n)]
+    med_k = statistics.median(rows[n]["kernels"] for n in others)
+    med_p = statistics.median(rows[n]["plain"] for n in others)
+    assert med_k <= GRAD_BF16_MEDIAN_FACTOR * med_p, (med_k, med_p)
+    ratio = {n: rows[n]["kernels"] / max(rows[n]["plain"], 1e-30) for n in others}
+    worst = sorted(others, key=lambda n: -ratio[n])[:4]
+    worst_qk = sorted(qks, key=lambda n: -rows[n]["kernels"])[:4]
+    return {"losses": {route: run[0] for route, run in runs.items()},
+            "accuracy": {route: run[1] for route, run in runs.items()},
+            "factor": GRAD_BF16_FACTOR, "median_factor": GRAD_BF16_MEDIAN_FACTOR,
+            "q_k_cap": GRAD_BF16_QK_CAP, "params_compared": len(rows),
+            "median_kernels_vs_float32": med_k, "median_plain_vs_float32": med_p,
+            "median_plain_flash_vs_float32": statistics.median(
+                rows[n]["plain_flash"] for n in others),
+            "max_ratio_kernels_over_plain": ratio[worst[0]],
+            "median_ratio_kernels_over_plain": statistics.median(ratio.values()),
+            "largest_ratio": {n: rows[n] for n in worst},
+            "q_k_max_kernels_over_v_weight": rows[worst_qk[0]]["kernels"],
+            "q_k_median_kernels_over_v_weight": statistics.median(
+                rows[n]["kernels"] for n in qks),
+            "q_k_median_plain_over_v_weight": statistics.median(rows[n]["plain"] for n in qks),
+            "q_k_max_ratio_kernels_over_plain_flash": max(
+                rows[n]["kernels"] / max(rows[n]["plain_flash"], 1e-30) for n in qks),
+            "q_k_largest": {n: rows[n] for n in worst_qk}}
+
+
+def leaves(tree):
+    """The arrays of a numpy pytree (dicts and lists)."""
+    if isinstance(tree, dict):
+        for val in tree.values():
+            yield from leaves(val)
+    elif isinstance(tree, list):
+        for val in tree:
+            yield from leaves(val)
+    else:
+        yield tree
+
+
 def params_max_diff(a, b) -> float:
     with torch.no_grad():
         return max(float((x - y).abs().max()) for x, y in zip(a.parameters(), b.parameters()))
 
 
-def drive_e5_large_training(tmp: str, batches: list, seed: int) -> dict:
-    """The e5-large widths through train_loop: 2 steps (the loop's checkpoint
-    at step 2), step 3, then the checkpoint loaded and step 3 again from it.
-    Host-clock times of each step (the loss is read every step)."""
+def drive_e5_large_training(tmp: str, batches: list, seed: int,
+                            dtype=torch.float32) -> dict:
+    """The e5-large widths through train_loop in ``dtype``: 2 steps (the
+    loop's checkpoint at step 2), step 3, then the checkpoint loaded and step
+    3 again from it. Host-clock times of each step (the loss is read every
+    step). bfloat16: the checkpoint's leaves must be bfloat16, and the
+    resumed step must repeat the uninterrupted one bit for bit."""
     cfg = model_configs.E5_LARGE
-    ck = os.path.join(tmp, "train_ck.pkl")
+    bf16 = dtype == torch.bfloat16
+    ck = os.path.join(tmp, "train_ck_bf16.pkl" if bf16 else "train_ck.pkl")
     marks = []
 
     def log(_line):
         marks.append(time.perf_counter())
 
-    enc = seeded_encoder(cfg, seed)
+    enc = seeded_encoder(cfg, seed, dtype)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params, opt, hist = train_mod.train_loop(
@@ -1705,6 +1844,11 @@ def drive_e5_large_training(tmp: str, batches: list, seed: int) -> dict:
     ck_params, ck_opt, ck_step, _extra = load_checkpoint(ck)
     load_s = time.perf_counter() - t0
     assert ck_step == 2, ck_step
+    leaf_types = sorted({np.asarray(x).dtype.name for x in leaves(ck_params)}
+                        | {np.asarray(x).dtype.name
+                           for key in ("mu", "nu") for x in leaves(ck_opt[key])})
+    if bf16:
+        assert leaf_types == ["bfloat16"], leaf_types
     t0 = time.perf_counter()
     resumed, _ropt, hist_r = train_mod.train_loop(
         cfg, ck_params, iter(batches[2:3]), steps=1, start_step=2, opt_state=ck_opt,
@@ -1717,6 +1861,9 @@ def drive_e5_large_training(tmp: str, batches: list, seed: int) -> dict:
     assert abs(loss3 - loss3_r) <= 1e-5 * max(1.0, abs(loss3)), (loss3, loss3_r)
     resume_diff = params_max_diff(params, resumed)
     assert resume_diff <= 1e-5, resume_diff
+    if bf16:
+        assert params.dtype == resumed.dtype == torch.bfloat16
+        assert loss3 == loss3_r and resume_diff == 0.0, (loss3, loss3_r, resume_diff)
     del params, resumed
     torch.cuda.empty_cache()
     return {
@@ -1727,6 +1874,7 @@ def drive_e5_large_training(tmp: str, batches: list, seed: int) -> dict:
         / step_s[1],
         "checkpoint_save_s": save_s,
         "checkpoint_bytes": os.path.getsize(ck),
+        "checkpoint_leaf_types": leaf_types,
         "checkpoint_load_s": load_s,
         "resume_step_s": resume_s,
         "resumed_step_3_loss": loss3_r,
@@ -1813,6 +1961,36 @@ def phase_train_path(tmp: str) -> dict:
     emit(out)
     return {"e5_large": out["e5_large"]["launches"],
             "train_builtin": out["train_builtin"]["launches"], "total": total}
+
+
+def phase_train_path_bf16(tmp: str) -> dict:
+    """The e5-large widths in bfloat16 (seeded bfloat16 weights, bfloat16
+    activations, gradients and AdamW moments) through train_loop, as
+    phase_train_path drives float32: K6-bf16 with its log-sum-exp and the
+    bfloat16 K7/K8, 48 launches each a step, and no float32 launch. Then step
+    1's gradients against a float32 run of the same weights. Returns the
+    path's launches."""
+    cfg = model_configs.E5_LARGE
+    seed = SEED + 90
+    batches = train_batches(3, 8, SEED + 91)
+    out = {"phase": "train_path_bf16", "dtype": "bfloat16", "config": {
+        "layers": cfg.layers, "hidden": cfg.hidden, "heads": cfg.heads,
+        "intermediate": cfg.intermediate, "vocab_size": cfg.vocab_size},
+        "batch_pairs": 8, "seq": 512,
+        "real_tokens_per_step": [int(b["q_mask"].sum() + b["p_mask"].sum()) for b in batches]}
+    flash_ops.reset_launches()
+    out["e5_large"] = drive_e5_large_training(tmp, batches, seed, torch.bfloat16)
+    per_step = 2 * cfg.layers
+    out["e5_large"]["launches"] = read_k6_launches(
+        {}, {name: 4 * per_step for name in TRAIN_BF16_ENTRY_POINTS}, "e5-large bf16 training")
+    out["e5_large"]["launches_per_step"] = per_step
+    out["e5_large"]["steps_run"] = 4
+    t0 = time.perf_counter()
+    out["step1_vs_float32"] = compare_gradients_bf16(cfg, batches[0], seed)
+    out["step1_vs_float32"]["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    emit(out)
+    return out["e5_large"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -1967,6 +2145,168 @@ def train_kernel_rows(launches: dict) -> list:
     return rows
 
 
+def compare_backward_bf16(case, what) -> dict:
+    """K6-bf16 with its log-sum-exp against flash_attention_lse_plain (the
+    output per row as compare_attention holds K6-bf16, the log-sum-exp to
+    TOL_LSE), then the bfloat16 K7 and K8 on one case against the plain
+    backward given the same forward output and log-sum-exp (K6-bf16's), over
+    every output position, pads included: the largest error and the largest
+    share of its tensor's limit (TOL_BWD_BF16_REL * max|plain| +
+    TOL_BWD_BF16_ABS)."""
+    q, k, v, seg = case
+    scale = 1.0 / float(np.sqrt(q.shape[-1]))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(q.shape[2] * 137 + q.shape[3])
+    dout = torch.randn(q.shape, device=DEV, generator=gen).to(torch.bfloat16)
+    out, lse = flash_ops.flash_attention_lse(q, k, v, seg, scale)
+    ops = flash_ops._bwd_operands(q, k, v, seg, out, dout, lse)
+    dk, dv = flash_ops._bwd_dkv(*ops, scale)
+    dq = flash_ops._bwd_dq(*ops, scale)
+    torch.cuda.synchronize()
+    pout, plse = flash_ops.flash_attention_lse_plain(q, k, v, seg, scale)
+    lse_err = float((lse - plse).abs().max())
+    diff = (out.float() - pout.float()).abs()
+    limit = TOL_K6_ROW_REL * pout.float().abs().amax(dim=-1, keepdim=True) + TOL_K6_ROW_ABS
+    out_share = float((diff / limit).max())
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all(), what
+    assert lse_err <= TOL_LSE and out_share <= 1.0, (what, lse_err, out_share)
+    errs = {"K6-bf16-lse": max(lse_err, float(diff.max())), "K6-bf16-lse_share": out_share,
+            "K6-bf16-lse_lse": lse_err}
+    pdq, pdk, pdv = flash_ops.flash_attention_bwd_plain(q, k, v, seg, out, dout, lse, scale)
+    for name, pairs in (("K7-bf16", ((dk, pdk), (dv, pdv))), ("K8-bf16", ((dq, pdq),))):
+        err = share = 0.0
+        for got, want in pairs:
+            assert got.dtype == torch.bfloat16 and got.stride() == q.stride(), what
+            assert torch.isfinite(got.float()).all(), what
+            diff = float((got.float() - want.float()).abs().max())
+            limit = TOL_BWD_BF16_REL * float(want.float().abs().max()) + TOL_BWD_BF16_ABS
+            err, share = max(err, diff), max(share, diff / limit)
+        assert share <= 1.0, (what, name, err, share)
+        errs[name], errs[name + "_share"] = err, share
+    return errs
+
+
+def train_bf16_kernel_rows(launches: dict) -> list:
+    """The bfloat16 K7 and K8 at the training step's shape (the float32 rows'
+    B = 16, nh = 16, S = 512, hd = 64 and lengths), after S = 256 at every
+    head width, S = 200 / 129 / 1 and the packed and cyclic ids.
+    ``launches`` are the bfloat16 training path's."""
+    small = {}
+
+    def held(case, what):
+        for name, err in compare_backward_bf16(case, what).items():
+            small[name] = max(small.get(name, 0.0), err)
+
+    bf16 = torch.bfloat16
+    for hd in (16, 32, 48, 64, 80, 96, 112, 128):
+        held(attention_case(4, 4, 256, hd, bf16, [256, 200, 64, 1], SEED + 180 + hd),
+             f"bwd-bf16 S=256 hd={hd}")
+    held(attention_case(4, 4, 200, 64, bf16, [70, 1, 200, 130], SEED + 181), "bwd-bf16 S=200")
+    held(attention_case(4, 4, 129, 64, bf16, seeded_lengths(4, 129, 1, SEED + 182), SEED + 183),
+         "bwd-bf16 S=129")
+    held(attention_case(3, 2, 1, 64, bf16, [1, 1, 0], SEED + 184), "bwd-bf16 S=1")
+    for name, ids in segment_patterns(4, 512, SEED + 185).items():
+        held(attention_case(4, 4, 512, 64, bf16, ids, SEED + 186), f"bwd-bf16 {name} ids")
+
+    b, nh, s, hd = 16, 16, 512, 64
+    lengths = seeded_lengths(b, s, 200, SEED + 87)
+    case = attention_case(b, nh, s, hd, bf16, lengths, SEED + 88)
+    q, k, v, seg = case
+    errs = compare_backward_bf16(case, "bf16 training shape")
+    scale = 1.0 / float(np.sqrt(hd))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 89)
+    dout = torch.randn(q.shape, device=DEV, generator=gen).to(bf16)
+    out, lse = flash_ops.flash_attention_lse(q, k, v, seg, scale)
+    ops = flash_ops._bwd_operands(q, k, v, seg, out, dout, lse)
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=same, scale=scale)
+
+    def sdpa_backward():
+        return torch.autograd.grad(lib_out, (ql, kl, vl), dout, retain_graph=True)
+
+    def plain():
+        return flash_ops.flash_attention_bwd_plain(q, k, v, seg, out, dout, lse, scale)
+
+    lib_err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip(sdpa_backward(), plain()))
+    pairs = sum(n * n + (s - n) * (s - n) for n in lengths)
+    tensor = b * nh * s * hd * 2
+    stats = b * nh * s * 4
+    lib_what = ("autograd backward of scaled_dot_product_attention in bfloat16 "
+                "(dq, dk, dv in one call), boolean (B, 1, S, S) segment mask")
+    kinds = {
+        "K6-bf16-lse": (lambda: flash_ops.flash_attention_lse(q, k, v, seg, scale),
+                        4 * tensor + stats + b * s * 4, 4 * nh * hd * pairs,
+                        "minivectordb_tpu/models/encoder.py:138 (bf16 operands, under "
+                        "jax.value_and_grad: save_residuals)", "flash_attention_lse_bf16"),
+        "K7-bf16": (lambda: flash_ops._bwd_dkv(*ops, scale),
+                    6 * tensor + 2 * stats + b * s * 4, 8 * nh * hd * pairs,
+                    "jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
+                    "(_flash_attention_bwd_dkv, bf16 operands, from models/train.py:105 via "
+                    "encoder.py:138)", "flash_attention_bwd_dkv_bf16"),
+        "K8-bf16": (lambda: flash_ops._bwd_dq(*ops, scale),
+                    5 * tensor + 2 * stats + b * s * 4, 6 * nh * hd * pairs,
+                    "jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
+                    "(_flash_attention_bwd_dq, bf16 operands, from models/train.py:105 via "
+                    "encoder.py:138)", "flash_attention_bwd_dq_bf16"),
+    }
+    def plain_forward():
+        return flash_ops.flash_attention_lse_plain(q, k, v, seg, scale)
+
+    def sdpa_forward():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)
+
+    rows = []
+    for name, (run, n_bytes, n_ops, replaces, entry) in kinds.items():
+        fwd = name == "K6-bf16-lse"
+        plain_fn, lib_fn = (plain_forward, sdpa_forward) if fwd else (plain, sdpa_backward)
+        # plain, kernel, kernel, plain: both versions inside one run
+        plain_a = event_ms(plain_fn, 3, warmup=1)
+        ms_a = event_ms(run, 20)
+        ms_b = event_ms(run, 20)
+        plain_b = event_ms(plain_fn, 3, warmup=1)
+        lib_ms = event_ms(lib_fn, 10)
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = n_ops / PEAK_OPS_S["bf16"] * 1e3
+        ms = statistics.median([ms_a, ms_b])
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": ("minivectordb_tpu_torch/csrc/flash_attention.cu" if fwd else
+                       "minivectordb_tpu_torch/csrc/flash_attention_bwd_bf16.cu"),
+            "replaces": replaces,
+            "launches": launches[entry],
+            "launches_per_step": launches[entry] // 4,
+            "max_abs_err": errs[name],
+            "max_share_of_tolerance": errs[name + "_share"],
+            "tolerance": (f"output {TOL_K6_ROW_REL} * max|plain| over the row + "
+                          f"{TOL_K6_ROW_ABS}, log-sum-exp {TOL_LSE}" if fwd else
+                          f"{TOL_BWD_BF16_REL} * max|plain| + {TOL_BWD_BF16_ABS}, per tensor"),
+            "ms": ms,
+            "plain_ms": statistics.median([plain_a, plain_b]),
+            "plain": ("flash_attention_lse_plain in bfloat16" if fwd else
+                      "flash_attention_bwd_plain in bfloat16 (dq, dk and dv together)"),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "library": ("scaled_dot_product_attention forward in bfloat16, boolean (B, 1, S, "
+                        "S) segment mask" if fwd else lib_what),
+            "library_max_abs_err_vs_plain": None if fwd else lib_err,
+            "bound_bytes": n_bytes,
+            "bound_operations": n_ops,
+            "tflops_counted": n_ops / (ms * 1e-3) / 1e12,
+            "shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths_min": min(lengths),
+                      "lengths_mean": float(np.mean(lengths))},
+            "small_max_abs_err": small[name],
+            "small_max_share_of_tolerance": small[name + "_share"],
+        })
+    del case, q, k, v, seg, ops, lib_out, ql, kl, vl, same
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     smi = phase_env()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1985,16 +2325,19 @@ def main() -> None:
         del model
         torch.cuda.empty_cache()
         train_launches = phase_train_path(tmp)
+        train_bf16_launches = phase_train_path_bf16(tmp)
     emit({"phase": "launches", "flat_path": launches, "flat_path_narrow": narrow,
-          "ivf_path": ivf_launches, "text_path": k6_launches, "train_path": train_launches})
+          "ivf_path": ivf_launches, "text_path": k6_launches, "train_path": train_launches,
+          "train_path_bf16": train_bf16_launches})
     path_counts = {**launches, **ivf_launches,
                    **{n: k6_launches[n] for n in TEXT_ENTRY_POINTS},
-                   **{n: train_launches["e5_large"][n] for n in TRAIN_ENTRY_POINTS}}
+                   **{n: train_launches["e5_large"][n] for n in TRAIN_ENTRY_POINTS},
+                   **{n: train_bf16_launches[n] for n in TRAIN_BF16_ENTRY_POINTS}}
     missing = [name for name, n in path_counts.items() if n == 0]
     assert not missing, f"the main path never launched: {missing}"
     torch.cuda.empty_cache()
     emit(phase_kernels(launches, ivf_shapes, ivf_launches, k6_launches,
-                       train_launches["e5_large"]))
+                       train_launches["e5_large"], train_bf16_launches))
     print(smi, flush=True)
     emit({
         "ok": True,

@@ -17,6 +17,13 @@ a corpus over) hand state across as numpy arrays and builtins:
 - the AdamW state of a training run (optax's ``ScaleByAdamState``: count, mu
   and nu, the moments in the parameters' pytree layout) becomes the state of
   a ``torch.optim.AdamW`` over an ``Encoder``'s parameters, and back.
+
+A bfloat16 encoder's pytree (JAX's ``init_params(..., dtype=jnp.bfloat16)``)
+has ``ml_dtypes.bfloat16`` numpy leaves. They are recognised by their dtype's
+name, without importing ml_dtypes, and cross through the uint16 convention
+above; going back, the port writes such leaves again (importing ml_dtypes,
+which the JAX package also uses), so bfloat16 state never turns float32 on
+the way.
 """
 
 from __future__ import annotations
@@ -42,6 +49,36 @@ def tensor_from_numpy(arr: np.ndarray, device, bf16: bool = False) -> torch.Tens
         t = scan_ops.to_device(arr.view(np.int16), device)
         return t.view(torch.bfloat16)
     return scan_ops.to_device(arr, device)
+
+
+def _is_bf16(arr) -> bool:
+    """Whether ``arr`` is a numpy array of ``ml_dtypes.bfloat16`` (JAX's
+    bfloat16 on the host), told by its dtype's name: ml_dtypes is not
+    imported."""
+    return isinstance(arr, np.ndarray) and arr.dtype.name == "bfloat16"
+
+
+def _ml_bfloat16():
+    try:
+        import ml_dtypes
+    except ImportError as e:
+        raise RuntimeError(
+            "bfloat16 tensors leave the port as ml_dtypes.bfloat16 numpy arrays "
+            "(the JAX package's host type), and ml_dtypes is not installed: "
+            "install it rather than write them as float32"
+        ) from e
+    return ml_dtypes.bfloat16
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host numpy array of ``t``: bfloat16 tensors become
+    ``ml_dtypes.bfloat16`` arrays with the same bits, any other type its
+    own."""
+    t = t.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        bits = t.contiguous().view(torch.int16).numpy().view(np.uint16)
+        return bits.view(_ml_bfloat16())
+    return t.numpy()
 
 
 def store_state_from_numpy(
@@ -172,17 +209,22 @@ def _tree_of(encoder: Encoder, leaf) -> dict:
     return tree
 
 
-def encoder_from_numpy(params: dict, cfg: EncoderConfig, device=None,
-                       dtype: torch.dtype = torch.float32) -> Encoder:
+def encoder_from_numpy(params: dict, cfg: EncoderConfig, device=None) -> Encoder:
     """A loaded ``Encoder`` on ``device`` from the parameter pytree.
 
     ``params`` is the JAX package's pytree with numpy leaves (nested, or the
-    flat ``layers.0.q.w`` names of a ``params.npz``); leaves of any float type
-    are cast to ``dtype`` (the bundled artifacts hold float16). The pytree's
-    dense weights are (in, out), for ``x @ w``; the port stores them (out, in),
-    as ``torch.nn.functional.linear`` reads them, and transposes each ONCE,
-    here, never per call. ``device=None`` means the CUDA card and raises
-    without one."""
+    flat ``layers.0.q.w`` names of a ``params.npz``). Each leaf keeps its
+    type: a ``ml_dtypes.bfloat16`` leaf loads as bfloat16, a leaf of any other
+    float type as float32 (the bundled artifacts hold float16), and the
+    encoder computes in its embeddings' type. So a JAX bfloat16 pytree trains
+    as JAX trains it: ``init_params(..., dtype=jnp.bfloat16)`` gives bfloat16
+    embeddings, biases and layer norms but float32 dense weights (its
+    ``normal(..., dtype) * (1 / np.sqrt(n))`` promotes), which the encoder
+    casts to the activations' type at each product (``_dense`` in both
+    packages). The pytree's dense weights are (in, out), for ``x @ w``; the
+    port stores them (out, in), as ``torch.nn.functional.linear`` reads
+    them, and transposes each ONCE, here, never per call. ``device=None``
+    means the CUDA card and raises without one."""
     dev = scan_ops.resolve_device(device)
     if "layers" not in params:
         params = model_convert._unflatten_params(params, cfg.layers)
@@ -190,44 +232,59 @@ def encoder_from_numpy(params: dict, cfg: EncoderConfig, device=None,
         raise ValueError(
             f"{len(params['layers'])} layers of parameters for a config of {cfg.layers}"
         )
-    enc = Encoder(cfg, dev, dtype)
+    bf16 = _is_bf16(np.asarray(params["word_emb"]))
+    enc = Encoder(cfg, dev, torch.bfloat16 if bf16 else torch.float32)
     with torch.no_grad():
         for path, param, transposed in _param_paths(enc):
-            param.copy_(_module_layout(_at(params, path), param, transposed, enc))
+            leaf = _module_layout(_at(params, path), param, transposed, enc)
+            if leaf.dtype != param.dtype:
+                param.data = torch.empty(param.shape, dtype=leaf.dtype, device=dev)
+            param.copy_(leaf)
     return enc
 
 
 def _module_layout(arr, param, transposed: bool, encoder: Encoder) -> torch.Tensor:
-    """A pytree leaf as a float32 tensor of ``param``'s shape on its device.
-    Only token type 0 is ever used: a wider ``type_emb`` keeps that row."""
+    """A pytree leaf as a tensor of ``param``'s shape on its device:
+    bfloat16 for a bfloat16 leaf, else float32. Only token type 0 is ever
+    used: a wider ``type_emb`` keeps that row."""
     arr = np.asarray(arr)
-    if arr.dtype != np.float32:
+    bf16 = _is_bf16(arr)
+    if bf16:
+        arr = arr.view(np.uint16)
+    elif arr.dtype != np.float32:
         arr = arr.astype(np.float32)
     if param is encoder.type_emb:
         arr = arr[:1]
     want = tuple(param.shape)[::-1] if transposed else tuple(param.shape)
     if tuple(arr.shape) != want:
         raise ValueError(f"parameter of shape {arr.shape}, expected {want}")
-    t = scan_ops.to_device(arr, param.device)
+    t = tensor_from_numpy(arr, param.device, bf16=bf16)
     return t.T if transposed else t
 
 
 def _to_numpy(t, transpose: bool) -> np.ndarray:
-    a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
+    """bfloat16 stays bfloat16 (``tensor_to_numpy``); other types become
+    float32."""
+    if t.dtype != torch.bfloat16:
+        t = t.to(torch.float32)
+    a = tensor_to_numpy(t)
     return np.ascontiguousarray(a.T) if transpose else a
 
 
 def encoder_to_numpy(encoder: Encoder) -> dict:
-    """The parameter pytree (float32 numpy leaves, dense weights (in, out)) of
-    a loaded ``Encoder``: what ``models/convert.save_converted`` writes and
-    either package loads."""
+    """The parameter pytree (dense weights (in, out)) of a loaded
+    ``Encoder``: what ``models/convert.save_converted`` writes and either
+    package loads. Leaves are float32, or ``ml_dtypes.bfloat16`` for a
+    bfloat16 encoder, as the JAX package holds its bfloat16 parameters."""
     return _tree_of(encoder, _to_numpy)
 
 
 def adamw_state_to_numpy(opt_state, encoder: Encoder) -> dict:
     """The AdamW state of ``encoder``'s parameters in the JAX layout:
-    ``{"count": int32 array, "mu": pytree, "nu": pytree}``, the moments
-    float32 with the parameters' pytree structure (dense moments (in, out)).
+    ``{"count": int32 array, "mu": pytree, "nu": pytree}``, the moments with
+    the parameters' pytree structure (dense moments (in, out)), float32 or
+    ``ml_dtypes.bfloat16`` as the parameters are (optax keeps its moments in
+    the parameters' type).
     ``opt_state`` is a ``torch.optim.AdamW``'s ``state`` (parameter ->
     ``step``, ``exp_avg``, ``exp_avg_sq``); a parameter without state (no
     step taken yet) gets zero moments. optax's ``ScaleByAdamState`` holds the
@@ -239,10 +296,7 @@ def adamw_state_to_numpy(opt_state, encoder: Encoder) -> dict:
     def moment(key):
         def leaf(param, transpose):
             st = opt_state.get(param)
-            if not st:
-                return np.zeros(tuple(param.shape)[::-1] if transpose else param.shape,
-                                np.float32)
-            return _to_numpy(st[key], transpose)
+            return _to_numpy(st[key] if st else torch.zeros_like(param), transpose)
         return leaf
 
     return {

@@ -17,6 +17,10 @@ other's checkpoints:
   NamedTuples; ``load_checkpoint`` reads those without importing optax (which
   imports jax): its unpickler maps ``ScaleByAdamState`` and ``EmptyState`` to
   plain stand-ins, and ``convert.adamw_state_from_numpy`` takes either form.
+- a bfloat16 encoder's params and moments are ``ml_dtypes.bfloat16`` leaves in
+  both packages (``convert.tensor_to_numpy``), so a bfloat16 run resumes in
+  bfloat16 in either. The unpickler takes ``ml_dtypes.bfloat16`` and no other
+  class of ml_dtypes.
 """
 
 from __future__ import annotations
@@ -42,6 +46,17 @@ class _Unpickler(pickle.Unpickler):
     other class of jax's family, so loading imports none of it."""
 
     def find_class(self, module, name):
+        if module.split(".")[0] == "ml_dtypes":
+            if name != "bfloat16":
+                raise pickle.UnpicklingError(
+                    f"{module}.{name}: the port reads ml_dtypes.bfloat16 leaves only")
+            try:
+                import ml_dtypes
+            except ImportError as e:
+                raise pickle.UnpicklingError(
+                    "the checkpoint holds bfloat16 leaves (ml_dtypes.bfloat16): "
+                    "reading them needs ml_dtypes") from e
+            return ml_dtypes.bfloat16
         if module.split(".")[0] in _FOREIGN:
             if module.startswith("optax") and name in _STAND_INS:
                 return _STAND_INS[name]
@@ -53,9 +68,10 @@ class _Unpickler(pickle.Unpickler):
 
 
 def _to_host(tree):
-    """numpy leaves for tensors; dicts, lists and tuples kept as they are."""
+    """numpy leaves for tensors (bfloat16 ones as ml_dtypes.bfloat16);
+    dicts, lists and tuples kept as they are."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        return convert.tensor_to_numpy(tree)
     if isinstance(tree, dict):
         return {k: _to_host(v) for k, v in tree.items()}
     if hasattr(tree, "_fields"):  # a NamedTuple

@@ -6,16 +6,30 @@ arguments, history entries and checkpoint cadence. PyTorch's idiom where the
 JAX module is functional:
 
 - ``params`` is a ``models.encoder.Encoder`` (a numpy pytree is loaded into
-  one by ``init_training``); gradients come from ``torch.autograd``. On the
-  card, sequences of 256 and more (a multiple of 128, head width >= 32) take
-  the flash-attention kernels: K6 forward with its row statistic, K7 and K8
-  backward (ops/flash_attention.py:FlashAttention); the rest, and the CPU,
-  take the materialised attention, which autograd differentiates.
+  one by ``init_training``, each leaf in its own type: see bfloat16 below);
+  gradients come from ``torch.autograd``. On the card, sequences of 256 and
+  more (a multiple of 128, head width >= 32) take the flash-attention
+  kernels: K6 forward with its row statistic, K7 and K8 backward
+  (ops/flash_attention.py:FlashAttention), in float32 or bfloat16; the rest,
+  and the CPU, take the materialised attention, which autograd
+  differentiates.
 - the optimizer is ``torch.optim.AdamW`` set to ``optax.adamw``'s defaults,
   which are not torch's: weight decay 1e-4 (torch's default is 1e-2) on every
   parameter, betas (0.9, 0.999), eps 1e-8. The two apply the same update,
   p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p), with the roundings in
   another order (torch scales p by 1 - lr * wd first).
+- bfloat16: an encoder with bfloat16 parameters (``init_params(...,
+  dtype=torch.bfloat16)``, or a JAX pytree from ``init_params(...,
+  dtype=jnp.bfloat16)``) trains in bfloat16 as the JAX package's step does:
+  activations and gradients in the parameters' type, AdamW's moments in each
+  parameter's type (optax keeps ``mu`` and ``nu`` in the parameters' type,
+  torch's AdamW in the parameter's). Each parameter keeps its type: JAX's
+  bfloat16 ``init_params`` gives float32 dense weights, which both packages
+  cast to the activations' bfloat16 at each product and update in float32.
+  Every bfloat16 operation rounds in another order than XLA's, and AdamW's
+  update too (torch's in-place sequence on bfloat16 moments against optax's
+  expression), so the two packages agree to bfloat16 rounding, not bit for
+  bit (tests/test_torch_train.py states the tolerances).
 - ``opt_state`` is that optimizer's ``state`` (parameter -> step, exp_avg,
   exp_avg_sq), updated in place by each step; checkpoints carry it in the
   JAX layout (models/checkpoint.py, convert.adamw_state_to_numpy).

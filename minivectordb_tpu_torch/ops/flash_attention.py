@@ -47,9 +47,13 @@ the TPU kernel's ``_flash_attention_bwd_dkv`` (K7: dK, dV) and
     dV = P^T dO,   dS = P * (dO V^T - rowsum(dO * O)),
     dK = dS^T Q * sm_scale,   dQ = dS K * sm_scale
 
-K7 and K8 exist for float32, the training path's type; a bfloat16 backward
-on the card raises (ROADMAP queue 2). On CPU tensors both directions use the
-plain versions, ``flash_attention_lse_plain`` and ``flash_attention_bwd_plain``.
+K7 and K8 exist for float32 (CUDA-core FMAs, ``csrc/flash_attention_bwd.cu``)
+and for bfloat16 (tensor cores, ``csrc/flash_attention_bwd_bf16.cu``). In
+bfloat16 they round where the TPU kernels round: P to bfloat16 before
+``dV = P^T dO``, and ``dS * sm_scale`` to bfloat16 before ``dK = dS^T Q`` and
+``dQ = dS K``, every sum in float32. delta is float32 from float32 products in
+either type. On CPU tensors both directions use the plain versions,
+``flash_attention_lse_plain`` and ``flash_attention_bwd_plain``.
 """
 
 from __future__ import annotations
@@ -70,12 +74,14 @@ HEAD_DIMS = tuple(range(16, 129, 16))  # the widths the kernel is instantiated f
 _PLAIN_LOGIT_BYTES = 256 << 20  # (rows, nh, S, S) float32 logits per piece
 
 # Kernel launches per C entry point of csrc/flash_attention.cu (K6; the _lse_
-# ones also write the row log-sum-exp) and csrc/flash_attention_bwd.cu (K7,
-# K8). Incremented where each kernel is launched, and nowhere else.
+# ones also write the row log-sum-exp), csrc/flash_attention_bwd.cu (K7, K8 in
+# float32) and csrc/flash_attention_bwd_bf16.cu (K7, K8 in bfloat16).
+# Incremented where each kernel is launched, and nowhere else.
 LAUNCHES = {
     "flash_attention_f32": 0, "flash_attention_bf16": 0,
     "flash_attention_lse_f32": 0, "flash_attention_lse_bf16": 0,
     "flash_attention_bwd_dkv_f32": 0, "flash_attention_bwd_dq_f32": 0,
+    "flash_attention_bwd_dkv_bf16": 0, "flash_attention_bwd_dq_bf16": 0,
 }
 
 
@@ -101,10 +107,16 @@ _ARGTYPES = {
     "flash_attention_lse_bf16": _FWD_LSE,
     "flash_attention_bwd_dkv_f32": [_P] * 9 + _BWD,
     "flash_attention_bwd_dq_f32": [_P] * 8 + _BWD,
+    "flash_attention_bwd_dkv_bf16": [_P] * 9 + _BWD,
+    "flash_attention_bwd_dq_bf16": [_P] * 8 + _BWD,
 }
 # the source (csrc/<name>.cu) of each entry point
-_SOURCE = {name: "flash_attention_bwd" if "_bwd_" in name else "flash_attention"
-           for name in LAUNCHES}
+_SOURCE = {
+    name: ("flash_attention" if "_bwd_" not in name
+           else "flash_attention_bwd_bf16" if name.endswith("_bf16")
+           else "flash_attention_bwd")
+    for name in LAUNCHES
+}
 _fns: dict = {}
 
 
@@ -208,24 +220,41 @@ def _check_bwd(q, out, dout, lse) -> None:
         )
 
 
+def _delta(out, dout):
+    """delta = rowsum(dO * O), (.., S) float32 from float32 products,
+    whatever the type of out and dout (the TPU code's
+    ``sum(o.astype(f32) * do.astype(f32), -1)``)."""
+    return torch.sum(out.to(torch.float32) * dout.to(torch.float32), dim=-1)
+
+
 def flash_attention_bwd_plain(q, k, v, segment_ids, out, dout, lse, sm_scale: float):
-    """The function K7 and K8 compute, in plain PyTorch, in float32 and in
-    pieces of batch rows: P = exp(masked logits - lse) (the masked logits'
-    exp underflows to 0, as in the TPU kernel), delta = rowsum(dO * O),
-    dV = P^T dO, dS = P * (dO V^T - delta), dK = dS^T Q * sm_scale and
-    dQ = dS K * sm_scale. Returns (dq, dk, dv) in q's type."""
+    """The function K7 and K8 compute, in plain PyTorch, in pieces of batch
+    rows: P = exp(masked float32 logits - lse) (the masked logits' exp
+    underflows to 0, as in the TPU kernel), delta = rowsum(dO * O) in
+    float32, dS = P * (dO V^T - delta), all in float32. Float32 inputs:
+    dV = P^T dO, dK = dS^T Q * sm_scale, dQ = dS K * sm_scale. bfloat16
+    inputs round where the TPU kernels round: dV = bf16(P)^T dO,
+    dK = bf16(dS * sm_scale)^T Q, dQ = bf16(dS * sm_scale) K, every sum in
+    float32. Returns (dq, dk, dv) in q's type."""
     _check(q, k, v, segment_ids)
     _check_bwd(q, out, dout, lse)
     scan_ops._assert_ieee_f32(q)
     grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)]
+    rounded = q.dtype != torch.float32
     for sl in _plain_pieces(q, segment_ids):
         qf, kf, vf, dof = (t[sl].to(torch.float32) for t in (q, k, v, dout))
-        delta = torch.sum(out[sl].to(torch.float32) * dof, dim=-1)
+        delta = _delta(out[sl], dout[sl])
         p = torch.exp(_plain_logits(q[sl], k[sl], segment_ids[sl], sm_scale)
                       - lse[sl][..., None])
         ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta[..., None])
-        grads[0][sl] = (torch.matmul(ds, kf) * sm_scale).to(q.dtype)
-        grads[1][sl] = (torch.matmul(ds.transpose(-1, -2), qf) * sm_scale).to(q.dtype)
+        if rounded:
+            p = p.to(q.dtype).to(torch.float32)
+            ds = (ds * sm_scale).to(q.dtype).to(torch.float32)
+            grads[0][sl] = torch.matmul(ds, kf).to(q.dtype)
+            grads[1][sl] = torch.matmul(ds.transpose(-1, -2), qf).to(q.dtype)
+        else:
+            grads[0][sl] = (torch.matmul(ds, kf) * sm_scale).to(q.dtype)
+            grads[1][sl] = (torch.matmul(ds.transpose(-1, -2), qf) * sm_scale).to(q.dtype)
         grads[2][sl] = torch.matmul(p.transpose(-1, -2), dof).to(q.dtype)
     return tuple(grads)
 
@@ -298,12 +327,16 @@ def _launch(name: str, q, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _kind(q) -> str:
+    return "f32" if q.dtype == torch.float32 else "bf16"
+
+
 def _forward(q, k, v, segment_ids, sm_scale: float, with_lse: bool):
     """K6 on CUDA tensors: (out, lse or None)."""
     b, nh, s, hd = q.shape
     q, k, v, segment_ids = _kernel_operands(q, k, v, segment_ids)
     out = torch.empty_like(q)  # q's layout; the kernel is given out's own strides
-    kind = "f32" if q.dtype == torch.float32 else "bf16"
+    kind = _kind(q)
     lse = None
     ptrs = [k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), out.data_ptr()]
     if with_lse:
@@ -327,11 +360,6 @@ def flash_attention(q, k, v, segment_ids, sm_scale: float):
     and K8 backward)."""
     _check(q, k, v, segment_ids)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        if q.device.type == "cuda" and q.dtype != torch.float32:
-            raise NotImplementedError(
-                "flash attention's backward is ported for float32 only; the bfloat16 "
-                "K7/K8 are still to port (ROADMAP queue 2)"
-            )
         return FlashAttention.apply(q, k, v, segment_ids, sm_scale)
     if q.device.type != "cuda":
         return flash_attention_plain(q, k, v, segment_ids, sm_scale)
@@ -352,19 +380,14 @@ def flash_attention_lse(q, k, v, segment_ids, sm_scale: float):
 def flash_attention_bwd(q, k, v, segment_ids, out, dout, lse, sm_scale: float):
     """(dq, dk, dv) of attention within segments, given the forward's ``out``
     and ``lse`` and the gradient ``dout`` of out: K7 (dK, dV) then K8 (dQ),
-    float32, on CUDA tensors (or raise); CPU tensors use
+    float32 or bfloat16, on CUDA tensors (or raise); CPU tensors use
     ``flash_attention_bwd_plain``. delta = rowsum(dO * O) is one torch.sum
-    here, as JAX computes it outside its kernels. The gradients have q's
-    strides; dout may have any strides (autograd chooses them)."""
+    here, in float32, as JAX computes it outside its kernels. The gradients
+    have q's strides; dout may have any strides (autograd chooses them)."""
     _check(q, k, v, segment_ids)
     _check_bwd(q, out, dout, lse)
     if q.device.type != "cuda":
         return flash_attention_bwd_plain(q, k, v, segment_ids, out, dout, lse, sm_scale)
-    if q.dtype != torch.float32:
-        raise NotImplementedError(
-            "flash attention's backward kernels are ported for float32 only; the "
-            "bfloat16 K7/K8 are still to port (ROADMAP queue 2)"
-        )
     ops = _bwd_operands(q, k, v, segment_ids, out, dout, lse)
     dk, dv = _bwd_dkv(*ops, sm_scale)
     return _bwd_dq(*ops, sm_scale), dk, dv
@@ -372,11 +395,11 @@ def flash_attention_bwd(q, k, v, segment_ids, out, dout, lse, sm_scale: float):
 
 def _bwd_operands(q, k, v, segment_ids, out, dout, lse):
     """(q, k, v, segment_ids, dout, lse, delta) as K7 and K8 take them, with
-    delta = rowsum(dO * O) (B, nh, S) float32."""
+    delta = rowsum(dO * O) (B, nh, S) float32 from float32 products."""
     q, k, v, segment_ids = _kernel_operands(q, k, v, segment_ids)
     if not _kernel_ready(dout):
         dout = dout.contiguous()
-    delta = torch.sum(out * dout, dim=-1).contiguous()
+    delta = _delta(out, dout).contiguous()
     return q, k, v, segment_ids, dout, lse.contiguous(), delta
 
 
@@ -391,16 +414,16 @@ def _bwd_launch(name, q, k, v, segment_ids, dout, lse, delta, grads, sm_scale) -
 def _bwd_dkv(q, k, v, segment_ids, dout, lse, delta, sm_scale):
     """K7 on ``_bwd_operands``: (dk, dv) with q's strides."""
     grads = (torch.empty_like(q), torch.empty_like(q))
-    _bwd_launch("flash_attention_bwd_dkv_f32", q, k, v, segment_ids, dout, lse, delta,
-                grads, sm_scale)
+    _bwd_launch(f"flash_attention_bwd_dkv_{_kind(q)}", q, k, v, segment_ids, dout, lse,
+                delta, grads, sm_scale)
     return grads
 
 
 def _bwd_dq(q, k, v, segment_ids, dout, lse, delta, sm_scale):
     """K8 on ``_bwd_operands``: dq with q's strides."""
     dq = torch.empty_like(q)
-    _bwd_launch("flash_attention_bwd_dq_f32", q, k, v, segment_ids, dout, lse, delta,
-                (dq,), sm_scale)
+    _bwd_launch(f"flash_attention_bwd_dq_{_kind(q)}", q, k, v, segment_ids, dout, lse,
+                delta, (dq,), sm_scale)
     return dq
 
 

@@ -11,7 +11,7 @@
     python -m minivectordb_tpu_torch.profile_search --phase1
         [--against OTHER/phase1.cu]
     python -m minivectordb_tpu_torch.profile_search --train [--batch 8]
-        [--seq 512]
+        [--seq 512] [--dtype float32|bfloat16]
 
 Builds a seeded corpus straight into a ``VectorStore`` (no metadata), then
 times the stages of ``StoreSnapshot._device_search``'s fused route one by one
@@ -59,7 +59,9 @@ same way: each held against its plain version, and with ``--against`` another
 phase1.cu (same C interface, e.g. the parent commit's) in turns with this one.
 
 With ``--train`` it times one contrastive training step (models/train.py) at
-the e5-large widths, float32, on ``--batch`` seeded (query, passage) pairs of
+the e5-large widths, in ``--dtype`` (float32, or bfloat16: weights,
+activations, gradients and AdamW's moments, K6-bf16 with its log-sum-exp and
+the bfloat16 K7/K8), on ``--batch`` seeded (query, passage) pairs of
 token ids with ragged lengths of at most ``--seq`` (default 8 pairs, S = 512),
 stage by stage with CUDA events: the forward (InfoNCE loss through both
 encodes), of which the K6 launches (with the row log-sum-exp); the backward
@@ -416,7 +418,8 @@ def profile_embed(compute_dtype: str, batch: int, seq: int, seed: int, reps: int
     return out
 
 
-def profile_train(batch: int, seq: int, seed: int, reps: int) -> dict:
+def profile_train(batch: int, seq: int, seed: int, reps: int,
+                  dtype: str = "float32") -> dict:
     """One training step at the e5-large widths, stage by stage (see the
     module docstring)."""
     cfg = model_configs.E5_LARGE
@@ -424,7 +427,8 @@ def profile_train(batch: int, seq: int, seed: int, reps: int) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     enc, _state, optimizer = train_mod.init_training(
-        cfg, encoder_mod.init_params(cfg, gen, dev), device=dev)
+        cfg, encoder_mod.init_params(cfg, gen, dev, getattr(torch, dtype)), device=dev)
+    kind = "f32" if dtype == "float32" else "bf16"
     rng = np.random.default_rng(seed)
 
     def tokens():
@@ -465,11 +469,11 @@ def profile_train(batch: int, seq: int, seed: int, reps: int) -> dict:
         k = {name: sum(a.elapsed_time(b) for a, b in pairs) for name, pairs in spans.items()}
         counts = {name: len(pairs) for name, pairs in spans.items()}
         fwd, bwd = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
-        k7 = k.get("flash_attention_bwd_dkv_f32", 0.0)
-        k8 = k.get("flash_attention_bwd_dq_f32", 0.0)
+        k7 = k.get(f"flash_attention_bwd_dkv_{kind}", 0.0)
+        k8 = k.get(f"flash_attention_bwd_dq_{kind}", 0.0)
         return {
             "forward_ms": fwd,
-            "of_which_k6_lse_ms": k.get("flash_attention_lse_f32", 0.0),
+            "of_which_k6_lse_ms": k.get(f"flash_attention_lse_{kind}", 0.0),
             "backward_ms": bwd,
             "of_which_k7_ms": k7,
             "of_which_k8_ms": k8,
@@ -485,7 +489,7 @@ def profile_train(batch: int, seq: int, seed: int, reps: int) -> dict:
         runs = [step() for _ in range(reps)]
     finally:
         flash_ops._launch = launch
-    out = {"train": "e5-large widths", "dtype": "float32", "pairs": batch, "seq": seq,
+    out = {"train": "e5-large widths", "dtype": dtype, "pairs": batch, "seq": seq,
            "layers": cfg.layers,
            "real_tokens_per_step": int(q_mask.sum() + p_mask.sum()),
            "kernel_launches_per_step": runs[0][1],
@@ -716,6 +720,8 @@ def main() -> None:
                     help="time the phase-1 kernels K1-bf16 and K2 alone at the search's shape")
     ap.add_argument("--train", action="store_true",
                     help="time one training step at the e5-large widths, stage by stage")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="with --train: the encoder's type")
     ap.add_argument("--against", default=None,
                     help="with --attention / --phase1: another flash_attention.cu / "
                          "phase1.cu to time in turns")
@@ -740,7 +746,7 @@ def main() -> None:
             print(json.dumps(res), flush=True)
         return
     if args.train:
-        res = profile_train(args.batch, args.seq, args.seed, min(args.reps, 10))
+        res = profile_train(args.batch, args.seq, args.seed, min(args.reps, 10), args.dtype)
         res["card"] = smi
         print(json.dumps(res), flush=True)
         return

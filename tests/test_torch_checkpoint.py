@@ -8,6 +8,12 @@ Tolerances: a resumed port run repeats the uninterrupted one exactly (the
 same float32 operations on the same values). Across packages: loss 1e-5,
 parameters 2e-6 (k biases 2 * lr per step; see tests/test_torch_train.py),
 embeddings 2e-5 (unit vectors).
+
+bfloat16: a checkpoint of a bfloat16 run holds ``ml_dtypes.bfloat16`` leaves
+for the bfloat16 parameters and their moments, in either package, and either
+package resumes it in bfloat16. Across packages the loss is held to
+tests/test_torch_train.py's bfloat16 tolerances; a resumed port run repeats
+the uninterrupted one exactly.
 """
 
 import os
@@ -220,3 +226,104 @@ def test_a_wider_type_table_keeps_row_0_for_the_parameter_and_its_moments():
     back = convert.adamw_state_to_numpy(opt.state, enc)
     assert int(back["count"]) == 5
     assert back["mu"]["layers"][0]["ffn_in"]["w"].shape == params["layers"][0]["ffn_in"]["w"].shape
+
+
+def _bf16_params(seed=0):
+    """JAX's bfloat16 pytree: bfloat16 leaves, float32 dense weights."""
+    return jax.tree.map(np.asarray, jenc.init_params(jenc.EncoderConfig(**KW), seed=seed,
+                                                     dtype=jnp.bfloat16))
+
+
+def _dtypes(tree):
+    return [np.asarray(x).dtype.name for x in jax.tree.leaves(tree)]
+
+
+def test_a_bf16_port_checkpoint_keeps_bf16_leaves_and_resumes_in_jax(tmp_path):
+    cfg = tenc.EncoderConfig(**KW)
+    ckpt = str(tmp_path / "port_bf16.pkl")
+    batches = _batches(seed=6)
+    params0 = _bf16_params()
+    enc, _opt, _h = ttrain.train_loop(cfg, params0, iter(batches[:2]), steps=2,
+                                      learning_rate=LR, checkpoint_path=ckpt, log_every=0,
+                                      device="cpu")
+    assert enc.dtype == torch.bfloat16
+    params, opt_state, step, _extra = jck.load_checkpoint(ckpt)
+    want = _dtypes(params0)
+    assert "bfloat16" in want and "float32" in want
+    assert _dtypes(params) == want
+    assert _dtypes(opt_state["mu"]) == want and _dtypes(opt_state["nu"]) == want
+    # JAX takes step 3 from it, in bfloat16, as the port does from its own
+    import optax
+
+    jstate = (optax.ScaleByAdamState(**opt_state), optax.EmptyState(), optax.EmptyState())
+    jbatch = [{k: jnp.asarray(v) for k, v in batches[2].items()}]
+    jp, _jo, jhist = jtrain.train_loop(jenc.EncoderConfig(**KW), jax.tree.map(jnp.asarray, params),
+                                       iter(jbatch), steps=1, start_step=2, opt_state=jstate,
+                                       learning_rate=LR, log_every=1, log_fn=lambda _s: None)
+    assert _dtypes(jax.tree.map(np.asarray, jp)) == want
+    p2, o2, _s, _e = tck.load_checkpoint(ckpt)
+    _tp, _to, thist = ttrain.train_loop(cfg, p2, iter(batches[2:3]), steps=1, start_step=2,
+                                        opt_state=o2, learning_rate=LR, log_every=1,
+                                        log_fn=lambda _s: None, device="cpu")
+    assert abs(thist[0]["loss"] - jhist[0]["loss"]) <= 2.0 ** -7 * abs(jhist[0]["loss"]) + 1e-4
+
+
+def test_a_bf16_jax_checkpoint_resumes_in_the_port_in_bf16(tmp_path):
+    """JAX trains 2 bfloat16 steps and writes its checkpoint; the port reads
+    the bfloat16 leaves as bfloat16, takes step 3 close to JAX's step 3, and
+    writes bfloat16 leaves again."""
+    jcfg = jenc.EncoderConfig(**KW)
+    batches = _batches(seed=7)
+    jbatches = [{k: jnp.asarray(v) for k, v in b.items()} for b in batches]
+    ckpt = str(tmp_path / "jax_bf16.pkl")
+    jtrain.train_loop(jcfg, jax.tree.map(jnp.asarray, _bf16_params()), iter(jbatches[:2]),
+                      steps=2, learning_rate=LR, checkpoint_path=ckpt, log_every=0)
+    _jp3, _jo, jhist = jtrain.train_loop(jcfg, jax.tree.map(jnp.asarray, _bf16_params()),
+                                         iter(jbatches[:3]), steps=3, learning_rate=LR,
+                                         log_every=1, log_fn=lambda _s: None)
+    params, opt_state, step, _ = tck.load_checkpoint(ckpt)
+    want = _dtypes(_bf16_params())
+    assert step == 2 and _dtypes(params) == want and _dtypes(opt_state[0].mu) == want
+    ckpt2 = str(tmp_path / "port_again.pkl")
+    enc, opt, hist = ttrain.train_loop(tenc.EncoderConfig(**KW), params, iter(batches[2:3]),
+                                       steps=1, start_step=2, opt_state=opt_state,
+                                       learning_rate=LR, log_every=1, log_fn=lambda _s: None,
+                                       checkpoint_path=ckpt2, device="cpu")
+    assert enc.dtype == torch.bfloat16
+    assert all(opt[p]["exp_avg"].dtype == p.dtype for p in enc.parameters())
+    assert abs(hist[0]["loss"] - jhist[2]["loss"]) <= 2.0 ** -7 * abs(jhist[2]["loss"]) + 1e-4
+    p3, o3, step3, _ = tck.load_checkpoint(ckpt2)
+    assert step3 == 3 and _dtypes(p3) == want and _dtypes(o3["nu"]) == want
+
+
+def test_bf16_resume_equals_an_uninterrupted_run(tmp_path):
+    cfg = tenc.EncoderConfig(**KW)
+    batches = _batches(seed=8)
+    full, _o, hist_full = ttrain.train_loop(cfg, _bf16_params(), iter(batches[:3]), steps=3,
+                                            learning_rate=LR, log_every=1,
+                                            log_fn=lambda _s: None, device="cpu")
+    ckpt = str(tmp_path / "half_bf16.pkl")
+    ttrain.train_loop(cfg, _bf16_params(), iter(batches[:2]), steps=2, learning_rate=LR,
+                      checkpoint_path=ckpt, log_every=0, device="cpu")
+    p, o, step, _ = tck.load_checkpoint(ckpt)
+    resumed, _o2, hist = ttrain.train_loop(cfg, p, iter(batches[2:3]), steps=1,
+                                           start_step=step, opt_state=o, learning_rate=LR,
+                                           log_every=1, log_fn=lambda _s: None, device="cpu")
+    assert hist == hist_full[2:]
+    for a, b in zip(full.parameters(), resumed.parameters()):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_the_loader_takes_ml_dtypes_bfloat16_and_no_other_class_of_it(tmp_path):
+    import pickle
+
+    path = tmp_path / "f8.pkl"
+    path.write_bytes(b"cml_dtypes\nfloat8_e4m3fn\n.")
+    with pytest.raises(pickle.UnpicklingError, match="bfloat16 leaves only"):
+        tck.load_checkpoint(str(path))
+    t = torch.tensor([1.5, -2.0, 3.0e-3], dtype=torch.bfloat16)
+    tck.save_checkpoint(str(tmp_path / "t.pkl"), {"w": t}, step=1)
+    params, _o, _s, _e = tck.load_checkpoint(str(tmp_path / "t.pkl"))
+    assert params["w"].dtype.name == "bfloat16"
+    back = convert.tensor_from_numpy(params["w"].view(np.uint16), "cpu", bf16=True)
+    assert torch.equal(back, t)

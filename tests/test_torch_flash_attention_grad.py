@@ -10,6 +10,18 @@ JAX's ``mha_reference`` is no reference here: its backward raises
 Tolerance: 2e-5 for the gradients and the log-sum-exp (float32 sums of at most
 S products in another order; gradients reach about 3, the log-sum-exp about 8;
 a scratch run matched to 1e-6).
+
+bfloat16 (the same cases, inputs rounded to bfloat16 by both packages): the
+TPU kernels round P, and dS * sm_scale, to bfloat16 before their products, and
+the port's plain backward rounds at the same points. Given JAX's own forward
+output and log-sum-exp, it is held per tensor to BF16_MAX_TOL (one bfloat16
+ulp of the tensor's largest value: an element whose float32 sum lies on the
+other side of a rounding boundary moves by one of its ulps) and to
+BF16_MEAN_TOL for the mean error over the mean value (a scratch run: at most
+3e-6, 0.12% of the elements differing; without the two roundings 1.6e-3, 41%
+of the elements differing). End to end through the port's own forward, whose
+output rounds P V in another order than the TPU's, the gradients are held to
+BF16_MAX_TOL (a scratch run: 4.5e-3 of the largest value at most).
 """
 
 import functools
@@ -25,6 +37,8 @@ from jax.experimental.pallas.ops.tpu import flash_attention as jax_fa
 from minivectordb_tpu_torch.ops import flash_attention as fa
 
 TOL = 2e-5
+BF16_MAX_TOL = 2.0 ** -7  # of max |JAX| over the tensor
+BF16_MEAN_TOL = 2.0 ** -12  # mean |port - JAX| over mean |JAX|
 
 
 def _inputs(b, nh, s, hd, pattern, seed):
@@ -75,6 +89,95 @@ def _jax(case: str):
         _o, l, m = jax_fa._flash_attention(*args, None, ids, True, False, scale, blocks, False)
     lse = np.asarray(m + jnp.log(l))
     return (q, k, v, do, seg), lse, grads
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_bf16(case: str):
+    """The same case with q, k, v and dO rounded to bfloat16: (inputs as the
+    float32 values of their bfloat16 roundings, out, lse = m + log l, (dq,
+    dk, dv)), out and the gradients as float32 arrays of bfloat16 values."""
+    b, nh, s, hd, pattern, seed = CASES[case]
+    q, k, v, do, seg = _inputs(b, nh, s, hd, pattern, seed)
+    ids = jax_fa.SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg))
+    scale = float(1.0 / np.sqrt(hd))
+    args = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
+    jdo = jnp.asarray(do).astype(jnp.bfloat16)
+    with pltpu.force_tpu_interpret_mode():
+        out, vjp = jax.vjp(
+            lambda q_, k_, v_: jax_fa.flash_attention(q_, k_, v_, segment_ids=ids,
+                                                      sm_scale=scale), *args)
+        grads = tuple(np.asarray(g.astype(jnp.float32)) for g in vjp(jdo))
+        blocks = jax_fa.BlockSizes.get_default(b, nh, s, s, hd)
+        _o, l, m = jax_fa._flash_attention(*args, None, ids, True, False, scale, blocks, False)
+    inputs = tuple(np.asarray(x.astype(jnp.float32)) for x in (*args, jdo)) + (seg,)
+    return inputs, np.asarray(out.astype(jnp.float32)), np.asarray(m + jnp.log(l)), grads
+
+
+def _bf16(*arrays):
+    """float32 arrays of bfloat16 values -> bfloat16 tensors (exact)."""
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(torch.bfloat16) for a in arrays]
+
+
+def _assert_bf16_close(got, want, mean_too: bool):
+    """got: bfloat16 tensors; want: float32 arrays of JAX's bfloat16 values."""
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == torch.bfloat16, name
+        err = np.abs(g.float().numpy() - w)
+        assert err.max() <= BF16_MAX_TOL * np.abs(w).max(), (name, err.max())
+        if mean_too:
+            assert err.mean() <= BF16_MEAN_TOL * np.abs(w).mean(), (name, err.mean())
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_lse_equals_the_tpu_kernels_row_statistics(case):
+    """K6's row statistic of bfloat16 inputs is float32: float32 sums of
+    exact products, held to the float32 tolerance."""
+    (q, k, v, _do, seg), _out, lse, _grads = _jax_bf16(case)
+    scale = float(1.0 / np.sqrt(q.shape[-1]))
+    _o, got = fa.flash_attention_lse_plain(*_bf16(q, k, v), torch.from_numpy(seg), scale)
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - lse).max() <= TOL
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_plain_backward_rounds_where_the_tpu_kernels_round(case):
+    """Given JAX's forward output and log-sum-exp, the plain backward of
+    bfloat16 inputs is the TPU kernels' function: P and dS * sm_scale rounded
+    to bfloat16 before the products, float32 sums. Without those roundings
+    the mean error is about 7x BF16_MEAN_TOL."""
+    (q, k, v, do, seg), out, lse, grads = _jax_bf16(case)
+    scale = float(1.0 / np.sqrt(q.shape[-1]))
+    tq, tk, tv, tdo, tout = _bf16(q, k, v, do, out)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, torch.from_numpy(seg), tout, tdo,
+                                       torch.from_numpy(lse), scale)
+    _assert_bf16_close(got, grads, mean_too=True)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_bf16_autograd_function_equals_the_tpu_kernels_vjp(case):
+    """bfloat16 inputs that require grad go through FlashAttention (its own
+    forward, then the plain backward on CPU tensors)."""
+    (q, k, v, do, seg), _out, _lse, grads = _jax_bf16(case)
+    scale = float(1.0 / np.sqrt(q.shape[-1]))
+    tq, tk, tv = (t.requires_grad_() for t in _bf16(q, k, v))
+    out = fa.flash_attention(tq, tk, tv, torch.from_numpy(seg), scale)
+    assert out.dtype == torch.bfloat16 and "FlashAttention" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, (tq, tk, tv), _bf16(do)[0])
+    _assert_bf16_close(got, grads, mean_too=False)
+
+
+def test_delta_is_float32_from_float32_products():
+    """delta = rowsum(dO * O), as K7 and K8 receive it, is float32 and summed
+    from float32 products for bfloat16 tensors too (the TPU code's
+    ``sum(o.astype(f32) * do.astype(f32), -1)``)."""
+    q, k, v, do, seg = _inputs(2, 2, 64, 32, "lengths", 12)
+    tq, tk, tv, tdo = (t.to(torch.bfloat16) for t in _t(q, k, v, do))
+    tseg = torch.from_numpy(seg)
+    out, lse = fa.flash_attention_lse_plain(tq, tk, tv, tseg, 0.25)
+    delta = fa._bwd_operands(tq, tk, tv, tseg, out, tdo, lse)[-1]
+    want = torch.sum(out.double() * tdo.double(), dim=-1)
+    assert delta.dtype == torch.float32 and delta.shape == (2, 2, 64)
+    assert float((delta.double() - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 
 def _t(*arrays):
@@ -191,8 +294,8 @@ def test_backward_rejects_what_the_kernels_do_not_take(bad):
 
 
 def test_bfloat16_gradients_on_the_cpu_use_the_plain_versions():
-    """On the card a bfloat16 backward raises (its K7/K8 are still to port);
-    on CPU tensors the Function runs the plain versions in any float type."""
+    """On CPU tensors the Function runs the plain versions in bfloat16 too
+    (on the card, K6-bf16 with its log-sum-exp and the bfloat16 K7/K8)."""
     q, k, v, do, seg = _inputs(2, 2, 32, 16, "lengths", 8)
     tq, tk, tv = (t.to(torch.bfloat16).requires_grad_() for t in _t(q, k, v))
     out = fa.flash_attention(tq, tk, tv, torch.from_numpy(seg), 0.25)
@@ -241,3 +344,46 @@ def test_backward_kernels_equal_plain_on_the_card():
     want = fa.flash_attention_bwd_plain(tq, tk, tv, tseg, out, tdo, lse, 0.125)
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= TOL
+
+
+def test_bf16_backward_kernels_have_a_source_count_launches_and_run_on_the_tensor_cores():
+    import os
+
+    from minivectordb_tpu_torch.kernels import build
+
+    assert "flash_attention_bwd_bf16" not in build.build_info
+    assert "flash_attention_bwd_bf16" in build.SOURCES
+    with open(os.path.join(build.CSRC_DIR, "flash_attention_bwd_bf16.cu"), encoding="utf-8") as f:
+        src = f.read()
+    for symbol, pointers in (("flash_attention_bwd_dkv_bf16", 9), ("flash_attention_bwd_dq_bf16", 8)):
+        assert f'extern "C" int {symbol}(' in src
+        assert fa._SOURCE[symbol] == "flash_attention_bwd_bf16"
+        assert fa.LAUNCHES[symbol] == 0 and symbol not in fa._fns
+        assert len(fa._ARGTYPES[symbol]) == pointers + 4 + 9 + 2
+    for hd in fa.HEAD_DIMS:
+        assert f"BWD_CASE({hd})" in src
+    # bf16 products on the tensor cores with float32 accumulators; P and dS
+    # rounded to bf16 in registers; no library
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    assert "ldmatrix" in src and "pack_bf16" in src
+    for word in ("cublas", "cutlass", "cudnn"):
+        assert word not in src.lower()
+
+
+@pytest.mark.cuda
+def test_bf16_backward_kernels_equal_plain_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc; chip_smoke.py runs this check")
+    q, k, v, do, seg = _inputs(2, 2, 200, 64, "lengths", 9)
+    tq, tk, tv, tdo = (t.cuda().to(torch.bfloat16) for t in _t(q, k, v, do))
+    tseg = torch.from_numpy(seg).cuda()
+    out, lse = fa.flash_attention_lse(tq, tk, tv, tseg, 0.125)
+    before = dict(fa.LAUNCHES)
+    got = fa.flash_attention_bwd(tq, tk, tv, tseg, out, tdo, lse, 0.125)
+    assert fa.LAUNCHES["flash_attention_bwd_dkv_bf16"] == before["flash_attention_bwd_dkv_bf16"] + 1
+    assert fa.LAUNCHES["flash_attention_bwd_dq_bf16"] == before["flash_attention_bwd_dq_bf16"] + 1
+    want = fa.flash_attention_bwd_plain(tq, tk, tv, tseg, out, tdo, lse, 0.125)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= BF16_MAX_TOL * scale + 2e-3

@@ -191,8 +191,9 @@ for n_b real tokens in row b; q, k, v and the output move once each. K7
 multiplies 8 * nh * hd and K8 6 * nh * hd per pair of one segment (S and dP
 again, then dV and dK, or dQ); K7 moves q, k, v, dO in and dK, dV out, K8 q, k,
 v, dO in and dQ out, with lse and delta (float32 per row) and the ids.
-"multiplied_operations" are 4 * nh * hd * (rows x keys of a tile) * the
-tiles the kernel visits (ops/flash_attention.py:visited_tiles).
+"multiplied_operations" are 4 * nh * hd (K6; K7 8, K8 6) * (rows x keys of
+a tile) * the tiles the kernel visits (ops/flash_attention.py:visited_tiles,
+the tiles from tile_shape and bwd_tile_shapes).
 """
 
 import contextlib
@@ -1998,6 +1999,19 @@ def phase_train_path_bf16(tmp: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def multiplied_work(seg, tile, per_pair, nh, hd, n_ops, ms) -> dict:
+    """What an attention kernel multiplied beside what the data needs:
+    per_pair * nh * hd operations for every (query, key) pair of each (rows x
+    keys) tile it visits (ops/flash_attention.py:visited_tiles), the rate on
+    them and the counted operations' share of them."""
+    rows, keys = tile
+    tiles = flash_ops.visited_tiles(seg, rows, keys)
+    n_mult = per_pair * nh * hd * tiles * rows * keys
+    return {"tile": [rows, keys], "multiplied_tiles_per_head": tiles,
+            "multiplied_operations": n_mult,
+            "tflops_multiplied": n_mult / (ms * 1e-3) / 1e12,
+            "counted_share_of_multiplied": n_ops / n_mult}
+
 def compare_backward(case, what) -> dict:
     """K6 with lse, K7 and K8 on one case against the plain versions, over
     every output position, pads included. Returns the largest errors."""
@@ -2102,6 +2116,10 @@ def train_kernel_rows(launches: dict) -> list:
                    "flash_attention_bwd_dq_f32",
                    "autograd backward of scaled_dot_product_attention (dq, dk, dv in one call)"),
     }
+    bwd_tiles = flash_ops.bwd_tile_shapes(torch.float32, hd)
+    tiles = {"K6-f32-lse": flash_ops.tile_shape(torch.float32, hd),
+             "K7-f32": bwd_tiles["dkv"], "K8-f32": bwd_tiles["dq"]}
+    per_pair = {"K6-f32-lse": 4, "K7-f32": 8, "K8-f32": 6}
     rows = []
     for name, (run, plain, library, n_bytes, n_ops, replaces, source, entry,
                lib_what) in kinds.items():
@@ -2134,6 +2152,7 @@ def train_kernel_rows(launches: dict) -> list:
             "bound_bytes": n_bytes,
             "bound_operations": n_ops,
             "tflops_counted": n_ops / (ms * 1e-3) / 1e12,
+            **multiplied_work(seg, tiles[name], per_pair[name], nh, hd, n_ops, ms),
             "shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths_min": min(lengths),
                       "lengths_mean": float(np.mean(lengths))},
             "small_max_abs_err": small[name],
@@ -2258,6 +2277,10 @@ def train_bf16_kernel_rows(launches: dict) -> list:
     def sdpa_forward():
         return F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)
 
+    bwd_tiles = flash_ops.bwd_tile_shapes(bf16, hd)
+    tiles = {"K6-bf16-lse": flash_ops.tile_shape(bf16, hd),
+             "K7-bf16": bwd_tiles["dkv"], "K8-bf16": bwd_tiles["dq"]}
+    per_pair = {"K6-bf16-lse": 4, "K7-bf16": 8, "K8-bf16": 6}
     rows = []
     for name, (run, n_bytes, n_ops, replaces, entry) in kinds.items():
         fwd = name == "K6-bf16-lse"
@@ -2297,6 +2320,7 @@ def train_bf16_kernel_rows(launches: dict) -> list:
             "bound_bytes": n_bytes,
             "bound_operations": n_ops,
             "tflops_counted": n_ops / (ms * 1e-3) / 1e12,
+            **multiplied_work(seg, tiles[name], per_pair[name], nh, hd, n_ops, ms),
             "shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths_min": min(lengths),
                       "lengths_mean": float(np.mean(lengths))},
             "small_max_abs_err": small[name],

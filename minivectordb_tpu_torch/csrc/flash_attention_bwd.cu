@@ -18,18 +18,24 @@
 // matrices never in device memory. delta is one torch.sum in the wrapper, as
 // the TPU code computes it in XLA outside its kernels.
 //
-// Design (the first, simple form; a Hopper redesign with wgmma and TMA is later
-// work). Tiles of T = 64 query rows and 64 keys. K7 takes one block per
-// (batch, head, key tile): K and V of its keys stay in shared memory, dK and dV
-// accumulate in registers, and it walks the query tiles, loading Q, dO, lse and
-// delta of each. K8 takes one block per (batch, head, query tile) and walks the
-// key tiles the same way, dQ in registers. Per pair of tiles a block computes
-// S = Q K^T and dP = dO V^T (thread (ty, tx) of 16 x 16 owns rows ty + 16 i and
-// keys tx + 16 j), then P and dS into shared memory (K7 stores them transposed,
-// key-major), then the products into its accumulators, each thread owning 4
-// rows (keys for K7) and float4 column groups tx + 16 c. A tile whose range of
-// segment ids [min, max] does not meet the block's own holds no pair of one
-// segment and is skipped: the rule of the forward kernel (seg_range /
+// Design. Tiles of T = 64 query rows and 64 keys. K7 takes one block per
+// (batch, head, key tile): K and V of its keys stay in shared memory, dK and
+// dV accumulate in registers, and it walks the query tiles, fetching Q, dO,
+// lse, delta and the ids of each with cp.async (zero fill past S). Its 256
+// threads form two groups that split each pair of products: group 0 computes
+// S = Q K^T, P and dV += P^T dO, group 1 dP = dO V^T, dS and dK += dS^T Q,
+// each thread an 8 x 4 tile (12 shared float4 loads per 128 FMAs; a warp is
+// 4 x 8 threads, so it reads 4 rows of one operand and 8 of the other). P^T
+// and dS^T pass through shared memory, key-major, stored without bank
+// conflicts; group 0 signals P^T to group 1 with a named barrier and goes on
+// to dV, group 1 waits only for it. P is one exp2 per pair, without a branch.
+// Two blocks an SM up to HD = 64 (105 KB of shared memory, 128 registers).
+// K8 takes one block per (batch, head, query tile) and walks the key tiles,
+// dQ in registers: S and dP on a 16 x 16 thread grid (thread (ty, tx) owns
+// rows ty + 16 i and keys tx + 16 j), dS into shared memory, then dQ, each
+// thread owning 4 rows and float4 column groups tx + 16 c. A tile whose range
+// of segment ids [min, max] does not meet the block's own holds no pair of
+// one segment and is skipped: the rule of the forward kernel (seg_range /
 // tiles_meeting in flash_attention.cu), so the real-by-pad corners of the
 // encoder's "ones, then zeros" ids cost nothing. Rows past S read as zeros and
 // are masked; only rows below S are written.
@@ -37,8 +43,10 @@
 // Work: K7 multiplies 8 * HD operations per (query, key) pair of one segment
 // (S, dP, dV, dK), K8 6 * HD (S, dP, dQ); both read their inputs a few times
 // through L2. Operations bound them on paper (about 67 TFLOP/s of float32 on
-// the card); the shared-memory reads that feed the FMAs bound this design: per
-// 4 keys of a row a thread reads 2 x 4 + 2 x 4 float4s for 128 FMAs.
+// the card). What bounds these designs is the issue of FMAs beside the
+// shared-memory loads that feed them and the steps between the products
+// (K8: per 4 keys of a row a thread reads 2 x 4 + 2 x 4 float4s for 128
+// FMAs).
 //
 // Layout: q, k, v share one set of element strides (batch, head, sequence),
 // dO has its own, the outputs share a third; the last axis is contiguous and
@@ -69,8 +77,10 @@ struct Cfg {
     static constexpr int LD = HD + 4;  // shared row stride of a Q, K, V or dO tile
     static constexpr int C4 = HD / 4;  // float4 columns of a row
     static constexpr int CG = (C4 + 15) / 16;  // float4 column groups of a thread
-    // K7: K, V, Q, dO tiles, P^T and dS^T, lse, delta and both tiles' ids
+    // K7: K, V, Q, dO tiles, P^T and dS^T, lse, delta and both tiles' ids;
+    // two blocks an SM (so at most 128 registers a thread) where they fit
     static constexpr int DKV_SMEM = (4 * T * LD + 2 * T * PLD + 2 * T) * 4 + 2 * T * 4;
+    static constexpr int DKV_MINB = 2 * (DKV_SMEM + 1024) <= 233472 ? 2 : 1;
     // K8: Q, dO, K, V tiles, dS, lse, delta and both tiles' ids
     static constexpr int DQ_SMEM = (4 * T * LD + T * PLD + 2 * T) * 4 + 2 * T * 4;
     static_assert(DKV_SMEM <= 232448 && DQ_SMEM <= 232448, "shared memory above the block limit");
@@ -124,6 +134,51 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* dl_s, int* seg_s,
 
 __device__ __forceinline__ float comp(const float4& x, int u) {
     return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 / 4 bytes global -> shared, asynchronous; zeros when !valid (src unread)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+// waits for this thread's copies; a barrier after it publishes everyone's
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows r0 .. r0 + T - 1 of one (batch, head) of a (.., S, HD) tensor whose
+// rows are ss elements apart -> a shared tile with row stride LD, by cp.async
+// (zeros past S)
+template <int HD>
+__device__ __forceinline__ void fetch_tile(float* dst, const float* __restrict__ src,
+                                           long long ss, int r0, int S) {
+    using C = Cfg<HD>;
+    for (int idx = threadIdx.x; idx < T * C::C4; idx += THREADS) {
+        const int r = idx / C::C4;
+        const int c = idx - r * C::C4;
+        const bool ok = r0 + r < S;
+        cp_async16(dst + r * C::LD + 4 * c, src + (ok ? (r0 + r) * ss + 4 * c : 0), ok);
+    }
+}
+
+// n arrays of rows r0 .. r0 + T - 1 (4-byte values: lse, delta, ids) ->
+// dst[0, T), [T, 2T), ... by cp.async (zeros past S)
+__device__ __forceinline__ void fetch_rows(void* dst, const void* const* srcs, int n, int r0,
+                                           int S) {
+    for (int i = threadIdx.x; i < n * T; i += THREADS) {
+        const int which = i / T, r = i - which * T;
+        const bool ok = r0 + r < S;
+        cp_async4(static_cast<int*>(dst) + i,
+                  static_cast<const int*>(srcs[which]) + (ok ? r0 + r : 0), ok);
+    }
 }
 
 // s = Q K^T and dp = dO V^T for rows ty + 16 i and keys tx + 16 j of the tiles
@@ -189,9 +244,21 @@ __device__ __forceinline__ void probs(const float (&s)[4][4], const float (&dp)[
     }
 }
 
-// K7: one block per (batch, head, key tile of T keys)
+// named barriers (0 is __syncthreads): n threads, whole warps
+__device__ __forceinline__ void bar_sync(int id, int n) {
+    asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+    asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
+}
+
+// K7: one block per (batch, head, key tile of T keys). Its 256 threads form
+// two groups of 128: group 0 computes S = Q K^T, P and dV += P^T dO, group 1
+// dP = dO V^T, dS and dK += dS^T Q. A thread holds 8 rows x 4 keys of S or
+// dP (rows ra + 8 i, keys ka + 16 j), then 8 keys x CG float4 column groups
+// of dV or dK (keys kb + 8 i, columns 4 (cb + 16 g)).
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Cfg<HD>::DKV_MINB)
 bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
@@ -212,7 +279,17 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     int* segq_s = reinterpret_cast<int*>(dl_s + T);
     int* segk_s = segq_s + T;
 
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+    // Each warp is 4 x 8 threads of its group's product: its loads of the
+    // row-major operand touch 4 rows, those of the key-major one 8 keys, and
+    // its P^T / dS^T stores fall on 32 different banks (PLD = 4 mod 32).
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int grp = tid >> 7;  // 0: S, P, dV; 1: dP, dS, dK
+    const int w = (tid >> 5) & 3;
+    const int ra = (lane >> 3) + 4 * (w & 1);  // S, dP: rows ra + 8 i
+    const int ka = (lane & 7) + 8 * (w >> 1);  // and keys ka + 16 j
+    const int kb = ra;                         // dV, dK: keys kb + 8 i
+    const int cb = ka;                         // and float4 columns cb + 16 g
+
     const int ntiles = (S + T - 1) / T;
     const int bh = blockIdx.x / ntiles;
     const int n0 = (blockIdx.x - bh * ntiles) * T;
@@ -224,98 +301,148 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* lseb = lse + (size_t)bh * S;
     const float* deltab = delta + (size_t)bh * S;
 
-    load_tile<HD>(Ks, k + in_off, in.s, n0, S);
-    load_tile<HD>(Vs, v + in_off, in.s, n0, S);
-    for (int r = tid; r < T; r += THREADS) segk_s[r] = n0 + r < S ? segb[n0 + r] : 0;
+    fetch_tile<HD>(Ks, k + in_off, in.s, n0, S);
+    fetch_tile<HD>(Vs, v + in_off, in.s, n0, S);
+    const void* rows[3] = {lseb, deltab, segb};  // -> lse_s, dl_s, segq_s
+    fetch_rows(segk_s, rows + 2, 1, n0, S);
     int klo, khi;
     seg_range(segb, n0, S, klo, khi);
 
-    float adk[4][CG][4], adv[4][CG][4];
+    float acc[8][CG][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int c = 0; c < CG; ++c)
+        for (int g = 0; g < CG; ++g)
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                adk[i][c][e] = 0.f;
-                adv[i][c][e] = 0.f;
-            }
+            for (int e = 0; e < 4; ++e) acc[i][g][e] = 0.f;
 
     for (int m0 = 0; m0 < S; m0 += T) {
         int qlo, qhi;
         seg_range(segb, m0, S, qlo, qhi);
         if (qhi < klo || qlo > khi) continue;  // the same answer in every warp
-        __syncthreads();  // the previous tile's reads of Q, dO, P^T, dS^T are done
-        load_tile<HD>(Qs, qb, in.s, m0, S);
-        load_tile<HD>(dOs, dob, dos.s, m0, S);
-        load_rows(lse_s, dl_s, segq_s, lseb, deltab, segb, m0, S);
+        __syncthreads();  // the last tile's reads of Q, dO, P^T, dS^T are done
+        fetch_tile<HD>(Qs, qb, in.s, m0, S);
+        fetch_tile<HD>(dOs, dob, dos.s, m0, S);
+        fetch_rows(lse_s, rows, 3, m0, S);
+        cp_async_wait_all();
         __syncthreads();
 
-        float s[4][4], dp[4][4], p[4][4], ds[4][4];
-        scores<HD>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
-        probs(s, dp, lse_s, dl_s, segq_s, segk_s, m0, n0, S, scale, tx, ty, p, ds);
+        // group 0: s = Q K^T, group 1: s = dO V^T
+        {
+            const float* X = grp == 0 ? Qs : dOs;
+            const float* Y = grp == 0 ? Ks : Vs;
+            float s[8][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                Pt[(tx + 16 * j) * PLD + ty + 16 * i] = p[i][j];
-                dSt[(tx + 16 * j) * PLD + ty + 16 * i] = ds[i][j];
-            }
-        __syncthreads();
-
-        // dV[key] += sum_r P[r, key] dO[r], dK[key] += sum_r dS[r, key] Q[r]
-        // for keys ty + 16 i and this thread's column groups
-#pragma unroll 2
-        for (int r = 0; r < T; r += 4) {
-            float4 pv[4], sv[4];
+                for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+            for (int kk = 0; kk < HD; kk += 4) {
+                float4 y[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                pv[i] = *reinterpret_cast<const float4*>(&Pt[(ty + 16 * i) * PLD + r]);
-                sv[i] = *reinterpret_cast<const float4*>(&dSt[(ty + 16 * i) * PLD + r]);
-            }
+                for (int j = 0; j < 4; ++j)
+                    y[j] = *reinterpret_cast<const float4*>(&Y[(ka + 16 * j) * LD + kk]);
 #pragma unroll
-            for (int u = 0; u < 4; ++u)
+                for (int i = 0; i < 8; ++i) {
+                    const float4 x = *reinterpret_cast<const float4*>(&X[(ra + 8 * i) * LD + kk]);
 #pragma unroll
-                for (int c = 0; c < CG; ++c) {
-                    const int col = 4 * (tx + 16 * c);
-                    if (col >= HD) continue;
-                    const float4 o = *reinterpret_cast<const float4*>(&dOs[(r + u) * LD + col]);
-                    const float4 x = *reinterpret_cast<const float4*>(&Qs[(r + u) * LD + col]);
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        const float pu = comp(pv[i], u), su = comp(sv[i], u);
-                        adv[i][c][0] = fmaf(pu, o.x, adv[i][c][0]);
-                        adv[i][c][1] = fmaf(pu, o.y, adv[i][c][1]);
-                        adv[i][c][2] = fmaf(pu, o.z, adv[i][c][2]);
-                        adv[i][c][3] = fmaf(pu, o.w, adv[i][c][3]);
-                        adk[i][c][0] = fmaf(su, x.x, adk[i][c][0]);
-                        adk[i][c][1] = fmaf(su, x.y, adk[i][c][1]);
-                        adk[i][c][2] = fmaf(su, x.z, adk[i][c][2]);
-                        adk[i][c][3] = fmaf(su, x.w, adk[i][c][3]);
+                    for (int j = 0; j < 4; ++j) {
+                        s[i][j] = fmaf(x.x, y[j].x, s[i][j]);
+                        s[i][j] = fmaf(x.y, y[j].y, s[i][j]);
+                        s[i][j] = fmaf(x.z, y[j].z, s[i][j]);
+                        s[i][j] = fmaf(x.w, y[j].w, s[i][j]);
                     }
                 }
+            }
+            if (grp == 0) {
+                const float scale2 = scale * 1.44269504088896341f;
+                // P (0 where the segments differ or the row or key lies past S)
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int row = ra + 8 * i;
+                    const bool rok = m0 + row < S;
+                    const float lrow = lse_s[row] * 1.44269504088896341f;
+                    const int sq = segq_s[row];
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const int key = ka + 16 * j;
+                        const bool vis = rok && n0 + key < S && segk_s[key] == sq;
+                        const float e = exp2f(fmaf(s[i][j], scale2, -lrow));
+                        Pt[key * PLD + row] = __int_as_float(__float_as_int(e) & -int(vis));
+                    }
+                }
+                bar_arrive(1, THREADS);  // P^T is in for group 1 ...
+                bar_sync(2, THREADS / 2);  // ... and for this group's dV
+            } else {
+                bar_sync(1, THREADS);
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int row = ra + 8 * i;
+                    const float drow = dl_s[row];
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const int at = (ka + 16 * j) * PLD + row;
+                        dSt[at] = Pt[at] * (s[i][j] - drow);
+                    }
+                }
+                bar_sync(3, THREADS / 2);  // dS^T is in for this group's dK
+            }
+        }
+
+        // group 0: dV[key] += sum_r P[r, key] dO[r]; group 1: dK[key] +=
+        // sum_r dS[r, key] Q[r]; keys kb + 8 i, this thread's column groups
+        {
+            const float* A = grp == 0 ? Pt : dSt;
+            const float* X = grp == 0 ? dOs : Qs;
+#pragma unroll 1
+            for (int r = 0; r < T; r += 4) {
+                float4 a[8];
+#pragma unroll
+                for (int i = 0; i < 8; ++i)
+                    a[i] = *reinterpret_cast<const float4*>(&A[(kb + 8 * i) * PLD + r]);
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+#pragma unroll
+                    for (int g = 0; g < CG; ++g) {
+                        const int col = 4 * (cb + 16 * g);
+                        if (col >= HD) continue;
+                        const float4 x = *reinterpret_cast<const float4*>(&X[(r + u) * LD + col]);
+#pragma unroll
+                        for (int i = 0; i < 8; ++i) {
+                            const float au = comp(a[i], u);
+                            acc[i][g][0] = fmaf(au, x.x, acc[i][g][0]);
+                            acc[i][g][1] = fmaf(au, x.y, acc[i][g][1]);
+                            acc[i][g][2] = fmaf(au, x.z, acc[i][g][2]);
+                            acc[i][g][3] = fmaf(au, x.w, acc[i][g][3]);
+                        }
+                    }
+            }
         }
     }
 
+    // group 0 writes dV, group 1 dK (times scale)
     const size_t out_off = (size_t)b * os.b + (size_t)h * os.h;
+    float* outb = (grp == 0 ? dv : dk) + out_off;
+    const float mul = grp == 0 ? 1.f : scale;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int key = n0 + ty + 16 * i;
+    for (int i = 0; i < 8; ++i) {
+        const int key = n0 + kb + 8 * i;
         if (key >= S) continue;
-        float* dkr = dk + out_off + (size_t)key * os.s;
-        float* dvr = dv + out_off + (size_t)key * os.s;
+        float* r = outb + (size_t)key * os.s;
 #pragma unroll
-        for (int c = 0; c < CG; ++c) {
-            const int col = 4 * (tx + 16 * c);
+        for (int g = 0; g < CG; ++g) {
+            const int col = 4 * (cb + 16 * g);
             if (col >= HD) continue;
-            *reinterpret_cast<float4*>(dvr + col) =
-                make_float4(adv[i][c][0], adv[i][c][1], adv[i][c][2], adv[i][c][3]);
-            *reinterpret_cast<float4*>(dkr + col) =
-                make_float4(adk[i][c][0] * scale, adk[i][c][1] * scale, adk[i][c][2] * scale,
-                            adk[i][c][3] * scale);
+            *reinterpret_cast<float4*>(r + col) =
+                make_float4(acc[i][g][0] * mul, acc[i][g][1] * mul, acc[i][g][2] * mul,
+                            acc[i][g][3] * mul);
         }
     }
 }
+
+// ---------------------------------------------------------------------------
+// K8
+// ---------------------------------------------------------------------------
 
 // K8: one block per (batch, head, query tile of T rows)
 template <int HD>

@@ -268,6 +268,17 @@ def tile_shape(dtype, hd: int) -> tuple[int, int]:
     return (64 if hd == 128 else 128), 64
 
 
+def bwd_tile_shapes(dtype, hd: int) -> dict:
+    """{"dkv": (query rows, keys), "dq": (query rows, keys)}: the tile on
+    which K7 and K8 serving (dtype, hd) decide to skip or multiply. float32
+    (csrc/flash_attention_bwd.cu: T): 64 x 64 for both. bfloat16
+    (csrc/flash_attention_bwd_bf16.cu: BT, Cfg::W): K7 W x 64, K8 64 x W, with
+    W = 64 up to hd = 64, else 32."""
+    if dtype == torch.bfloat16:
+        w = 64 if hd <= 64 else 32
+        return {"dkv": (w, 64), "dq": (64, w)}
+    return {"dkv": (64, 64), "dq": (64, 64)}
+
 def visited_tiles(segment_ids, rows: int, keys: int) -> int:
     """How many (batch row, query tile, key tile) blocks of the (S, S) logits
     the kernels multiply, per head: those whose ranges of segment ids [min,

@@ -10,6 +10,9 @@
         [--against OTHER/flash_attention.cu]
     python -m minivectordb_tpu_torch.profile_search --phase1
         [--against OTHER/phase1.cu]
+    python -m minivectordb_tpu_torch.profile_search --backward
+        [--dtype float32|bfloat16] [--batch 16]
+        [--against OTHER/flash_attention_bwd.cu | OTHER/flash_attention_bwd_bf16.cu]
     python -m minivectordb_tpu_torch.profile_search --train [--batch 8]
         [--seq 512] [--dtype float32|bfloat16]
 
@@ -57,6 +60,17 @@ the flat search's shape (C = 1,048,576, d = 384, B = 256, count = 1,000,000;
 ``--rows``/``--dim``/``--batch`` change it), without and with a mask, the
 same way: each held against its plain version, and with ``--against`` another
 phase1.cu (same C interface, e.g. the parent commit's) in turns with this one.
+
+With ``--backward`` it times the backward kernels K7 (dK, dV) and K8 (dQ)
+alone, in ``--dtype``, at the training step's shape (16 heads of 64, S = 512,
+the encoder's (B, S, nh, hd) memory; ragged lengths, q, k, v and dO seeded as
+chip_smoke.py seeds its training rows) for B = 16 and B = 8 (a step's
+launch), or ``--batch`` alone: each held against the plain backward, then the
+median of single launches and the mean of 20 back-to-back launches, by CUDA
+events. Both this source and ``--against`` (another csrc/flash_attention_bwd.cu,
+or flash_attention_bwd_bf16.cu for bfloat16, with the same C interface) are
+called the same way, straight through their C entry points, in turns (other,
+this, this, other).
 
 With ``--train`` it times one contrastive training step (models/train.py) at
 the e5-large widths, in ``--dtype`` (float32, or bfloat16: weights,
@@ -598,6 +612,75 @@ def profile_attention(against: str | None, seed: int, reps: int) -> list:
     return rows
 
 
+def profile_backward(against: str | None, dtype: str, batches: list, seed: int,
+                     reps: int) -> list:
+    dev = torch.device("cuda", torch.cuda.current_device())
+    nh, s, hd = 16, 512, 64
+    kind = "f32" if dtype == "float32" else "bf16"
+    names = {"K7": f"flash_attention_bwd_dkv_{kind}", "K8": f"flash_attention_bwd_dq_{kind}"}
+    other = None
+    if against:
+        other = _load_other(against, flash_ops._SOURCE[names["K7"]],
+                            {n: flash_ops._ARGTYPES[n] for n in names.values()})
+    scale = 1.0 / float(np.sqrt(hd))
+    rows = []
+    for b in batches:
+        # chip_smoke.py's training rows: seeded_lengths(b, s, 200, SEED + 87),
+        # attention_case(..., SEED + 88), dO from SEED + 89
+        rng = np.random.default_rng(seed + 87)
+        lengths = rng.integers(200, s + 1, size=b)
+        lengths[0] = s
+        seg = torch.as_tensor((np.arange(s)[None, :] < lengths[:, None]).astype(np.int32),
+                              device=dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 88)
+        q, k, v = (torch.randn((b, s, nh * hd), device=dev, generator=gen)
+                   .to(getattr(torch, dtype)).view(b, s, nh, hd).transpose(1, 2)
+                   for _ in range(3))
+        gen.manual_seed(seed + 89)
+        dout = torch.randn(q.shape, device=dev, generator=gen).to(q.dtype)
+        out, lse = flash_ops.flash_attention_lse(q, k, v, seg, scale)
+        ops = flash_ops._bwd_operands(q, k, v, seg, out, dout, lse)
+        want = flash_ops.flash_attention_bwd_plain(q, k, v, seg, out, dout, lse, scale)
+        want = {"K7": want[1:], "K8": want[:1]}
+        qo, ko, vo, sego, doo, lseo, deltao = ops
+
+        def bare(fn, name, n_out):
+            def call():
+                grads = [torch.empty_like(qo) for _ in range(n_out)]
+                err = fn(qo.data_ptr(), ko.data_ptr(), vo.data_ptr(), doo.data_ptr(),
+                         lseo.data_ptr(), deltao.data_ptr(), sego.data_ptr(),
+                         *(g.data_ptr() for g in grads), b, nh, s, hd, *qo.stride()[:3],
+                         *doo.stride()[:3], *grads[0].stride()[:3], scale,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name}: cudaError {err}")
+                return grads
+            return call
+
+        def err_vs_plain(fn, kernel):
+            return max(float((g.float() - w.float()).abs().max())
+                       for g, w in zip(fn(), want[kernel]))
+
+        for kernel, name in names.items():
+            n_out = 2 if kernel == "K7" else 1
+            this = bare(flash_ops._kernel_fn(name), name, n_out)
+            row = {"kernel": f"{kernel}-{kind}", "shape": [b, nh, s, hd],
+                   "lengths_min": int(lengths.min()),
+                   "lengths_mean": float(lengths.mean()),
+                   "max_abs_err_vs_plain": err_vs_plain(this, kernel)}
+            that = None
+            if other is not None:
+                that = bare(getattr(other, name), name, n_out)
+                row["other"] = against
+                row["other_max_abs_err_vs_plain"] = err_vs_plain(that, kernel)
+            _in_turns(row, this, that, reps)
+            rows.append(row)
+        del q, k, v, dout, out, lse, ops, want, qo, ko, vo, doo, lseo, deltao
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase1_operands(c: int, d: int, b: int, seed: int):
     """Seeded operands of the phase-1 kernels on the card, as a search makes
     them: a standard normal corpus in float32, as a bf16 shadow and as int8
@@ -718,14 +801,18 @@ def main() -> None:
                     help="time the attention kernel K6 alone at the embed call's shape")
     ap.add_argument("--phase1", action="store_true",
                     help="time the phase-1 kernels K1-bf16 and K2 alone at the search's shape")
+    ap.add_argument("--backward", action="store_true",
+                    help="time the backward kernels K7 and K8 alone at the training shape")
     ap.add_argument("--train", action="store_true",
                     help="time one training step at the e5-large widths, stage by stage")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                    help="with --train: the encoder's type")
+                    help="with --train / --backward: the encoder's type")
     ap.add_argument("--against", default=None,
-                    help="with --attention / --phase1: another flash_attention.cu / "
-                         "phase1.cu to time in turns")
+                    help="with --attention / --phase1 / --backward: another "
+                         "flash_attention.cu / phase1.cu / flash_attention_bwd[_bf16].cu "
+                         "to time in turns")
     args = ap.parse_args()
+    batch_given = args.batch is not None
     if args.batch is None:
         args.batch = 32 if args.embed else 8 if args.train else 256
     if not torch.cuda.is_available():
@@ -742,6 +829,12 @@ def main() -> None:
     if args.phase1:
         for res in profile_phase1(args.against, args.rows, args.dim, args.batch,
                                   args.seed, args.reps):
+            res["card"] = smi
+            print(json.dumps(res), flush=True)
+        return
+    if args.backward:
+        batches = [args.batch] if batch_given else [16, 8]
+        for res in profile_backward(args.against, args.dtype, batches, args.seed, args.reps):
             res["card"] = smi
             print(json.dumps(res), flush=True)
         return

@@ -333,6 +333,82 @@ def test_backward_kernels_have_a_source_count_launches_and_build_nothing_at_impo
         build.load_library("not_a_source")
 
 
+
+def _bwd_tile_consts():
+    """The tile constants of the two backward sources: float32 T, bfloat16 BT
+    and the rule for W (W = HD <= a ? b : c)."""
+    import os
+    import re
+
+    from minivectordb_tpu_torch.kernels import build
+
+    def read(name):
+        with open(os.path.join(build.CSRC_DIR, name + ".cu"), encoding="utf-8") as f:
+            return f.read()
+
+    f32, bf16 = read("flash_attention_bwd"), read("flash_attention_bwd_bf16")
+    t = int(re.search(r"constexpr int T = (\d+);", f32).group(1))
+    bt = int(re.search(r"constexpr int BT = (\d+);", bf16).group(1))
+    w = [int(x) for x in re.search(
+        r"constexpr int W = HD <= (\d+) \? (\d+) : (\d+);", bf16).groups()]
+    return t, bt, w
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_bwd_tile_shapes_match_the_kernels(hd):
+    """What chip_smoke.py multiplies out for K7 / K8: the tiles on which each
+    backward kernel decides to skip or multiply, read from the sources."""
+    t, bt, (w_upto, w_then, w_else) = _bwd_tile_consts()
+    assert fa.bwd_tile_shapes(torch.float32, hd) == {"dkv": (t, t), "dq": (t, t)}
+    assert t == bt == 64
+    w = w_then if hd <= w_upto else w_else
+    assert fa.bwd_tile_shapes(torch.bfloat16, hd) == {"dkv": (w, bt), "dq": (bt, w)}
+
+
+@pytest.mark.parametrize("pattern", ["lengths", "packed", "cyclic"])
+@pytest.mark.parametrize("s", [200, 512])
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_visited_tiles_at_the_backward_tiles(hd, s, pattern):
+    """visited_tiles at each backward tile against the skipping rule walked
+    tile by tile, and never below the tiles that hold a pair of one segment."""
+    seg = _inputs(4, 1, s, 16, pattern, 6000 + s + hd)[4]
+    shapes = {(d, name): shape for d in (torch.float32, torch.bfloat16)
+              for name, shape in fa.bwd_tile_shapes(d, hd).items()}
+    for what, (rows, keys) in shapes.items():
+        loops = pairs = 0
+        for row in range(seg.shape[0]):
+            for m0 in range(0, s, rows):
+                qt = seg[row, m0:m0 + rows]
+                for n0 in range(0, s, keys):
+                    kt = seg[row, n0:n0 + keys]
+                    loops += not (kt.max() < qt.min() or kt.min() > qt.max())
+                    pairs += bool(np.intersect1d(qt, kt).size)
+        got = fa.visited_tiles(torch.from_numpy(seg), rows, keys)
+        assert got == loops, what
+        assert pairs <= got <= seg.shape[0] * -(-s // rows) * -(-s // keys), what
+
+
+def test_profile_search_backward_parses_and_needs_a_card():
+    """``profile_search --backward`` takes its options and stops without a
+    CUDA device: it has no CPU fallback."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+
+    def run(*args):
+        return subprocess.run([sys.executable, "-m", "minivectordb_tpu_torch.profile_search",
+                               *args], cwd=root, env=env, capture_output=True, text=True,
+                              timeout=120)
+
+    res = run("--backward", "--dtype", "bfloat16", "--batch", "8",
+              "--against", "OTHER/flash_attention_bwd_bf16.cu")
+    assert res.returncode != 0 and "needs a CUDA device" in res.stderr, res.stderr
+    bad = run("--backward", "--dtype", "float16")
+    assert bad.returncode == 2 and "invalid choice" in bad.stderr, bad.stderr
+
 @pytest.mark.cuda
 def test_backward_kernels_equal_plain_on_the_card():
     if not torch.cuda.is_available():

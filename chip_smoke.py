@@ -1196,6 +1196,20 @@ def seeded_lengths(b, s, lo, seed):
     return lens.tolist()
 
 
+def multiplied_work(seg, tile, per_pair, nh, hd, n_ops, ms) -> dict:
+    """What an attention kernel multiplied beside what the data needs:
+    per_pair * nh * hd operations for every (query, key) pair of each (rows x
+    keys) tile it visits (ops/flash_attention.py:visited_tiles), the rate on
+    them and the counted operations' share of them."""
+    rows, keys = tile
+    tiles = flash_ops.visited_tiles(seg, rows, keys)
+    n_mult = per_pair * nh * hd * tiles * rows * keys
+    return {"tile": [rows, keys], "multiplied_tiles_per_head": tiles,
+            "multiplied_operations": n_mult,
+            "tflops_multiplied": n_mult / (ms * 1e-3) / 1e12,
+            "counted_share_of_multiplied": n_ops / n_mult}
+
+
 def encoder_kernel_rows(launches: dict) -> list:
     dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
     # small and ragged shapes first: a fault shows early
@@ -1263,11 +1277,6 @@ def encoder_kernel_rows(launches: dict) -> list:
         item = q.element_size()
         n_bytes = 4 * b * nh * s * hd * item + b * s * 4
         n_ops = 4 * nh * hd * pairs
-        # what the kernel multiplies: whole (query rows x keys) tiles whose
-        # segment ids meet (ops/flash_attention.py:visited_tiles)
-        tile_rows, tile_keys = flash_ops.tile_shape(dtype, hd)
-        tiles = flash_ops.visited_tiles(seg, tile_rows, tile_keys)
-        n_mult = 4 * nh * hd * tiles * tile_rows * tile_keys
         t_bytes = n_bytes / PEAK_BYTES_S * 1e3
         t_ops = n_ops / PEAK_OPS_S[kind] * 1e3
         ms = statistics.median([ms_a, ms_b])
@@ -1291,11 +1300,8 @@ def encoder_kernel_rows(launches: dict) -> list:
             "library_max_abs_err_vs_plain": lib_err,
             "bound_bytes": n_bytes,
             "bound_operations": n_ops,
-            "multiplied_operations": n_mult,
-            "multiplied_tiles_per_head": tiles,
-            "tile": [tile_rows, tile_keys],
             "tflops_counted": n_ops / (ms * 1e-3) / 1e12,
-            "tflops_multiplied": n_mult / (ms * 1e-3) / 1e12,
+            **multiplied_work(seg, flash_ops.tile_shape(dtype, hd), 4, nh, hd, n_ops, ms),
             "dense_operations": 4 * b * nh * s * s * hd,
             "dense_tflops": 4 * b * nh * s * s * hd / (ms * 1e-3) / 1e12,
             "shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths_min": min(lengths),
@@ -1998,19 +2004,6 @@ def phase_train_path_bf16(tmp: str) -> dict:
 # K6 with lse, K7, K8: against their plain versions
 # ---------------------------------------------------------------------------
 
-
-def multiplied_work(seg, tile, per_pair, nh, hd, n_ops, ms) -> dict:
-    """What an attention kernel multiplied beside what the data needs:
-    per_pair * nh * hd operations for every (query, key) pair of each (rows x
-    keys) tile it visits (ops/flash_attention.py:visited_tiles), the rate on
-    them and the counted operations' share of them."""
-    rows, keys = tile
-    tiles = flash_ops.visited_tiles(seg, rows, keys)
-    n_mult = per_pair * nh * hd * tiles * rows * keys
-    return {"tile": [rows, keys], "multiplied_tiles_per_head": tiles,
-            "multiplied_operations": n_mult,
-            "tflops_multiplied": n_mult / (ms * 1e-3) / 1e12,
-            "counted_share_of_multiplied": n_ops / n_mult}
 
 def compare_backward(case, what) -> dict:
     """K6 with lse, K7 and K8 on one case against the plain versions, over

@@ -43,7 +43,7 @@
 // Work: K7 multiplies 8 * HD operations per (query, key) pair of one segment
 // (S, dP, dV, dK), K8 6 * HD (S, dP, dQ); both read their inputs a few times
 // through L2. Operations bound them on paper (about 67 TFLOP/s of float32 on
-// the card). What bounds these designs is the issue of FMAs beside the
+// the card). What bounds these designs is the dispatch of FMAs beside the
 // shared-memory loads that feed them and the steps between the products
 // (K8: per 4 keys of a row a thread reads 2 x 4 + 2 x 4 float4s for 128
 // FMAs).
@@ -136,51 +136,6 @@ __device__ __forceinline__ float comp(const float4& x, int u) {
     return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 / 4 bytes global -> shared, asynchronous; zeros when !valid (src unread)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-// waits for this thread's copies; a barrier after it publishes everyone's
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows r0 .. r0 + T - 1 of one (batch, head) of a (.., S, HD) tensor whose
-// rows are ss elements apart -> a shared tile with row stride LD, by cp.async
-// (zeros past S)
-template <int HD>
-__device__ __forceinline__ void fetch_tile(float* dst, const float* __restrict__ src,
-                                           long long ss, int r0, int S) {
-    using C = Cfg<HD>;
-    for (int idx = threadIdx.x; idx < T * C::C4; idx += THREADS) {
-        const int r = idx / C::C4;
-        const int c = idx - r * C::C4;
-        const bool ok = r0 + r < S;
-        cp_async16(dst + r * C::LD + 4 * c, src + (ok ? (r0 + r) * ss + 4 * c : 0), ok);
-    }
-}
-
-// n arrays of rows r0 .. r0 + T - 1 (4-byte values: lse, delta, ids) ->
-// dst[0, T), [T, 2T), ... by cp.async (zeros past S)
-__device__ __forceinline__ void fetch_rows(void* dst, const void* const* srcs, int n, int r0,
-                                           int S) {
-    for (int i = threadIdx.x; i < n * T; i += THREADS) {
-        const int which = i / T, r = i - which * T;
-        const bool ok = r0 + r < S;
-        cp_async4(static_cast<int*>(dst) + i,
-                  static_cast<const int*>(srcs[which]) + (ok ? r0 + r : 0), ok);
-    }
-}
-
 // s = Q K^T and dp = dO V^T for rows ty + 16 i and keys tx + 16 j of the tiles
 template <int HD>
 __device__ __forceinline__ void scores(const float* Qs, const float* dOs, const float* Ks,
@@ -244,6 +199,58 @@ __device__ __forceinline__ void probs(const float (&s)[4][4], const float (&dp)[
     }
 }
 
+// ---------------------------------------------------------------------------
+// K7
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 / 4 bytes global -> shared, asynchronous; zeros when !valid (src unread)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+// waits for this thread's copies; a barrier after it publishes everyone's
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows r0 .. r0 + T - 1 of one (batch, head) of a (.., S, HD) tensor whose
+// rows are ss elements apart -> a shared tile with row stride LD, by cp.async
+// (zeros past S)
+template <int HD>
+__device__ __forceinline__ void fetch_tile(float* dst, const float* __restrict__ src,
+                                           long long ss, int r0, int S) {
+    using C = Cfg<HD>;
+    for (int idx = threadIdx.x; idx < T * C::C4; idx += THREADS) {
+        const int r = idx / C::C4;
+        const int c = idx - r * C::C4;
+        const bool ok = r0 + r < S;
+        cp_async16(dst + r * C::LD + 4 * c, src + (ok ? (r0 + r) * ss + 4 * c : 0), ok);
+    }
+}
+
+// lse, delta and ids of rows r0 .. r0 + T - 1 -> rows[0, T), [T, 2T),
+// [2T, 3T) by cp.async, one value a thread (zeros past S)
+__device__ __forceinline__ void fetch_rows(float* rows, const float* __restrict__ lseb,
+                                           const float* __restrict__ deltab,
+                                           const int* __restrict__ segb, int r0, int S) {
+    static_assert(THREADS >= 3 * T, "one value a thread");
+    const int i = threadIdx.x, which = i / T, r = i - which * T;
+    if (which > 2) return;
+    const bool ok = r0 + r < S;
+    const int at = ok ? r0 + r : 0;
+    cp_async4(rows + i, which == 0 ? static_cast<const void*>(lseb + at)
+                        : which == 1 ? static_cast<const void*>(deltab + at)
+                                     : static_cast<const void*>(segb + at), ok);
+}
+
 // named barriers (0 is __syncthreads): n threads, whole warps
 __device__ __forceinline__ void bar_sync(int id, int n) {
     asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
@@ -303,8 +310,7 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     fetch_tile<HD>(Ks, k + in_off, in.s, n0, S);
     fetch_tile<HD>(Vs, v + in_off, in.s, n0, S);
-    const void* rows[3] = {lseb, deltab, segb};  // -> lse_s, dl_s, segq_s
-    fetch_rows(segk_s, rows + 2, 1, n0, S);
+    if (tid < T) cp_async4(segk_s + tid, segb + (n0 + tid < S ? n0 + tid : 0), n0 + tid < S);
     int klo, khi;
     seg_range(segb, n0, S, klo, khi);
 
@@ -323,7 +329,7 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         __syncthreads();  // the last tile's reads of Q, dO, P^T, dS^T are done
         fetch_tile<HD>(Qs, qb, in.s, m0, S);
         fetch_tile<HD>(dOs, dob, dos.s, m0, S);
-        fetch_rows(lse_s, rows, 3, m0, S);
+        fetch_rows(lse_s, lseb, deltab, segb, m0, S);  // lse_s, dl_s, segq_s
         cp_async_wait_all();
         __syncthreads();
 

@@ -279,6 +279,7 @@ def bwd_tile_shapes(dtype, hd: int) -> dict:
         return {"dkv": (w, 64), "dq": (64, w)}
     return {"dkv": (64, 64), "dq": (64, 64)}
 
+
 def visited_tiles(segment_ids, rows: int, keys: int) -> int:
     """How many (batch row, query tile, key tile) blocks of the (S, S) logits
     the kernels multiply, per head: those whose ranges of segment ids [min,

@@ -102,7 +102,9 @@ Phases (one JSON object per output line):
              and the TFLOP/s of each; and K6-f32 with its log-sum-exp, K7 and
              K8 at the training step's shape (B = 16, nh = 16, S = 512,
              hd = 64, ragged lengths), after S = 256 at every head width, S =
-             200 / 129 / 1 and the packed and cyclic ids (there the bf16
+             200 / 129 / 1, S = 333 and 384 at hd = 16, 48, 80 and 128 with
+             ragged lengths (K8's ragged last tile and partial column
+             groups) and the packed and cyclic ids (there the bf16
              forward's log-sum-exp is held too), beside SDPA's forward and
              its autograd backward (dq, dk, dv in one call: compare it with
              K7 + K8); and K6-bf16 with its log-sum-exp and the bfloat16 K7
@@ -2042,8 +2044,10 @@ def compare_backward(case, what) -> dict:
 def train_kernel_rows(launches: dict) -> list:
     """K6-f32 with lse, K7 and K8 at the training step's shape (B = 16, nh =
     16, S = 512, hd = 64, ragged lengths; the encoder's (B, S, nh, hd) memory),
-    after S = 256 at every head width, S = 200 / 129 / 1 and the packed and
-    cyclic ids. ``launches`` are the e5-large training path's."""
+    after S = 256 at every head width, S = 200 / 129 / 1, S = 333 and 384 at
+    hd = 16, 48, 80 and 128 (ragged last tiles; hd = 48 and 80 leave a
+    thread's float4 column groups partly idle) and the packed and cyclic ids.
+    ``launches`` are the e5-large training path's."""
     small = {}
 
     def held(case, what):
@@ -2057,6 +2061,11 @@ def train_kernel_rows(launches: dict) -> list:
     held(attention_case(4, 4, 129, 64, torch.float32, seeded_lengths(4, 129, 1, SEED + 82),
                         SEED + 83), "bwd S=129")
     held(attention_case(3, 2, 1, 64, torch.float32, [1, 1, 0], SEED + 84), "bwd S=1")
+    for s in (333, 384):
+        for hd in (16, 48, 80, 128):
+            held(attention_case(4, 4, s, hd, torch.float32,
+                                seeded_lengths(4, s, 1, SEED + 300 + s + hd), SEED + 301 + s + hd),
+                 f"bwd S={s} hd={hd}")
     for name, ids in segment_patterns(4, 512, SEED + 85).items():
         held(attention_case(4, 4, 512, 64, torch.float32, ids, SEED + 86), f"bwd {name} ids")
 

@@ -31,22 +31,29 @@
 // to dV, group 1 waits only for it. P is one exp2 per pair, without a branch.
 // Two blocks an SM up to HD = 64 (105 KB of shared memory, 128 registers).
 // K8 takes one block per (batch, head, query tile) and walks the key tiles,
-// dQ in registers: S and dP on a 16 x 16 thread grid (thread (ty, tx) owns
-// rows ty + 16 i and keys tx + 16 j), dS into shared memory, then dQ, each
-// thread owning 4 rows and float4 column groups tx + 16 c. A tile whose range
-// of segment ids [min, max] does not meet the block's own holds no pair of
-// one segment and is skipped: the rule of the forward kernel (seg_range /
-// tiles_meeting in flash_attention.cu), so the real-by-pad corners of the
-// encoder's "ones, then zeros" ids cost nothing. Rows past S read as zeros and
-// are masked; only rows below S are written.
+// dQ in registers. Its two groups split S and dP the same way (group 0 S and
+// P, group 1 dP and dS, 8 x 4 tiles a thread, a warp 8 rows x 4 keys), P and
+// dS passing through one row-major tile whose stores miss no bank; then all
+// 256 threads compute dQ += dS K on a 16 x 16 grid, each thread 4 rows and
+// float4 column groups tx + 16 c, over the keys in ascending order. K is
+// double-buffered and V refilled in place, by cp.async behind the products:
+// group 0 fetches the next visited tile's K once its P is in, group 1 the
+// next V once its own reads of V are done, so a key tile costs two block-wide
+// barriers and one named one. Two blocks an SM up to HD = 64 (106 KB, 128
+// registers). In both kernels a tile whose range of segment ids [min, max]
+// does not meet the block's own holds no pair of one segment and is skipped:
+// the rule of the forward kernel (seg_range / tiles_meeting in
+// flash_attention.cu), so the real-by-pad corners of the encoder's "ones, then
+// zeros" ids cost nothing. Rows past S read as zeros and are masked; only rows
+// below S are written.
 //
 // Work: K7 multiplies 8 * HD operations per (query, key) pair of one segment
 // (S, dP, dV, dK), K8 6 * HD (S, dP, dQ); both read their inputs a few times
 // through L2. Operations bound them on paper (about 67 TFLOP/s of float32 on
 // the card). What bounds these designs is the dispatch of FMAs beside the
 // shared-memory loads that feed them and the steps between the products
-// (K8: per 4 keys of a row a thread reads 2 x 4 + 2 x 4 float4s for 128
-// FMAs).
+// (per 4-wide step of HD a thread of either kernel reads 12 float4s for 128
+// FMAs in S or dP; K8's dQ 8 for 64).
 //
 // Layout: q, k, v share one set of element strides (batch, head, sequence),
 // dO has its own, the outputs share a third; the last axis is contiguous and
@@ -81,8 +88,10 @@ struct Cfg {
     // two blocks an SM (so at most 128 registers a thread) where they fit
     static constexpr int DKV_SMEM = (4 * T * LD + 2 * T * PLD + 2 * T) * 4 + 2 * T * 4;
     static constexpr int DKV_MINB = 2 * (DKV_SMEM + 1024) <= 233472 ? 2 : 1;
-    // K8: Q, dO, K, V tiles, dS, lse, delta and both tiles' ids
-    static constexpr int DQ_SMEM = (4 * T * LD + T * PLD + 2 * T) * 4 + 2 * T * 4;
+    // K8: Q, dO, two K tiles, V, P / dS, lse, delta, the rows' ids and two
+    // key tiles' ids; two blocks an SM where they fit
+    static constexpr int DQ_SMEM = (5 * T * LD + T * PLD + 2 * T) * 4 + 3 * T * 4;
+    static constexpr int DQ_MINB = 2 * (DQ_SMEM + 1024) <= 233472 ? 2 : 1;
     static_assert(DKV_SMEM <= 232448 && DQ_SMEM <= 232448, "shared memory above the block limit");
 };
 
@@ -104,104 +113,9 @@ __device__ __forceinline__ void seg_range(const int* __restrict__ segb, int firs
     }
 }
 
-// rows r0 .. r0 + T - 1 of one (batch, head) of a (.., S, HD) tensor whose
-// rows are ss elements apart -> a shared tile with row stride LD; zeros past S
-template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          long long ss, int r0, int S) {
-    using C = Cfg<HD>;
-    for (int idx = threadIdx.x; idx < T * C::C4; idx += THREADS) {
-        const int r = idx / C::C4;
-        const int c = idx - r * C::C4;
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (r0 + r < S) x = __ldg(reinterpret_cast<const float4*>(src + (r0 + r) * ss) + c);
-        *reinterpret_cast<float4*>(dst + r * C::LD + 4 * c) = x;
-    }
-}
-
-// lse, delta and segment ids of rows r0 .. r0 + T - 1 (zeros past S)
-__device__ __forceinline__ void load_rows(float* lse_s, float* dl_s, int* seg_s,
-                                          const float* __restrict__ lseb,
-                                          const float* __restrict__ deltab,
-                                          const int* __restrict__ segb, int r0, int S) {
-    for (int r = threadIdx.x; r < T; r += THREADS) {
-        const bool ok = r0 + r < S;
-        lse_s[r] = ok ? lseb[r0 + r] : 0.f;
-        dl_s[r] = ok ? deltab[r0 + r] : 0.f;
-        seg_s[r] = ok ? segb[r0 + r] : 0;
-    }
-}
-
 __device__ __forceinline__ float comp(const float4& x, int u) {
     return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
 }
-
-// s = Q K^T and dp = dO V^T for rows ty + 16 i and keys tx + 16 j of the tiles
-template <int HD>
-__device__ __forceinline__ void scores(const float* Qs, const float* dOs, const float* Ks,
-                                       const float* Vs, int tx, int ty, float (&s)[4][4],
-                                       float (&dp)[4][4]) {
-    constexpr int LD = Cfg<HD>::LD;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            s[i][j] = 0.f;
-            dp[i][j] = 0.f;
-        }
-#pragma unroll 2
-    for (int kk = 0; kk < HD; kk += 4) {
-        float4 kv[4], vv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            kv[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * LD + kk]);
-            vv[j] = *reinterpret_cast<const float4*>(&Vs[(tx + 16 * j) * LD + kk]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const float4 qv = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * LD + kk]);
-            const float4 ov = *reinterpret_cast<const float4*>(&dOs[(ty + 16 * i) * LD + kk]);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                s[i][j] = fmaf(qv.x, kv[j].x, s[i][j]);
-                s[i][j] = fmaf(qv.y, kv[j].y, s[i][j]);
-                s[i][j] = fmaf(qv.z, kv[j].z, s[i][j]);
-                s[i][j] = fmaf(qv.w, kv[j].w, s[i][j]);
-                dp[i][j] = fmaf(ov.x, vv[j].x, dp[i][j]);
-                dp[i][j] = fmaf(ov.y, vv[j].y, dp[i][j]);
-                dp[i][j] = fmaf(ov.z, vv[j].z, dp[i][j]);
-                dp[i][j] = fmaf(ov.w, vv[j].w, dp[i][j]);
-            }
-        }
-    }
-}
-
-// P and dS of row ty + 16 i, key tx + 16 j (the rows' lse, delta and ids in
-// shared memory): 0 where the segments differ or the row or key lies past S
-__device__ __forceinline__ void probs(const float (&s)[4][4], const float (&dp)[4][4],
-                                      const float* lse_s, const float* dl_s, const int* segq_s,
-                                      const int* segk_s, int m0, int n0, int S, float scale,
-                                      int tx, int ty, float (&p)[4][4], float (&ds)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = ty + 16 * i;
-        const bool rok = m0 + row < S;
-        const float lrow = lse_s[row];
-        const float drow = dl_s[row];
-        const int sq = segq_s[row];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int key = tx + 16 * j;
-            const bool vis = rok && n0 + key < S && segk_s[key] == sq;
-            p[i][j] = vis ? expf(s[i][j] * scale - lrow) : 0.f;
-            ds[i][j] = p[i][j] * (dp[i][j] - drow);
-        }
-    }
-}
-
-// ---------------------------------------------------------------------------
-// K7
-// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -223,17 +137,26 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // rows r0 .. r0 + T - 1 of one (batch, head) of a (.., S, HD) tensor whose
 // rows are ss elements apart -> a shared tile with row stride LD, by cp.async
-// (zeros past S)
+// (zeros past S), issued by threads first .. first + n - 1 of the block
 template <int HD>
 __device__ __forceinline__ void fetch_tile(float* dst, const float* __restrict__ src,
-                                           long long ss, int r0, int S) {
+                                           long long ss, int r0, int S,
+                                           int first = 0, int n = THREADS) {
     using C = Cfg<HD>;
-    for (int idx = threadIdx.x; idx < T * C::C4; idx += THREADS) {
+    for (int idx = threadIdx.x - first; idx < T * C::C4; idx += n) {
         const int r = idx / C::C4;
         const int c = idx - r * C::C4;
         const bool ok = r0 + r < S;
         cp_async16(dst + r * C::LD + 4 * c, src + (ok ? (r0 + r) * ss + 4 * c : 0), ok);
     }
+}
+
+// the segment ids of rows r0 .. r0 + T - 1 -> ids[0, T) by cp.async, one a
+// thread of the first T (zeros past S)
+__device__ __forceinline__ void fetch_ids(int* ids, const int* __restrict__ segb, int r0,
+                                          int S) {
+    const int t = threadIdx.x;
+    if (t < T) cp_async4(ids + t, segb + (r0 + t < S ? r0 + t : 0), r0 + t < S);
 }
 
 // lse, delta and ids of rows r0 .. r0 + T - 1 -> rows[0, T), [T, 2T),
@@ -258,6 +181,10 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 __device__ __forceinline__ void bar_arrive(int id, int n) {
     asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// K7
+// ---------------------------------------------------------------------------
 
 // K7: one block per (batch, head, key tile of T keys). Its 256 threads form
 // two groups of 128: group 0 computes S = Q K^T, P and dV += P^T dO, group 1
@@ -310,7 +237,7 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     fetch_tile<HD>(Ks, k + in_off, in.s, n0, S);
     fetch_tile<HD>(Vs, v + in_off, in.s, n0, S);
-    if (tid < T) cp_async4(segk_s + tid, segb + (n0 + tid < S ? n0 + tid : 0), n0 + tid < S);
+    fetch_ids(segk_s, segb, n0, S);
     int klo, khi;
     seg_range(segb, n0, S, klo, khi);
 
@@ -450,9 +377,25 @@ bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // K8
 // ---------------------------------------------------------------------------
 
-// K8: one block per (batch, head, query tile of T rows)
+// the first tile at or after n0 whose range of ids meets [qlo, qhi], or S;
+// every warp finds it for itself
+__device__ __forceinline__ int next_tile(const int* __restrict__ segb, int n0, int S, int qlo,
+                                         int qhi) {
+    for (; n0 < S; n0 += T) {
+        int klo, khi;
+        seg_range(segb, n0, S, klo, khi);
+        if (!(khi < qlo || klo > qhi)) break;
+    }
+    return n0;
+}
+
+// K8: one block per (batch, head, query tile of T rows). Its 256 threads form
+// two groups of 128 for S and dP: group 0 computes S = Q K^T and P, group 1
+// dP = dO V^T and dS = P (dP - delta), a thread 8 rows x 4 keys (rows ra + 8 i,
+// keys ka + 16 j). Then every thread adds dS K to dQ for rows ty + 16 i and
+// float4 columns tx + 16 c.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, Cfg<HD>::DQ_MINB)
 bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
@@ -464,15 +407,23 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     extern __shared__ __align__(16) float sm[];
     float* Qs = sm;
     float* dOs = Qs + T * LD;
-    float* Ks = dOs + T * LD;
-    float* Vs = Ks + T * LD;
-    float* dSs = Vs + T * LD;  // dS: [row][key]
+    float* K2 = dOs + T * LD;  // two K tiles: this one and the next
+    float* Vs = K2 + 2 * T * LD;
+    float* dSs = Vs + T * LD;  // P, then dS: [row][key]
     float* lse_s = dSs + T * PLD;
     float* dl_s = lse_s + T;
     int* segq_s = reinterpret_cast<int*>(dl_s + T);
-    int* segk_s = segq_s + T;
+    int* segk2 = segq_s + T;  // two key tiles' ids
 
-    const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+    // A warp of either group is 8 rows x 4 keys: its loads of Q or dO touch 8
+    // rows, those of K or V 4 keys, and its P / dS stores fall on 32
+    // different banks (PLD = 4 mod 32).
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int grp = tid >> 7;  // 0: S, P; 1: dP, dS
+    const int ra = lane & 7;                        // S, dP: rows ra + 8 i
+    const int ka = (lane >> 3) + 4 * ((tid >> 5) & 3);  // and keys ka + 16 j
+    const int tx = tid & 15, ty = tid >> 4;         // dQ: rows ty + 16 i
+
     const int ntiles = (S + T - 1) / T;
     const int bh = blockIdx.x / ntiles;
     const int m0 = (blockIdx.x - bh * ntiles) * T;
@@ -482,11 +433,15 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* kb = k + in_off;
     const float* vb = v + in_off;
 
-    load_tile<HD>(Qs, q + in_off, in.s, m0, S);
-    load_tile<HD>(dOs, dout + (size_t)b * dos.b + (size_t)h * dos.h, dos.s, m0, S);
-    load_rows(lse_s, dl_s, segq_s, lse + (size_t)bh * S, delta + (size_t)bh * S, segb, m0, S);
     int qlo, qhi;
     seg_range(segb, m0, S, qlo, qhi);
+    int n0 = next_tile(segb, 0, S, qlo, qhi);  // < S: the block's own tile meets its range
+    fetch_tile<HD>(Qs, q + in_off, in.s, m0, S);
+    fetch_tile<HD>(dOs, dout + (size_t)b * dos.b + (size_t)h * dos.h, dos.s, m0, S);
+    fetch_rows(lse_s, lse + (size_t)bh * S, delta + (size_t)bh * S, segb, m0, S);
+    fetch_tile<HD>(K2, kb, in.s, n0, S);
+    fetch_tile<HD>(Vs, vb, in.s, n0, S);
+    fetch_ids(segk2, segb, n0, S);
 
     float adq[4][CG][4];
 #pragma unroll
@@ -496,27 +451,83 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
             for (int e = 0; e < 4; ++e) adq[i][c][e] = 0.f;
 
-    for (int n0 = 0; n0 < S; n0 += T) {
-        int klo, khi;
-        seg_range(segb, n0, S, klo, khi);
-        if (khi < qlo || klo > qhi) continue;  // the same answer in every warp
-        __syncthreads();  // the previous tile's reads of K and dS are done
-        load_tile<HD>(Ks, kb, in.s, n0, S);
-        load_tile<HD>(Vs, vb, in.s, n0, S);
-        for (int r = tid; r < T; r += THREADS) segk_s[r] = n0 + r < S ? segb[n0 + r] : 0;
-        __syncthreads();
+    for (int cur = 0; n0 < S; cur ^= 1) {
+        const int n1 = next_tile(segb, n0 + T, S, qlo, qhi);
+        const float* Ks = K2 + cur * T * LD;
+        const int* segk_s = segk2 + cur * T;
+        cp_async_wait_all();
+        __syncthreads();  // this tile's K, V and ids are in; the last tile's dQ is done
 
-        float s[4][4], dp[4][4], p[4][4], ds[4][4];
-        scores<HD>(Qs, dOs, Ks, Vs, tx, ty, s, dp);
-        probs(s, dp, lse_s, dl_s, segq_s, segk_s, m0, n0, S, scale, tx, ty, p, ds);
+        // group 0: s = Q K^T, group 1: s = dO V^T
+        {
+            const float* X = grp == 0 ? Qs : dOs;
+            const float* Y = grp == 0 ? Ks : Vs;
+            float s[8][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < 8; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) dSs[(ty + 16 * i) * PLD + tx + 16 * j] = ds[i][j];
-        __syncthreads();
+                for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 1
+            for (int kk = 0; kk < HD; kk += 4) {
+                float4 y[4];
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+                    y[j] = *reinterpret_cast<const float4*>(&Y[(ka + 16 * j) * LD + kk]);
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const float4 x = *reinterpret_cast<const float4*>(&X[(ra + 8 * i) * LD + kk]);
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        s[i][j] = fmaf(x.x, y[j].x, s[i][j]);
+                        s[i][j] = fmaf(x.y, y[j].y, s[i][j]);
+                        s[i][j] = fmaf(x.z, y[j].z, s[i][j]);
+                        s[i][j] = fmaf(x.w, y[j].w, s[i][j]);
+                    }
+                }
+            }
+            if (grp == 0) {
+                const float scale2 = scale * 1.44269504088896341f;
+                // P (0 where the segments differ or the row or key lies past S)
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int row = ra + 8 * i;
+                    const bool rok = m0 + row < S;
+                    const float lrow = lse_s[row] * 1.44269504088896341f;
+                    const int sq = segq_s[row];
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const int key = ka + 16 * j;
+                        const bool vis = rok && n0 + key < S && segk_s[key] == sq;
+                        const float e = exp2f(fmaf(s[i][j], scale2, -lrow));
+                        dSs[row * PLD + key] = __int_as_float(__float_as_int(e) & -int(vis));
+                    }
+                }
+                bar_arrive(1, THREADS);  // P is in for group 1
+                // the next tile's K into the other buffer (read last in the
+                // last tile's dQ), and its ids
+                if (n1 < S) {
+                    fetch_tile<HD>(K2 + (cur ^ 1) * T * LD, kb, in.s, n1, S, 0, THREADS / 2);
+                    fetch_ids(segk2 + (cur ^ 1) * T, segb, n1, S);
+                }
+            } else {
+                bar_sync(1, THREADS);  // P is in, and this group's reads of V are done
+                if (n1 < S) fetch_tile<HD>(Vs, vb, in.s, n1, S, THREADS / 2, THREADS / 2);
+#pragma unroll
+                for (int i = 0; i < 8; ++i) {
+                    const int row = ra + 8 * i;
+                    const float drow = dl_s[row];
+#pragma unroll
+                    for (int j = 0; j < 4; ++j) {
+                        const int at = row * PLD + ka + 16 * j;
+                        dSs[at] = dSs[at] * (s[i][j] - drow);
+                    }
+                }
+            }
+        }
+        __syncthreads();  // dS is in
 
         // dQ[row] += sum_key dS[row, key] K[key] for rows ty + 16 i
-#pragma unroll 2
+#pragma unroll 4
         for (int key = 0; key < T; key += 4) {
             float4 sv[4];
 #pragma unroll
@@ -539,6 +550,7 @@ bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     }
                 }
         }
+        n0 = n1;
     }
 
     const size_t out_off = (size_t)b * os.b + (size_t)h * os.h;

@@ -253,6 +253,24 @@ def test_function_equals_autograd_through_plain_at_any_length(s, hd, pattern):
         assert float((g - w).abs().max()) <= TOL
 
 
+@pytest.mark.parametrize("pattern", ["lengths", "packed"])
+@pytest.mark.parametrize("s, hd", [(333, 48), (333, 80), (384, 48), (384, 80)])
+def test_plain_backward_dq_at_ragged_tails_and_partial_column_groups(s, hd, pattern):
+    """The plain backward's dQ (what chip_smoke.py holds K8 to) against
+    autograd through the plain forward at the shapes that reach K8's ragged
+    last tile (S = 333) and its partial float4 column groups (hd = 48, 80:
+    12 and 20 of a thread grid's 16 and 32)."""
+    q, k, v, do, seg = _inputs(4, 2, s, hd, pattern, seed=20 + s + hd)
+    scale = float(1.0 / np.sqrt(hd))
+    tq, tk, tv, tdo, tseg = _t(q, k, v, do, seg)
+    out, lse = fa.flash_attention_lse_plain(tq, tk, tv, tseg, scale)
+    got = fa.flash_attention_bwd_plain(tq, tk, tv, tseg, out, tdo, lse, scale)[0]
+    tq.requires_grad_()
+    (want,) = torch.autograd.grad(fa.flash_attention_plain(tq, tk, tv, tseg, scale), tq, tdo)
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= TOL
+
+
 def test_no_graph_without_grad_mode_or_inputs_that_need_it():
     q, k, v, _do, seg = _inputs(2, 2, 40, 16, "lengths", 5)
     tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
@@ -324,8 +342,9 @@ def test_backward_kernels_have_a_source_count_launches_and_build_nothing_at_impo
     assert len(fa._ARGTYPES["flash_attention_bwd_dq_f32"]) == 8 + 4 + 9 + 2
     for hd in fa.HEAD_DIMS:
         assert f"BWD_CASE({hd})" in bwd
-    # float32 FMAs on the CUDA cores: no tensor-core instruction, no library
-    assert "fmaf" in bwd and "expf" in bwd
+    # float32 FMAs on the CUDA cores: no tensor-core instruction, no library;
+    # P as one exp2f of a prescaled argument in both kernels
+    assert "fmaf" in bwd and bwd.count("exp2f(fmaf(s[i][j], scale2, -lrow))") == 2
     assert "mma.sync" not in bwd and "mma_async" not in bwd
     for word in ("cublas", "cutlass", "cudnn"):
         assert word not in bwd.lower()

@@ -109,8 +109,11 @@ Phases (one JSON object per output line):
              its autograd backward (dq, dk, dv in one call: compare it with
              K7 + K8); and K6-bf16 with its log-sum-exp and the bfloat16 K7
              and K8 at the same shape and cases (the backward given
-             K6-bf16's output and log-sum-exp), beside SDPA's bfloat16
-             forward and backward with the same mask.
+             K6-bf16's output and log-sum-exp; S = 333 and 384 leave tails
+             past a 64-row wgmma tile), beside SDPA's bfloat16 forward and
+             backward with the same mask; the bfloat16 K7 / K8 rows also
+             give each kernel's registers, spills and blocks an SM at
+             hd = 64.
              "launches" are the counts of the path phases above: the flat
              phases, and each database of the ivf phase, are driven through
              the public class with every count at 0 and read just after;
@@ -202,6 +205,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -297,6 +301,39 @@ def event_ms(fn, reps: int, warmup: int = 2) -> float:
 # ---------------------------------------------------------------------------
 
 
+def kernel_resources() -> dict:
+    """{mangled kernel name: "Used N registers, ...; 0 bytes stack frame, S
+    bytes spill stores, L bytes spill loads"} from the builds' ptxas -v
+    output: ptxas prints "Compiling entry function '<name>'" and, within
+    three lines, the spill and register lines."""
+    resources = {}
+    for name in SOURCES:
+        log = build.build_info[name]["log"].splitlines()
+        for i, line in enumerate(log):
+            if "Compiling entry function" in line:
+                used = next((u for u in log[i + 1:i + 4] if "Used" in u), "")
+                spills = next((u for u in log[i + 1:i + 4] if "spill" in u), "")
+                resources[line.split("'")[1]] = (
+                    used.split(":", 1)[-1].strip() + "; " + spills.strip())
+    return resources
+
+
+def ptxas_of(kernel: str, hd: int) -> dict:
+    """Registers a thread and spilled bytes of template kernel ``kernel`` at
+    head width ``hd`` (its mangled name holds "<kernel>ILi<hd>E")."""
+    want = f"{kernel}ILi{hd}E"
+    found = [text for mangled, text in kernel_resources().items() if want in mangled]
+    assert len(found) == 1, (want, found)
+    nums = {}
+    for key, pattern in (("registers", r"Used (\d+) registers"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads")):
+        m = re.search(pattern, found[0])
+        assert m, (want, found[0])
+        nums[key] = int(m.group(1))
+    return nums
+
+
 def phase_env() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -311,17 +348,7 @@ def phase_env() -> str:
     with ThreadPoolExecutor(len(SOURCES)) as pool:
         list(pool.map(build.load_library, SOURCES))
     build_wall_s = time.perf_counter() - t0
-    # ptxas prints "Compiling entry function '<name>'" and, two lines on,
-    # "Used N registers, ... bytes smem": keep those per kernel
-    resources = {}
-    for name in SOURCES:
-        log = build.build_info[name]["log"].splitlines()
-        for i, line in enumerate(log):
-            if "Compiling entry function" in line:
-                used = next((u for u in log[i + 1:i + 4] if "Used" in u), "")
-                spills = next((u for u in log[i + 1:i + 4] if "spill" in u), "")
-                resources[line.split("'")[1]] = (
-                    used.split(":", 1)[-1].strip() + "; " + spills.strip())
+    resources = kernel_resources()
     emit({
         "phase": "env",
         "nvidia_smi": smi,
@@ -2207,28 +2234,39 @@ def compare_backward_bf16(case, what) -> dict:
     return errs
 
 
-def train_bf16_kernel_rows(launches: dict) -> list:
-    """The bfloat16 K7 and K8 at the training step's shape (the float32 rows'
-    B = 16, nh = 16, S = 512, hd = 64 and lengths), after S = 256 at every
-    head width, S = 200 / 129 / 1 and the packed and cyclic ids.
-    ``launches`` are the bfloat16 training path's."""
-    small = {}
-
-    def held(case, what):
-        for name, err in compare_backward_bf16(case, what).items():
-            small[name] = max(small.get(name, 0.0), err)
-
+def bf16_backward_cases():
+    """(case, what) of every small bfloat16 backward case: S = 256 at every
+    head width, S = 200 / 129 / 1, S = 333 and 384 at hd = 16, 48, 80 and 128
+    with ragged lengths (tails past a 64-row wgmma tile and a 32- or 64-row
+    step) and the packed and cyclic ids. Made one at a time."""
     bf16 = torch.bfloat16
     for hd in (16, 32, 48, 64, 80, 96, 112, 128):
-        held(attention_case(4, 4, 256, hd, bf16, [256, 200, 64, 1], SEED + 180 + hd),
-             f"bwd-bf16 S=256 hd={hd}")
-    held(attention_case(4, 4, 200, 64, bf16, [70, 1, 200, 130], SEED + 181), "bwd-bf16 S=200")
-    held(attention_case(4, 4, 129, 64, bf16, seeded_lengths(4, 129, 1, SEED + 182), SEED + 183),
-         "bwd-bf16 S=129")
-    held(attention_case(3, 2, 1, 64, bf16, [1, 1, 0], SEED + 184), "bwd-bf16 S=1")
+        yield (attention_case(4, 4, 256, hd, bf16, [256, 200, 64, 1], SEED + 180 + hd),
+               f"bwd-bf16 S=256 hd={hd}")
+    yield (attention_case(4, 4, 200, 64, bf16, [70, 1, 200, 130], SEED + 181), "bwd-bf16 S=200")
+    yield (attention_case(4, 4, 129, 64, bf16, seeded_lengths(4, 129, 1, SEED + 182),
+                          SEED + 183), "bwd-bf16 S=129")
+    yield attention_case(3, 2, 1, 64, bf16, [1, 1, 0], SEED + 184), "bwd-bf16 S=1"
+    for s in (333, 384):
+        for hd in (16, 48, 80, 128):
+            yield (attention_case(4, 4, s, hd, bf16, seeded_lengths(4, s, 1, SEED + 400 + s + hd),
+                                  SEED + 401 + s + hd), f"bwd-bf16 S={s} hd={hd}")
     for name, ids in segment_patterns(4, 512, SEED + 185).items():
-        held(attention_case(4, 4, 512, 64, bf16, ids, SEED + 186), f"bwd-bf16 {name} ids")
+        yield attention_case(4, 4, 512, 64, bf16, ids, SEED + 186), f"bwd-bf16 {name} ids"
 
+
+def train_bf16_kernel_rows(launches: dict) -> list:
+    """The bfloat16 K7 and K8 at the training step's shape (the float32 rows'
+    B = 16, nh = 16, S = 512, hd = 64 and lengths), after every case of
+    bf16_backward_cases; with each backward kernel's registers, spills and
+    blocks an SM at hd = 64. ``launches`` are the bfloat16 training path's."""
+    small = {}
+    for case, what in bf16_backward_cases():
+        for name, err in compare_backward_bf16(case, what).items():
+            small[name] = max(small.get(name, 0.0), err)
+        del case
+
+    bf16 = torch.bfloat16
     b, nh, s, hd = 16, 16, 512, 64
     lengths = seeded_lengths(b, s, 200, SEED + 87)
     case = attention_case(b, nh, s, hd, bf16, lengths, SEED + 88)
@@ -2327,6 +2365,11 @@ def train_bf16_kernel_rows(launches: dict) -> list:
                       "lengths_mean": float(np.mean(lengths))},
             "small_max_abs_err": small[name],
             "small_max_share_of_tolerance": small[name + "_share"],
+            **({} if fwd else {
+                "ptxas_hd64": ptxas_of(
+                    "bwd_dkv_bf16_kernel" if name == "K7-bf16" else "bwd_dq_bf16_kernel", hd),
+                "blocks_per_sm_hd64": flash_ops.bwd_bf16_blocks_per_sm(
+                    hd, "dkv" if name == "K7-bf16" else "dq")}),
         })
     del case, q, k, v, seg, ops, lib_out, ql, kl, vl, same
     torch.cuda.empty_cache()

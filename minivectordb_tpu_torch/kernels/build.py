@@ -40,7 +40,8 @@ _lock = threading.Lock()  # guards _name_locks
 _name_locks: dict[str, threading.Lock] = {}  # one per source: sources build in parallel
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": build time (0.0 when the library was already there),
-#          "log": compiler output, "path": the shared library}
+#          "log": compiler output (kept beside the library as <library>.log),
+#          "path": the shared library}
 build_info: dict[str, dict] = {}
 
 
@@ -89,6 +90,9 @@ def load_library(name: str) -> ctypes.CDLL:
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, f"lib{name}_{digest}.so")
         info = {"seconds": 0.0, "log": "", "path": path}
+        if os.path.exists(path + ".log"):  # what the compiler said when it was built
+            with open(path + ".log", encoding="utf-8") as f:
+                info["log"] = f.read()
         if not os.path.exists(path):
             tmp = f"{path}.{os.getpid()}.tmp"
             t0 = time.perf_counter()
@@ -102,6 +106,9 @@ def load_library(name: str) -> ctypes.CDLL:
                 raise RuntimeError(
                     f"nvcc failed on {src} (exit {proc.returncode}):\n{info['log']}"
                 )
+            with open(f"{tmp}.log", "w", encoding="utf-8") as f:
+                f.write(info["log"])
+            os.replace(f"{tmp}.log", path + ".log")
             os.replace(tmp, path)  # atomic: a racing process loads old or new
         build_info[name] = info
         lib = ctypes.CDLL(path)

@@ -272,8 +272,8 @@ def bwd_tile_shapes(dtype, hd: int) -> dict:
     """{"dkv": (query rows, keys), "dq": (query rows, keys)}: the tile on
     which K7 and K8 serving (dtype, hd) decide to skip or multiply. float32
     (csrc/flash_attention_bwd.cu: T): 64 x 64 for both. bfloat16
-    (csrc/flash_attention_bwd_bf16.cu: BT, Cfg::W): K7 W x 64, K8 64 x W, with
-    W = 64 up to hd = 64, else 32."""
+    (csrc/flash_attention_bwd_bf16.cu): K7 W x 64 (DkvCfg::W, KEYS), K8
+    64 x W (BT, Cfg::W), with W = 64 up to hd = 64, else 32."""
     if dtype == torch.bfloat16:
         w = 64 if hd <= 64 else 32
         return {"dkv": (w, 64), "dq": (64, w)}
@@ -300,6 +300,24 @@ def visited_tiles(segment_ids, rows: int, keys: int) -> int:
     klo, khi = ranges(keys)
     apart = (khi[:, None, :] < qlo[:, :, None]) | (klo[:, None, :] > qhi[:, :, None])
     return int((~apart).sum())
+
+
+def bwd_bf16_blocks_per_sm(hd: int, kernel: str) -> int:
+    """Blocks of the bfloat16 K7 (``kernel="dkv"``) or K8 (``"dq"``) at head
+    width ``hd`` that one SM of the current CUDA device holds at once, from
+    the kernel's registers, threads and shared memory
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). Measurement only:
+    chip_smoke.py and profile_search report it beside the kernels' times."""
+    if kernel not in ("dkv", "dq"):
+        raise ValueError(f"kernel must be 'dkv' or 'dq', not {kernel!r}")
+    fn = build.load_library("flash_attention_bwd_bf16").flash_attention_bwd_bf16_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    err = fn(hd, int(kernel == "dkv"), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_bf16_blocks_per_sm: cudaError {err}")
+    return blocks.value
 
 
 def _kernel_ready(t) -> bool:

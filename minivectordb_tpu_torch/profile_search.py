@@ -15,6 +15,7 @@
         [--against OTHER/flash_attention_bwd.cu | OTHER/flash_attention_bwd_bf16.cu]
     python -m minivectordb_tpu_torch.profile_search --train [--batch 8]
         [--seq 512] [--dtype float32|bfloat16]
+        [--against OTHER/flash_attention_bwd.cu | OTHER/flash_attention_bwd_bf16.cu]
 
 Builds a seeded corpus straight into a ``VectorStore`` (no metadata), then
 times the stages of ``StoreSnapshot._device_search``'s fused route one by one
@@ -67,7 +68,9 @@ the encoder's (B, S, nh, hd) memory; ragged lengths, q, k, v and dO seeded as
 chip_smoke.py seeds its training rows) for B = 16 and B = 8 (a step's
 launch), or ``--batch`` alone: each held against the plain backward, then the
 median of single launches and the mean of 20 back-to-back launches, by CUDA
-events. Both this source and ``--against`` (another csrc/flash_attention_bwd.cu,
+events; each row also gives what ptxas said of the kernel at that width
+(registers, spills; the other source's too, when this call built it) and,
+in bfloat16, the blocks an SM holds. Both this source and ``--against`` (another csrc/flash_attention_bwd.cu,
 or flash_attention_bwd_bf16.cu for bfloat16, with the same C interface) are
 called the same way, straight through their C entry points, in turns (other,
 this, this, other).
@@ -83,7 +86,11 @@ encodes), of which the K6 launches (with the row log-sum-exp); the backward
 and layer norms' backward, the embedding's and delta = rowsum(dO * O); and
 the AdamW step. The kernels' spans come from an event pair around each
 launch. Medians over ``--reps`` steps (at most 10) after a warm-up step, and
-the whole step on the host clock.
+the whole step on the host clock. With ``--against`` (another
+flash_attention_bwd.cu, or flash_attention_bwd_bf16.cu for bfloat16) the
+steps of one process alternate between this source's K7 / K8 and the other's
+(other, this, this, other, ...; ``--reps`` steps each), and the other's
+medians are given as ``other_*``: the same host, weights and data for both.
 """
 
 from __future__ import annotations
@@ -433,9 +440,10 @@ def profile_embed(compute_dtype: str, batch: int, seq: int, seed: int, reps: int
 
 
 def profile_train(batch: int, seq: int, seed: int, reps: int,
-                  dtype: str = "float32") -> dict:
+                  dtype: str = "float32", against: str | None = None) -> dict:
     """One training step at the e5-large widths, stage by stage (see the
-    module docstring)."""
+    module docstring); with ``against``, steps alternate between this
+    source's K7 / K8 and those of another backward source."""
     cfg = model_configs.E5_LARGE
     dev = torch.device("cuda", torch.cuda.current_device())
     gen = torch.Generator(device=dev)
@@ -497,12 +505,28 @@ def profile_train(batch: int, seq: int, seed: int, reps: int,
             "step_wall_ms": wall,
         }, counts, float(loss)
 
+    bwd = [f"flash_attention_bwd_dkv_{kind}", f"flash_attention_bwd_dq_{kind}"]
+    sides = {"this": {n: flash_ops._kernel_fn(n) for n in bwd}}
+    order = ["this"]
+    if against:
+        other = _load_other(against, flash_ops._SOURCE[bwd[0]],
+                            {n: flash_ops._ARGTYPES[n] for n in bwd})
+        sides["other"] = {n: getattr(other, n) for n in bwd}
+        order = ["other", "this", "this", "other"]
+    by_side: dict = {side: [] for side in sides}
     flash_ops._launch = timed_launch
     try:
-        step()  # warm-up: library handles, the kernels' first launches
-        runs = [step() for _ in range(reps)]
+        for side in sides:  # warm-up: library handles, the kernels' first launches
+            flash_ops._fns.update(sides[side])
+            step()
+        for i in range(reps * len(sides)):
+            side = order[i % len(order)]
+            flash_ops._fns.update(sides[side])
+            by_side[side].append(step())
     finally:
         flash_ops._launch = launch
+        flash_ops._fns.update(sides["this"])
+    runs = by_side["this"]
     out = {"train": "e5-large widths", "dtype": dtype, "pairs": batch, "seq": seq,
            "layers": cfg.layers,
            "real_tokens_per_step": int(q_mask.sum() + p_mask.sum()),
@@ -512,7 +536,14 @@ def profile_train(batch: int, seq: int, seed: int, reps: int,
     for name in runs[0][0]:
         out[name] = statistics.median(r[0][name] for r in runs)
     out["real_tokens_per_s_device"] = out["real_tokens_per_step"] / (out["step_device_ms"] * 1e-3)
+    if against:
+        out["other"] = against
+        for name in runs[0][0]:
+            out["other_" + name] = statistics.median(r[0][name] for r in by_side["other"])
     return out
+
+
+_OTHER_LOGS: dict = {}  # source path -> its compiler output (ptxas -v), when built here
 
 
 def _load_other(src: str, name: str, argtypes: dict):
@@ -523,13 +554,28 @@ def _load_other(src: str, name: str, argtypes: dict):
     path = os.path.join(build.build_dir(), f"lib{name}_other_{digest}.so")
     os.makedirs(build.build_dir(), exist_ok=True)
     if not os.path.exists(path):
-        subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", path, src],
-                       check=True, capture_output=True)
+        proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", path, src],
+                              check=True, capture_output=True, text=True)
+        _OTHER_LOGS[src] = proc.stdout + proc.stderr
     lib = ctypes.CDLL(path)
     for fn, types in argtypes.items():
         getattr(lib, fn).argtypes = types
         getattr(lib, fn).restype = ctypes.c_int
     return lib
+
+
+def _ptxas(log: str, kernel: str) -> str | None:
+    """What ptxas -v said of the kernel whose mangled name holds ``kernel``:
+    "Used N registers, ...; ... bytes spill stores, ... bytes spill loads"
+    (None if the log does not hold it, e.g. a library built earlier)."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            near = lines[i + 1:i + 4]
+            used = next((u for u in near if "Used" in u), "")
+            spills = next((u for u in near if "spill" in u), "")
+            return used.split(":", 1)[-1].strip() + "; " + spills.strip()
+    return None
 
 
 def _times(fn, reps: int):
@@ -665,15 +711,22 @@ def profile_backward(against: str | None, dtype: str, batches: list, seed: int,
         for kernel, name in names.items():
             n_out = 2 if kernel == "K7" else 1
             this = bare(flash_ops._kernel_fn(name), name, n_out)
+            mangled = (f"{'bwd_dkv' if kernel == 'K7' else 'bwd_dq'}"
+                       f"{'_bf16' if kind == 'bf16' else ''}_kernelILi{hd}E")
             row = {"kernel": f"{kernel}-{kind}", "shape": [b, nh, s, hd],
                    "lengths_min": int(lengths.min()),
                    "lengths_mean": float(lengths.mean()),
-                   "max_abs_err_vs_plain": err_vs_plain(this, kernel)}
+                   "max_abs_err_vs_plain": err_vs_plain(this, kernel),
+                   "ptxas": _ptxas(build.build_info[flash_ops._SOURCE[name]]["log"], mangled)}
+            if kind == "bf16":
+                row["blocks_per_sm"] = flash_ops.bwd_bf16_blocks_per_sm(
+                    hd, "dkv" if kernel == "K7" else "dq")
             that = None
             if other is not None:
                 that = bare(getattr(other, name), name, n_out)
                 row["other"] = against
                 row["other_max_abs_err_vs_plain"] = err_vs_plain(that, kernel)
+                row["other_ptxas"] = _ptxas(_OTHER_LOGS.get(against, ""), mangled)
             _in_turns(row, this, that, reps)
             rows.append(row)
         del q, k, v, dout, out, lse, ops, want, qo, ko, vo, doo, lseo, deltao
@@ -808,7 +861,7 @@ def main() -> None:
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                     help="with --train / --backward: the encoder's type")
     ap.add_argument("--against", default=None,
-                    help="with --attention / --phase1 / --backward: another "
+                    help="with --attention / --phase1 / --backward / --train: another "
                          "flash_attention.cu / phase1.cu / flash_attention_bwd[_bf16].cu "
                          "to time in turns")
     args = ap.parse_args()
@@ -839,7 +892,8 @@ def main() -> None:
             print(json.dumps(res), flush=True)
         return
     if args.train:
-        res = profile_train(args.batch, args.seq, args.seed, min(args.reps, 10), args.dtype)
+        res = profile_train(args.batch, args.seq, args.seed, min(args.reps, 10), args.dtype,
+                            args.against)
         res["card"] = smi
         print(json.dumps(res), flush=True)
         return

@@ -25,6 +25,7 @@ BF16_MAX_TOL (a scratch run: 4.5e-3 of the largest value at most).
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -354,8 +355,9 @@ def test_backward_kernels_have_a_source_count_launches_and_build_nothing_at_impo
 
 
 def _bwd_tile_consts():
-    """The tile constants of the two backward sources: float32 T, bfloat16 BT
-    and the rule for W (W = HD <= a ? b : c)."""
+    """The tile constants of the two backward sources: float32 T; bfloat16
+    K8's BT and its rule for W (W = HD <= a ? b : c, in Cfg), and K7's keys
+    a block (KEYS, in DkvCfg) and its own rule for W."""
     import os
     import re
 
@@ -368,20 +370,30 @@ def _bwd_tile_consts():
     f32, bf16 = read("flash_attention_bwd"), read("flash_attention_bwd_bf16")
     t = int(re.search(r"constexpr int T = (\d+);", f32).group(1))
     bt = int(re.search(r"constexpr int BT = (\d+);", bf16).group(1))
-    w = [int(x) for x in re.search(
-        r"constexpr int W = HD <= (\d+) \? (\d+) : (\d+);", bf16).groups()]
-    return t, bt, w
+    dq_cfg = bf16[bf16.index("struct Cfg {"):]
+    dkv_cfg = bf16[bf16.index("struct DkvCfg {"):]
+    rule = r"constexpr int W = HD <= (\d+) \? (\d+) : (\d+);"
+    w_dq = [int(x) for x in re.search(rule, dq_cfg[:dq_cfg.index("};")]).groups()]
+    dkv_cfg = dkv_cfg[:dkv_cfg.index("};")]
+    w_dkv = [int(x) for x in re.search(rule, dkv_cfg).groups()]
+    keys = int(re.search(r"constexpr int KEYS = (\d+);", dkv_cfg).group(1))
+    return t, bt, w_dq, keys, w_dkv
 
 
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_bwd_tile_shapes_match_the_kernels(hd):
     """What chip_smoke.py multiplies out for K7 / K8: the tiles on which each
     backward kernel decides to skip or multiply, read from the sources."""
-    t, bt, (w_upto, w_then, w_else) = _bwd_tile_consts()
+    t, bt, w_dq, keys, w_dkv = _bwd_tile_consts()
     assert fa.bwd_tile_shapes(torch.float32, hd) == {"dkv": (t, t), "dq": (t, t)}
     assert t == bt == 64
-    w = w_then if hd <= w_upto else w_else
-    assert fa.bwd_tile_shapes(torch.bfloat16, hd) == {"dkv": (w, bt), "dq": (bt, w)}
+
+    def w(rule):
+        upto, then, other = rule
+        return then if hd <= upto else other
+
+    assert fa.bwd_tile_shapes(torch.bfloat16, hd) == {"dkv": (w(w_dkv), keys),
+                                                      "dq": (bt, w(w_dq))}
 
 
 @pytest.mark.parametrize("pattern", ["lengths", "packed", "cyclic"])
@@ -408,8 +420,8 @@ def test_visited_tiles_at_the_backward_tiles(hd, s, pattern):
 
 
 def test_profile_search_backward_parses_and_needs_a_card():
-    """``profile_search --backward`` takes its options and stops without a
-    CUDA device: it has no CPU fallback."""
+    """``profile_search --backward`` (and ``--train --against``) takes its
+    options and stops without a CUDA device: it has no CPU fallback."""
     import os
     import subprocess
     import sys
@@ -425,8 +437,54 @@ def test_profile_search_backward_parses_and_needs_a_card():
     res = run("--backward", "--dtype", "bfloat16", "--batch", "8",
               "--against", "OTHER/flash_attention_bwd_bf16.cu")
     assert res.returncode != 0 and "needs a CUDA device" in res.stderr, res.stderr
+    res = run("--train", "--dtype", "bfloat16", "--against", "OTHER/flash_attention_bwd_bf16.cu")
+    assert res.returncode != 0 and "needs a CUDA device" in res.stderr, res.stderr
     bad = run("--backward", "--dtype", "float16")
     assert bad.returncode == 2 and "invalid choice" in bad.stderr, bad.stderr
+
+
+def test_bwd_bf16_blocks_per_sm_names_its_kernel():
+    """The occupancy query takes K7 ("dkv") or K8 ("dq") and nothing else;
+    it is refused before any library is built."""
+    from minivectordb_tpu_torch.kernels import build
+
+    for bad in ("dk", "DKV", ""):
+        with pytest.raises(ValueError):
+            fa.bwd_bf16_blocks_per_sm(64, bad)
+    assert "flash_attention_bwd_bf16" not in build.build_info
+    with open(os.path.join(build.CSRC_DIR, "flash_attention_bwd_bf16.cu"), encoding="utf-8") as f:
+        src = f.read()
+    assert 'extern "C" int flash_attention_bwd_bf16_blocks_per_sm(int hd, int dkv, int* blocks)' in src
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in src
+
+
+_PTXAS_LOG = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118bwd_dq_bf16_kernelILi64EEEvPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118bwd_dq_bf16_kernelILi64EEEvPK13__nv_bfloat16
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 154 registers, used 1 barriers, 528 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119bwd_dkv_bf16_kernelILi64EEEvPK13__nv_bfloat16' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119bwd_dkv_bf16_kernelILi64EEEvPK13__nv_bfloat16
+    8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 528 bytes cmem[0]
+"""
+
+
+@pytest.mark.parametrize("kernel, want", [
+    ("bwd_dkv_bf16_kernelILi64E", "Used 168 registers, used 1 barriers, 528 bytes cmem[0]; "
+                                  "8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads"),
+    ("bwd_dq_bf16_kernelILi64E", "Used 154 registers, used 1 barriers, 528 bytes cmem[0]; "
+                                 "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("bwd_dkv_bf16_kernelILi128E", None),
+])
+def test_profile_search_reads_each_kernels_registers_and_spills(kernel, want):
+    """``profile_search --backward`` reports what ptxas -v said of the kernel
+    it times, found by its mangled name, and nothing for a kernel the log
+    does not hold."""
+    from minivectordb_tpu_torch import profile_search
+
+    assert profile_search._ptxas(_PTXAS_LOG, kernel) == want
+
 
 @pytest.mark.cuda
 def test_backward_kernels_equal_plain_on_the_card():
@@ -458,9 +516,24 @@ def test_bf16_backward_kernels_have_a_source_count_launches_and_run_on_the_tenso
     for hd in fa.HEAD_DIMS:
         assert f"BWD_CASE({hd})" in src
     # bf16 products on the tensor cores with float32 accumulators; P and dS
-    # rounded to bf16 in registers; no library
+    # rounded to bf16 in registers; no library. K7 on wgmma: S^T and dP^T
+    # with both operands in shared memory, dV and dK with A from registers
+    # at every head width, its tiles brought by TMA onto mbarriers; K8 on
+    # mma.sync fed by ldmatrix
+    k7 = src[src.index("bwd_dkv_bf16_kernel("):src.index("bwd_dq_bf16_kernel(")]
+    k8 = src[src.index("bwd_dq_bf16_kernel("):src.index("struct Problem")]
+    assert "wgmma_ss<W>" in k7 and "wgmma_rs<HD>" in k7 and "pack_bf16" in k7
+    assert "mma(" not in k7 and "ldsm_x4" not in k7
+    for n in (32, 64):  # W, queries a step
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 {{" in src
+    for hd in fa.HEAD_DIMS:
+        assert f"wgmma_rs<{hd}>(float (&d)[{hd // 2}]" in src
+        assert f"wgmma.mma_async.sync.aligned.m64n{hd}k16.f32.bf16.bf16 {{" in src
+    assert "cp.async.bulk.tensor.5d" in src and "mbarrier.try_wait" in src
+    assert k7.count("tma_load(") == 4  # K, V once; a step's Q and dO
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
-    assert "ldmatrix" in src and "pack_bf16" in src
+    assert "mma(" in k8 and "ldsm_x4_t(" in k8 and "wgmma" not in k8
+    assert "atom." not in src and "atomicAdd" not in src  # deterministic: no atomics
     for word in ("cublas", "cutlass", "cudnn"):
         assert word not in src.lower()
 

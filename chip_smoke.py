@@ -110,7 +110,8 @@ Phases (one JSON object per output line):
              K7 + K8); and K6-bf16 with its log-sum-exp and the bfloat16 K7
              and K8 at the same shape and cases (the backward given
              K6-bf16's output and log-sum-exp; S = 333 and 384 leave tails
-             past a 64-row wgmma tile), beside SDPA's bfloat16 forward and
+             past a 64-row wgmma tile, and are held at hd = 32 and 96 too,
+             K8's 64-byte swizzle), beside SDPA's bfloat16 forward and
              backward with the same mask; the bfloat16 K7 / K8 rows also
              give each kernel's registers, spills and blocks an SM at
              hd = 64.
@@ -2236,9 +2237,10 @@ def compare_backward_bf16(case, what) -> dict:
 
 def bf16_backward_cases():
     """(case, what) of every small bfloat16 backward case: S = 256 at every
-    head width, S = 200 / 129 / 1, S = 333 and 384 at hd = 16, 48, 80 and 128
-    with ragged lengths (tails past a 64-row wgmma tile and a 32- or 64-row
-    step) and the packed and cyclic ids. Made one at a time."""
+    head width, S = 200 / 129 / 1, S = 333 and 384 at hd = 16, 32, 48, 80, 96
+    and 128 with ragged lengths (tails past a 64-row wgmma tile and a 32- or
+    64-row step, in each of K8's 32-, 64- and 128-byte swizzles) and the
+    packed and cyclic ids. Made one at a time."""
     bf16 = torch.bfloat16
     for hd in (16, 32, 48, 64, 80, 96, 112, 128):
         yield (attention_case(4, 4, 256, hd, bf16, [256, 200, 64, 1], SEED + 180 + hd),
@@ -2248,7 +2250,7 @@ def bf16_backward_cases():
                           SEED + 183), "bwd-bf16 S=129")
     yield attention_case(3, 2, 1, 64, bf16, [1, 1, 0], SEED + 184), "bwd-bf16 S=1"
     for s in (333, 384):
-        for hd in (16, 48, 80, 128):
+        for hd in (16, 32, 48, 80, 96, 128):
             yield (attention_case(4, 4, s, hd, bf16, seeded_lengths(4, s, 1, SEED + 400 + s + hd),
                                   SEED + 401 + s + hd), f"bwd-bf16 S={s} hd={hd}")
     for name, ids in segment_patterns(4, 512, SEED + 185).items():

@@ -20,43 +20,56 @@
 // and the outputs rounded to bf16 once. delta is one torch.sum in the wrapper
 // (float32 products), as the TPU code computes it in XLA outside its kernels.
 //
-// Design. Both kernels keep the (S, S) matrices in registers: a product's
-// float32 accumulator of S^T / dS^T (K7) or dS (K8) is rounded to bf16 and
-// packed into the A operand of the next product (the C fragment of two
-// 8-column chunks is the A fragment of one k16 step). Each block owns a tile
-// of one (batch, head) (64 keys in K7, 64 queries in K8) and walks the other
-// side in steps of W = 64 rows (32 for HD > 64, which keeps the dK/dV
-// accumulators and the step's scores under the register limit), the next
-// step's tiles landing while the current one is multiplied. A step whose
-// range of segment ids [min, max] does not meet the block's own holds no pair
-// of one segment and is skipped (the rule of K6 and of the float32 K7/K8).
-// Rows past S land as zeros and are masked; only rows below S are written.
-// No atomics: two kernels as on the TPU, so the result is deterministic.
-//   - K7 on wgmma, one warpgroup a block: S^T = K Q^T and dP^T = V dO^T take
-//     both operands from shared memory, K-major; P^T (one ex2 of a prescaled
-//     argument, then the mask) and dS^T * scale are made from the
-//     accumulators and fed from registers to dV += P^T dO and dK += dS^T Q,
-//     whose B is the same Q / dO tile read MN-major. Q, dO, K and V arrive by
-//     TMA in wgmma's no-swizzle core-matrix layout, so one copy of a tile
-//     serves both of its reads and no warp re-reads it; lse, delta and the
-//     ids by cp.async. dK and dV are staged in shared memory and leave as
-//     whole 16-byte pieces.
-//   - K8 on mma.sync m16n8k16 fed by ldmatrix, with cp.async double
-//     buffering: each of 4 warps owns 16 queries; S = Q K^T and dP = dO V^T
-//     from shared memory (ldmatrix without .trans: the tiles are K-major
-//     along hd), dQ += dS K with B read by ldmatrix.trans.
+// Design. Both kernels run on wgmma, one warpgroup a block, and keep the
+// (S, S) matrices in registers: a product's float32 accumulator of S^T /
+// dS^T (K7) or dS (K8) is rounded to bf16 and packed into the register A
+// operand of the next product (the C fragment of two 8-column chunks is the
+// A fragment of one k16 step). Each block owns a tile of one (batch, head)
+// (64 keys in K7, 64 queries in K8: wgmma's M) and walks the other side in
+// steps of W = 64 rows (32 for HD > 64, which keeps the accumulators and
+// the step's scores under the register limit), the next step's tiles
+// landing while the current one is multiplied. A step whose range of
+// segment ids [min, max] does not meet the block's own holds no pair of one
+// segment and is skipped (the rule of K6 and of the float32 K7/K8). Rows past
+// S land as zeros and are masked; only rows below S are written. No atomics:
+// two kernels as on the TPU, so the result is deterministic.
+//   - Tiles arrive by TMA, issued by one thread onto one mbarrier a stage
+//     (two stages): the block's own two tiles once, each step's two. One
+//     copy of a tile serves both of its reads, K-major and MN-major, so no
+//     warp re-reads it; the step's per-row values (lse, delta, ids in K7;
+//     the key ids in K8) by cp.async. K7's tiles land in wgmma's no-swizzle
+//     core-matrix layout, a box row of 16 bytes; K8's in the widest swizzle
+//     (32, 64 or 128 bytes) whose row divides HD, a box row of that span.
+//   - K7: S^T = K Q^T and dP^T = V dO^T from shared memory; P^T and
+//     dS^T * scale made from the accumulators and fed from registers to
+//     dV += P^T dO and dK += dS^T Q, whose B is the step's Q / dO tile read
+//     MN-major.
+//   - K8: S = Q K^T and dP = dO V^T from shared memory; dS * scale fed from
+//     registers to dQ += dS K, whose B is the step's K tile read MN-major.
+//     The rows' lse, delta and ids stay in registers; a key's id is read
+//     once per column pair.
+//   - P (float32) is one ex2 of a prescaled argument, then the mask, with
+//     no branch; dS * scale = P * (dP * scale - delta * scale).
+//   - Each step's wgmma groups are waited inside the step: a wait across the
+//     loop's back-edge makes ptxas serialize every wgmma (C7515).
+//   - The gradients are staged in shared memory and leave as whole 16-byte
+//     pieces.
 //
 // Work: K7 multiplies 8 * HD operations per (query, key) pair of one segment
 // (S, dP, dV, dK), K8 6 * HD (S, dP, dQ), at 989 TFLOP/s of bf16 on paper;
 // their bytes (q, k, v, dO read, the gradients written) bound them at the
-// training shape. The limits left: in K7 the dependent products of a step
-// wait for each other inside a warpgroup (three blocks an SM overlap them);
-// in K8 every warp re-reads the step's K and V tiles and P is a branch
-// around __expf.
+// training shape. The limits left: TMA boxes of 16-byte rows issue a
+// request per 16 bytes, and K7's step loads, still in that form, bound it
+// (K8's loop with such boxes and no product at all took as long as the
+// whole kernel); in K8 the block's prologue and epilogue (Q, dO in, dQ out:
+// the bytes of the bound) stand against about six visited steps, and a
+// step's products, its elementwise part and the last product wait for each
+// other inside the warpgroup (four blocks an SM overlap them); about 15% of
+// the multiplied pairs are masked (64 x 64 tiles at the training lengths).
 //
 // Layout: q, k, v share one set of element strides (batch, head, sequence),
 // dO has its own, the outputs share a third; the last axis is contiguous and
-// every row starts on a 16-byte boundary (K7's tensor maps need 16-byte
+// every row starts on a 16-byte boundary (the tensor maps need 16-byte
 // strides too). Any S >= 1; HD a multiple of 16 up to 128.
 //
 // Build (plain C interface, loaded with ctypes):
@@ -71,35 +84,17 @@
 
 namespace {
 
-constexpr int BT = 64;        // K8: the block's queries
-constexpr int THREADS = 128;  // K8: 4 warps x 16 rows
 constexpr int MAX_DEVICES = 64;
 
 struct Strides {
     long long b, h, s;  // in elements
 };
 
-template <int HD>
-struct Cfg {
-    static constexpr int W = HD <= 64 ? 64 : 32;  // rows of the other side per step
-    static constexpr int LD = HD + 8;  // shared row stride (elements): ldmatrix conflict-free
-    static constexpr int CH = HD / 8;  // 16-byte chunks of a row
-    static constexpr int OWN = 2 * BT * LD;  // the block's two resident tiles
-    static constexpr int STEP = 2 * W * LD;  // one step's two tiles
-    // bf16 tiles, then float32 lse and delta and int ids of each stage
-    static constexpr int SMEM = (OWN + 2 * STEP) * 2 + 2 * 3 * W * 4;
-    static_assert(SMEM <= 232448, "shared memory above the block limit");
-};
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 / 4 bytes global -> shared, asynchronous; zeros when !valid (src unread)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
+// 4 bytes global -> shared, asynchronous; zeros when !valid (src unread)
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
@@ -112,52 +107,10 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// c (16 x 8) += a (16 x 16, row-major) * b (16 x 8, column-major)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // (lo, hi) rounded to nearest even, lo in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     const __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&t);
-}
-
-// Shared-memory address that lane gives ldmatrix for:
-//  a_addr: the A fragment (rows r0 .. r0 + 15, columns c0 .. c0 + 15) of a
-//          row-major tile;
-//  b_addr: the B fragments of two n-tiles (rows r0 .. r0 + 15 of the tile are
-//          the 16 n, columns c0 .. c0 + 15 the k) - regs {b0, b1} of n-tile 0
-//          then of n-tile 1;
-//  bt_addr: the same from a tile whose rows are the k (rows r0 .. r0 + 15)
-//          and columns the n (c0 .. c0 + 15), for ldmatrix.trans.
-template <int LD>
-__device__ __forceinline__ uint32_t a_addr(uint32_t base, int lane, int r0, int c0) {
-    return base + 2 * ((r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
-}
-template <int LD>
-__device__ __forceinline__ uint32_t b_addr(uint32_t base, int lane, int r0, int c0) {
-    const int m = lane >> 3;
-    return base + 2 * ((r0 + (m >> 1) * 8 + (lane & 7)) * LD + c0 + (m & 1) * 8);
-}
-template <int LD>
-__device__ __forceinline__ uint32_t bt_addr(uint32_t base, int lane, int r0, int c0) {
-    const int m = lane >> 3;
-    return base + 2 * ((r0 + (m & 1) * 8 + (lane & 7)) * LD + c0 + (m >> 1) * 8);
 }
 
 // [lo, hi] of the segment ids of rows first .. first + LEN - 1 below S
@@ -191,24 +144,10 @@ __device__ __forceinline__ int next_step(const int* __restrict__ segb, int r0, i
     return r0;
 }
 
-// rows r0 .. r0 + R - 1 of one (batch, head) of a bf16 (.., S, HD) tensor
-// whose rows are ss elements apart -> a shared tile at dst (row stride LD);
-// zeros past S
-template <int HD, int R>
-__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* __restrict__ src,
-                                          long long ss, int r0, int S) {
-    using C = Cfg<HD>;
-    for (int idx = threadIdx.x; idx < R * C::CH; idx += THREADS) {
-        const int r = idx / C::CH;
-        const int c = idx - r * C::CH;
-        const bool ok = r0 + r < S;
-        cp_async16(dst + 2 * (r * C::LD + 8 * c), src + (ok ? (r0 + r) * ss + 8 * c : 0), ok);
-    }
-}
-
 // ---------------------------------------------------------------------------
-// wgmma, mbarriers and TMA (K7): copies of the helpers of
-// csrc/flash_attention.cu's bfloat16 kernel (K6), with the widths K7 needs
+// wgmma, mbarriers and TMA: copies of the helpers of
+// csrc/flash_attention.cu's bfloat16 kernel (K6), with the widths K7 and K8
+// need
 // ---------------------------------------------------------------------------
 
 // wgmma matrix descriptor, no swizzle: start address, leading byte offset
@@ -218,6 +157,17 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
     return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
          | (static_cast<uint64_t>(lbo >> 4) << 16)
          | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// the same in the swizzle of SPAN = 32, 64 or 128 bytes that TMA writes
+// (slabs of rows of SPAN bytes): K-major, 8-row groups 8 SPAN bytes apart
+// (stride byte offset), leading byte offset unused, the start 32 bytes a
+// k-step into a row; MN-major, 8-row groups along K 8 SPAN bytes apart
+// (stride), slabs along MN lbo apart (leading)
+template <int SPAN>
+__device__ __forceinline__ uint64_t smem_desc_sw(uint32_t addr, uint32_t lbo) {
+    constexpr uint64_t mode = SPAN == 128 ? 1 : SPAN == 64 ? 2 : 3;
+    return smem_desc(addr, lbo, 8 * SPAN) | (mode << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -257,8 +207,9 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
 }
 // TMA: the box of rows row .. of head h, batch b of a 5-d tensor map
 // (make_map) into shared memory at dst, completing on the mbarrier at bar;
-// the box lands as 16-byte columns of all its rows, one after the other (the
-// core-matrix layout). hb_swap: batch is dim 3 and head dim 4.
+// the box lands as column slabs of all its rows, one after the other (the
+// core-matrix layout, or a swizzled one). hb_swap: batch is dim 3 and head
+// dim 4.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int row, int h,
                                          int b, bool hb_swap, uint32_t bar) {
     asm volatile(
@@ -436,10 +387,6 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// ---------------------------------------------------------------------------
-// K7
-// ---------------------------------------------------------------------------
-
 constexpr float LOG2E = 1.4426950408889634f;
 
 // 2^x, one MUFU instruction (2^-inf = 0); about 2 ulp, far inside the
@@ -449,6 +396,10 @@ __device__ __forceinline__ float fast_exp2(float x) {
     asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
     return y;
 }
+
+// ---------------------------------------------------------------------------
+// K7
+// ---------------------------------------------------------------------------
 
 // K7's shapes. One warpgroup a block owns KEYS = 64 keys (wgmma's M) and
 // walks the query steps of W rows. Tiles are kept in wgmma's no-swizzle
@@ -692,154 +643,236 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     }
 }
 
-// K8: one block per (batch, head, tile of 64 queries); warp w owns queries
-// m0 + 16 w .. + 15 and walks the key steps that meet them
+// ---------------------------------------------------------------------------
+// K8
+// ---------------------------------------------------------------------------
+
+// K8's shapes: K7's with the roles of queries and keys swapped. One
+// warpgroup a block owns QUERIES = 64 queries (wgmma's M) and walks the key
+// steps of W rows. One copy of a K tile serves both of its reads: K-major
+// (hd along K) as B of S, MN-major (hd along N) as B of dQ.
 template <int HD>
-__global__ void __launch_bounds__(THREADS)
-bwd_dq_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                   const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   const int* __restrict__ seg, __nv_bfloat16* __restrict__ dq, int NH, int S,
-                   Strides in, Strides dos, Strides os, float scale)
+struct DqCfg {
+    static constexpr int QUERIES = 64;
+    static constexpr int THREADS = 128;
+    static constexpr int W = HD <= 64 ? 64 : 32;       // keys a step (N of S)
+    // tiles as slabs of rows of SPAN bytes (the widest swizzle whose row
+    // divides HD), SPAN / 2 columns each: tile (R rows) element (r, c) lies
+    // in slab c / EL, row r, column c % EL, before the swizzle
+    static constexpr int SPAN = HD % 64 == 0 ? 128 : HD % 32 == 0 ? 64 : 32;
+    static constexpr int EL = SPAN / 2;
+    static constexpr int OWN = QUERIES * HD * 2;       // bytes of Q (or dO)
+    static constexpr int TILE = W * HD * 2;            // bytes of a step's K (or V)
+    // Q, dO, the two stages' K and V, their key ids, then the mbarriers: a
+    // stage's K and V landed (one a stage), Q and dO landed
+    static constexpr int IDS = 2 * OWN + 4 * TILE;
+    static constexpr int FULL = IDS + 2 * W * 4;
+    static constexpr int QBAR = FULL + 2 * 8;
+    static constexpr int SMEM = QBAR + 8;
+    static_assert(OWN % 1024 == 0 && TILE % 1024 == 0, "tiles off the swizzle's 1024 bytes");
+    static_assert(SMEM <= 232448, "shared memory above the block limit");
+};
+
+// K8: one block per (batch, head, tile of 64 queries), one warpgroup; it
+// walks the key steps that meet its queries. A step: S = Q K^T and
+// dP = dO V^T (wgmma, both operands in shared memory), dS * scale made from
+// the accumulators, rounded to bf16 and packed into wgmma's register A
+// fragments, then dQ += dS K (wgmma, A from registers). One thread asks the
+// TMA for Q and dO once and for the next step's K and V while the current
+// step runs (two stages, an mbarrier each); every thread copies the next
+// step's key ids (cp.async). The rows' lse, delta and ids stay in registers.
+// One block-wide barrier a step. dQ leaves through shared memory as whole
+// 16-byte pieces. At most 128 registers, so four blocks share an SM up to
+// hd = 96 (three above, by shared memory).
+template <int HD>
+__global__ void __launch_bounds__(DqCfg<HD>::THREADS, 4)
+bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   bool q_swap, bool do_swap, const float* __restrict__ lse,
+                   const float* __restrict__ delta, const int* __restrict__ seg,
+                   __nv_bfloat16* __restrict__ dq, int NH, int S, Strides os, float scale)
 {
-    using C = Cfg<HD>;
-    constexpr int W = C::W, LD = C::LD, NK = W / 8, ND = HD / 8;
-    extern __shared__ __align__(16) unsigned char smem[];
-    const uint32_t sb = smem_u32(smem);
-    const uint32_t Qs = sb, dOs = sb + 2 * BT * LD;
-    auto Ks = [&](int st) { return sb + 2 * (C::OWN + st * C::STEP); };
-    auto Vs = [&](int st) { return Ks(st) + 2 * W * LD; };
-    int* segk = reinterpret_cast<int*>(smem + 2 * (C::OWN + 2 * C::STEP));  // [2][W]
+    using C = DqCfg<HD>;
+    constexpr int W = C::W, QUERIES = C::QUERIES, NT = C::THREADS;
+    extern __shared__ __align__(1024) unsigned char smem8[];  // the swizzles repeat every 1024 bytes
+    const uint32_t sb = smem_u32(smem8);
+    if (sb % 1024 != 0) __trap();
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
     const int g = lane >> 2, t = lane & 3;
+    const uint32_t q_sm = sb, o_sm = sb + C::OWN;
+    auto k_sm = [&](int st) { return sb + 2 * C::OWN + st * 2 * C::TILE; };
+    auto v_sm = [&](int st) { return k_sm(st) + C::TILE; };
+    auto ids = [&](int st) { return reinterpret_cast<const int*>(smem8 + C::IDS) + st * W; };
+    // descriptors: K-major, k-step kk of an R-row tile; MN-major, the step's
+    // K tile from key 16 kk
+    constexpr int SPAN = C::SPAN, KPS = C::EL / 16;  // k-steps a slab row
+    auto kdesc = [&](uint32_t base, int R, int kk) {
+        return smem_desc_sw<SPAN>(base + (kk / KPS) * R * SPAN + (kk % KPS) * 32, 16);
+    };
+    auto ndesc = [&](uint32_t ks, int kk) {
+        return smem_desc_sw<SPAN>(ks + kk * 16 * SPAN, W * SPAN);
+    };
+    auto full = [&](int st) { return sb + C::FULL + 8 * st; };
 
-    const int ntiles = (S + BT - 1) / BT;
+    const int ntiles = (S + QUERIES - 1) / QUERIES;
     const int bh = blockIdx.x / ntiles;
-    const int m0 = (blockIdx.x - bh * ntiles) * BT;
+    const int m0 = (blockIdx.x - bh * ntiles) * QUERIES;
     const int b = bh / NH, h = bh - b * NH;
     const int* segb = seg + (size_t)b * S;
-    const size_t in_off = (size_t)b * in.b + (size_t)h * in.h;
-    const __nv_bfloat16* kb = k + in_off;
-    const __nv_bfloat16* vb = v + in_off;
+    if (tid == 0) {
+        mbar_init(full(0), 1);
+        mbar_init(full(1), 1);
+        mbar_init(sb + C::QBAR, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
 
+    // a step's K and V tiles by TMA (rows past S land as zeros), its key ids
+    // by cp.async (zeros past S)
     auto load_step = [&](int st, int n0) {
-        load_tile<HD, W>(Ks(st), kb, in.s, n0, S);
-        load_tile<HD, W>(Vs(st), vb, in.s, n0, S);
-        for (int i = tid; i < W; i += THREADS) {
-            const bool ok = n0 + i < S;
-            cp_async4(smem_u32(segk + st * W + i), segb + (ok ? n0 + i : 0), ok);
+        if (tid == 0) {
+            mbar_expect_tx(full(st), 2 * C::TILE);
+            tma_load(k_sm(st), &tk, n0, h, b, q_swap, full(st));
+            tma_load(v_sm(st), &tv, n0, h, b, q_swap, full(st));
         }
+        const uint32_t r = sb + C::IDS + st * W * 4;
+        for (int i = tid; i < W; i += NT) {
+            const bool ok = n0 + i < S;
+            cp_async4(r + 4 * i, segb + (ok ? n0 + i : 0), ok);
+        }
+        cp_async_commit();
     };
 
     int qlo, qhi;
-    seg_range<BT>(segb, m0, S, lane, qlo, qhi);
-    load_tile<HD, BT>(Qs, q + in_off, in.s, m0, S);
-    load_tile<HD, BT>(dOs, dout + (size_t)b * dos.b + (size_t)h * dos.h, dos.s, m0, S);
+    seg_range<QUERIES>(segb, m0, S, lane, qlo, qhi);
+    if (tid == 0) {
+        mbar_expect_tx(sb + C::QBAR, 2 * C::OWN);
+        tma_load(q_sm, &tq, m0, h, b, q_swap, sb + C::QBAR);
+        tma_load(o_sm, &tdo, m0, h, b, do_swap, sb + C::QBAR);
+    }
     int n0 = next_step<W>(segb, 0, S, lane, qlo, qhi);
     if (n0 < S) load_step(0, n0);
-    cp_async_commit();
+    int nn = next_step<W>(segb, n0 + W, S, lane, qlo, qhi);  // the step after n0 (S: none)
 
-    // this thread's queries: rows g and g + 8 of the warp's 16
-    const int row0 = m0 + 16 * warp + g;
-    const bool qok[2] = {row0 < S, row0 + 8 < S};
+    // this thread's queries, the accumulators' rows g and g + 8 of its
+    // warp's 16: lse * log2 e, delta * scale and the id of each; a query past
+    // S is computed on zeros and never written
+    const int row0 = 16 * warp + g;
     const size_t rb = (size_t)bh * S;
-    float lrow[2], drow[2];
+    float lz[2], dz[2];
     int sq[2];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
-        const int r = row0 + 8 * hf;
-        lrow[hf] = qok[hf] ? lse[rb + r] : 0.f;
-        drow[hf] = qok[hf] ? delta[rb + r] : 0.f;
-        sq[hf] = qok[hf] ? segb[r] : 0;
+        const int r = m0 + row0 + 8 * hf;
+        const bool ok = r < S;
+        lz[hf] = ok ? lse[rb + r] * LOG2E : 0.f;
+        dz[hf] = ok ? delta[rb + r] * scale : 0.f;
+        sq[hf] = ok ? segb[r] : 0;
     }
+    const float scale2 = scale * LOG2E;
 
-    float adq[ND][4];
+    float adq[HD / 2];
 #pragma unroll
-    for (int j = 0; j < ND; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) adq[j][e] = 0.f;
+    for (int i = 0; i < HD / 2; ++i) adq[i] = 0.f;
 
-    int st = 0;
+    mbar_wait(sb + C::QBAR, 0);
+    int st = 0, uses = 0;  // uses: steps taken (stage st's phase: (uses / 2) & 1)
     while (n0 < S) {
-        const int nn = next_step<W>(segb, n0 + W, S, lane, qlo, qhi);
-        if (nn < S) {
-            load_step(st ^ 1, nn);
-            cp_async_commit();
-            cp_async_wait<1>();
-        } else {
-            cp_async_wait<0>();
-        }
-        __syncthreads();
+        cp_async_wait<0>();                  // this step's key ids
+        mbar_wait(full(st), (uses >> 1) & 1);  // ... and its K and V
+        __syncthreads();  // visible to every warp; every warp is done with the other stage
+        if (nn < S) load_step(st ^ 1, nn);
+        const uint32_t ks = k_sm(st), vs = v_sm(st);
 
-        // S = Q K^T and dP = dO V^T for the warp's 16 queries x W keys
-        float sc[NK][4], dp[NK][4];
+        // S = Q K^T and dP = dO V^T: 64 queries x W keys, summed over hd
+        float sc[W / 2], dp[W / 2];
 #pragma unroll
-        for (int j = 0; j < NK; ++j)
+        for (int i = 0; i < W / 2; ++i) {
+            sc[i] = 0.f;
+            dp[i] = 0.f;
+        }
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+            wgmma_ss<W>(sc, kdesc(q_sm, QUERIES, kk), kdesc(ks, W, kk));
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)
+            wgmma_ss<W>(dp, kdesc(o_sm, QUERIES, kk), kdesc(vs, W, kk));
+        wgmma_commit();
+        const int nnn = next_step<W>(segb, nn < S ? nn + W : S, S, lane, qlo, qhi);  // meanwhile
+        wgmma_wait<0>();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // dS * scale in place: query rows g (dp[4j], dp[4j + 1]) and g + 8
+        // (dp[4j + 2], dp[4j + 3]), key columns 8j + 2t + {0, 1}.
+        // P = 2^(s * scale * log2 e - lse * log2 e) in float32, then the mask
+        // (one segment, and the key below S: ids past S read as 0, which a
+        // query may hold); dS * scale = P * (dP * scale - delta * scale)
+        const int* sk_s = ids(st);
+        const int keys = S - n0;  // of the step's columns, those below S
+#pragma unroll
+        for (int j = 0; j < W / 8; ++j) {
+            const int col = 8 * j + 2 * t;
+            const int2 sk = *reinterpret_cast<const int2*>(sk_s + col);
+            const bool in0 = col < keys, in1 = col + 1 < keys;
+            const bool vis[4] = {in0 && sk.x == sq[0], in1 && sk.y == sq[0],
+                                 in0 && sk.x == sq[1], in1 && sk.y == sq[1]};
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
-                sc[j][e] = 0.f;
-                dp[j][e] = 0.f;
-            }
-#pragma unroll
-        for (int kk = 0; kk < HD; kk += 16) {
-            uint32_t qa[4], oa[4];
-            ldsm_x4(qa, a_addr<LD>(Qs, lane, 16 * warp, kk));
-            ldsm_x4(oa, a_addr<LD>(dOs, lane, 16 * warp, kk));
-#pragma unroll
-            for (int j = 0; j < NK; j += 2) {
-                uint32_t kf[4], vf[4];
-                ldsm_x4(kf, b_addr<LD>(Ks(st), lane, 8 * j, kk));
-                ldsm_x4(vf, b_addr<LD>(Vs(st), lane, 8 * j, kk));
-                mma(sc[j], qa, kf[0], kf[1]);
-                mma(sc[j + 1], qa, kf[2], kf[3]);
-                mma(dp[j], oa, vf[0], vf[1]);
-                mma(dp[j + 1], oa, vf[2], vf[3]);
+                const float x = fast_exp2(fmaf(sc[4 * j + e], scale2, -lz[e >> 1]));
+                const float p = vis[e] ? x : 0.f;
+                dp[4 * j + e] = p * fmaf(dp[4 * j + e], scale, -dz[e >> 1]);
             }
         }
+        // the C fragments of two 8-column chunks, packed to bf16, are one
+        // register A fragment of 16 keys
+        uint32_t sa[W / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < W / 16; ++kk)
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                sa[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
 
-        // dS * scale in place: query rows g (e < 2) and g + 8, key columns
-        // 8 j + 2 t + (e & 1)
-        const int* sk = segk + st * W;
+        // dQ += bf16(dS * scale) K over the step's keys
+        fence_regs(adq);
+        wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < NK; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int hf = e >> 1;
-                const int col = 8 * j + 2 * t + (e & 1);
-                const bool vis = qok[hf] && n0 + col < S && sk[col] == sq[hf];
-                const float p = vis ? __expf(sc[j][e] * scale - lrow[hf]) : 0.f;
-                dp[j][e] = p * (dp[j][e] - drow[hf]) * scale;
-            }
-
-        // dQ += bf16(dS) K over the step's keys
-#pragma unroll
-        for (int kk = 0; kk < W / 16; ++kk) {
-            const uint32_t sa[4] = {pack_bf16(dp[2 * kk][0], dp[2 * kk][1]),
-                                    pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
-                                    pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
-                                    pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
-#pragma unroll
-            for (int jd = 0; jd < ND; jd += 2) {
-                uint32_t kf[4];
-                ldsm_x4_t(kf, bt_addr<LD>(Ks(st), lane, 16 * kk, 8 * jd));
-                mma(adq[jd], sa, kf[0], kf[1]);
-                mma(adq[jd + 1], sa, kf[2], kf[3]);
-            }
-        }
-        __syncthreads();  // every warp is done with this stage before it is refilled
+        for (int kk = 0; kk < W / 16; ++kk)
+            wgmma_rs<HD>(adq, sa[kk], ndesc(ks, kk));
+        wgmma_commit();
+        wgmma_wait<0>();  // this stage is refilled after the next barrier
+        fence_regs(adq);
         st ^= 1;
+        ++uses;
         n0 = nn;
+        nn = nnn;
     }
 
+    // dQ rounded once and staged row-major in shared memory, rows HD + 8
+    // elements apart (the 8 rows a warp writes at once fall on distinct
+    // banks): row g of the warp's 16 from adq[4j], adq[4j + 1], row g + 8
+    // from adq[4j + 2], adq[4j + 3], columns 8j + 2t + {0, 1}. Then it leaves
+    // as whole 16-byte pieces, a warp covering whole rows.
+    constexpr int LDO = HD + 8;
+    static_assert(QUERIES * LDO * 2 <= C::FULL, "dQ fits beside the barriers");
+    __syncthreads();  // every warp is done with Q, dO and the stages
+    __nv_bfloat16* oq = reinterpret_cast<__nv_bfloat16*>(smem8);
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+#pragma unroll
+        for (int j = 0; j < HD / 8; ++j)
+            *reinterpret_cast<__nv_bfloat162*>(oq + (row0 + 8 * half) * LDO + 8 * j + 2 * t) =
+                __floats2bfloat162_rn(adq[4 * j + 2 * half], adq[4 * j + 2 * half + 1]);
+    __syncthreads();
     const size_t out_off = (size_t)b * os.b + (size_t)h * os.h;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-        if (!qok[hf]) continue;
-        __nv_bfloat16* dqr = dq + out_off + (size_t)(row0 + 8 * hf) * os.s;
-#pragma unroll
-        for (int j = 0; j < ND; ++j)
-            *reinterpret_cast<__nv_bfloat162*>(dqr + 8 * j + 2 * t) =
-                __floats2bfloat162_rn(adq[j][2 * hf], adq[j][2 * hf + 1]);
+    for (int idx = tid; idx < QUERIES * HD / 8; idx += NT) {
+        const int r = idx / (HD / 8), ch = idx - r * (HD / 8);
+        if (m0 + r >= S) continue;
+        *reinterpret_cast<uint4*>(dq + out_off + (size_t)(m0 + r) * os.s + 8 * ch) =
+            *reinterpret_cast<const uint4*>(oq + r * LDO + 8 * ch);
     }
 }
 
@@ -881,28 +914,34 @@ constexpr int ERR_ENCODE = 10002;      // a tensor map was refused
 
 // A 5-d tensor map over a bf16 (B, NH, S, HD) tensor with element strides st,
 // whose boxes are rows rows of the sequence, every element of them, landing
-// as 16-byte columns of all the rows, one after the other: dim 0 is a 16-byte
-// column of a row, dim 1 the sequence, dim 2 the row's columns, dims 3 and 4
-// head and batch, the smaller stride first (hb_swap: batch first). Rows past
-// S read as zeros.
+// as column slabs of all the rows, one after the other: dim 0 is a slab's
+// part of a row, dim 1 the sequence, dim 2 the row's slabs, dims 3 and 4
+// head and batch, the smaller stride first (hb_swap: batch first). A slab is
+// 16 bytes wide in the no-swizzle core-matrix layout (span = 0), or span =
+// 32, 64 or 128 bytes in the swizzle of that span. Rows past S read as zeros.
 int make_map(CUtensorMap* map, const void* ptr, Strides st, const Problem& p, int HD, int rows,
-             bool& hb_swap) {
+             bool& hb_swap, int span = 0) {
     EncodeTiled encode = encoder();
     if (encode == nullptr) return ERR_NO_ENCODER;
     hb_swap = st.b < st.h;
     const long long hs = hb_swap ? st.b : st.h, bs = hb_swap ? st.h : st.b;
     const int hn = hb_swap ? p.B : p.NH, bn = hb_swap ? p.NH : p.B;
-    const cuuint64_t dims[5] = {8, static_cast<cuuint64_t>(p.S), static_cast<cuuint64_t>(HD / 8),
-                                static_cast<cuuint64_t>(hn), static_cast<cuuint64_t>(bn)};
-    const cuuint64_t strides[4] = {static_cast<cuuint64_t>(st.s) * 2, 16,
+    const int cw = span ? span / 2 : 8;  // elements of a box row
+    const cuuint64_t dims[5] = {static_cast<cuuint64_t>(cw), static_cast<cuuint64_t>(p.S),
+                                static_cast<cuuint64_t>(HD / cw), static_cast<cuuint64_t>(hn),
+                                static_cast<cuuint64_t>(bn)};
+    const cuuint64_t strides[4] = {static_cast<cuuint64_t>(st.s) * 2,
+                                   static_cast<cuuint64_t>(cw) * 2,
                                    static_cast<cuuint64_t>(hs) * 2,
                                    static_cast<cuuint64_t>(bs) * 2};
-    const cuuint32_t box[5] = {8, static_cast<cuuint32_t>(rows),
-                               static_cast<cuuint32_t>(HD / 8), 1, 1};
+    const cuuint32_t box[5] = {static_cast<cuuint32_t>(cw), static_cast<cuuint32_t>(rows),
+                               static_cast<cuuint32_t>(HD / cw), 1, 1};
     const cuuint32_t one[5] = {1, 1, 1, 1, 1};
     const CUresult res = encode(
         map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(ptr), dims, strides, box,
-        one, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+        one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+        : span == 32 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE,
         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return res == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
@@ -967,19 +1006,26 @@ template <int HD>
 struct Dq {
     static bool ready[MAX_DEVICES];
     static int launch(const Problem& p) {
-        constexpr int smem = Cfg<HD>::SMEM;
+        using C = DqCfg<HD>;
         int blocks;
-        if (int e = prepare(p, bwd_dq_bf16_kernel<HD>, smem, BT, ready, blocks)) return e;
-        bwd_dq_bf16_kernel<HD><<<blocks, THREADS, smem, p.stream>>>(
-            p.q, p.k, p.v, p.dout, p.lse, p.delta, p.seg, p.out0, p.NH, p.S, p.in, p.dos,
-            p.os, p.scale);
+        if (int e = prepare(p, bwd_dq_bf16_kernel<HD>, C::SMEM, C::QUERIES, ready, blocks))
+            return e;
+        CUtensorMap tq, tdo, tk, tv;
+        bool q_swap, do_swap;
+        if (int e = make_map(&tq, p.q, p.in, p, HD, C::QUERIES, q_swap, C::SPAN)) return e;
+        if (int e = make_map(&tk, p.k, p.in, p, HD, C::W, q_swap, C::SPAN)) return e;
+        if (int e = make_map(&tv, p.v, p.in, p, HD, C::W, q_swap, C::SPAN)) return e;
+        if (int e = make_map(&tdo, p.dout, p.dos, p, HD, C::QUERIES, do_swap, C::SPAN)) return e;
+        bwd_dq_bf16_kernel<HD><<<blocks, C::THREADS, C::SMEM, p.stream>>>(
+            tq, tdo, tk, tv, q_swap, do_swap, p.lse, p.delta, p.seg, p.out0, p.NH, p.S, p.os,
+            p.scale);
         return static_cast<int>(cudaGetLastError());
     }
     static int occupancy(int& blocks) {
-        constexpr int smem = Cfg<HD>::SMEM;
-        if (int e = allow_smem(bwd_dq_bf16_kernel<HD>, smem, ready)) return e;
+        using C = DqCfg<HD>;
+        if (int e = allow_smem(bwd_dq_bf16_kernel<HD>, C::SMEM, ready)) return e;
         return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &blocks, bwd_dq_bf16_kernel<HD>, THREADS, smem));
+            &blocks, bwd_dq_bf16_kernel<HD>, C::THREADS, C::SMEM));
     }
 };
 template <int HD>
@@ -1005,8 +1051,8 @@ using bf16 = __nv_bfloat16;
 // q, k, v: element (b, h, s, d) at b*in_b + h*in_h + s*in_s + d; dout with the
 // do_* strides; dk, dv (K7) and dq (K8) with the out_* strides; lse and delta
 // (B, NH, S) float32 and seg (B, S) int32, contiguous. Strides in elements.
-// Returns the cudaError of the launch (0 = launched); K7 also 10001 / 10002
-// when cuTensorMapEncodeTiled is missing or refuses a layout.
+// Returns the cudaError of the launch (0 = launched), or 10001 / 10002 when
+// cuTensorMapEncodeTiled is missing or refuses a layout.
 extern "C" int flash_attention_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
                                             const bf16* dout, const float* lse,
                                             const float* delta, const int* seg, bf16* dk,

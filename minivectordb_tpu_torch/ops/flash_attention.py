@@ -273,7 +273,7 @@ def bwd_tile_shapes(dtype, hd: int) -> dict:
     which K7 and K8 serving (dtype, hd) decide to skip or multiply. float32
     (csrc/flash_attention_bwd.cu: T): 64 x 64 for both. bfloat16
     (csrc/flash_attention_bwd_bf16.cu): K7 W x 64 (DkvCfg::W, KEYS), K8
-    64 x W (BT, Cfg::W), with W = 64 up to hd = 64, else 32."""
+    64 x W (DqCfg::QUERIES, W), with W = 64 up to hd = 64, else 32."""
     if dtype == torch.bfloat16:
         w = 64 if hd <= 64 else 32
         return {"dkv": (w, 64), "dq": (64, w)}

@@ -356,8 +356,8 @@ def test_backward_kernels_have_a_source_count_launches_and_build_nothing_at_impo
 
 def _bwd_tile_consts():
     """The tile constants of the two backward sources: float32 T; bfloat16
-    K8's BT and its rule for W (W = HD <= a ? b : c, in Cfg), and K7's keys
-    a block (KEYS, in DkvCfg) and its own rule for W."""
+    K8's queries a block (QUERIES, in DqCfg) and its rule for W (W = HD <= a
+    ? b : c), and K7's keys a block (KEYS, in DkvCfg) and its own rule for W."""
     import os
     import re
 
@@ -369,12 +369,13 @@ def _bwd_tile_consts():
 
     f32, bf16 = read("flash_attention_bwd"), read("flash_attention_bwd_bf16")
     t = int(re.search(r"constexpr int T = (\d+);", f32).group(1))
-    bt = int(re.search(r"constexpr int BT = (\d+);", bf16).group(1))
-    dq_cfg = bf16[bf16.index("struct Cfg {"):]
+    dq_cfg = bf16[bf16.index("struct DqCfg {"):]
+    dq_cfg = dq_cfg[:dq_cfg.index("};")]
     dkv_cfg = bf16[bf16.index("struct DkvCfg {"):]
-    rule = r"constexpr int W = HD <= (\d+) \? (\d+) : (\d+);"
-    w_dq = [int(x) for x in re.search(rule, dq_cfg[:dq_cfg.index("};")]).groups()]
     dkv_cfg = dkv_cfg[:dkv_cfg.index("};")]
+    rule = r"constexpr int W = HD <= (\d+) \? (\d+) : (\d+);"
+    w_dq = [int(x) for x in re.search(rule, dq_cfg).groups()]
+    bt = int(re.search(r"constexpr int QUERIES = (\d+);", dq_cfg).group(1))
     w_dkv = [int(x) for x in re.search(rule, dkv_cfg).groups()]
     keys = int(re.search(r"constexpr int KEYS = (\d+);", dkv_cfg).group(1))
     return t, bt, w_dq, keys, w_dkv
@@ -516,23 +517,30 @@ def test_bf16_backward_kernels_have_a_source_count_launches_and_run_on_the_tenso
     for hd in fa.HEAD_DIMS:
         assert f"BWD_CASE({hd})" in src
     # bf16 products on the tensor cores with float32 accumulators; P and dS
-    # rounded to bf16 in registers; no library. K7 on wgmma: S^T and dP^T
-    # with both operands in shared memory, dV and dK with A from registers
-    # at every head width, its tiles brought by TMA onto mbarriers; K8 on
-    # mma.sync fed by ldmatrix
-    k7 = src[src.index("bwd_dkv_bf16_kernel("):src.index("bwd_dq_bf16_kernel(")]
+    # rounded to bf16 in registers; no library. Both kernels on wgmma: S^T
+    # and dP^T (K7) or S and dP (K8) with both operands in shared memory, dV
+    # and dK (K7) or dQ (K8) with A from registers at every head width, their
+    # tiles brought by TMA onto mbarriers
+    k7 = src[src.index("bwd_dkv_bf16_kernel("):src.index("struct DqCfg {")]
     k8 = src[src.index("bwd_dq_bf16_kernel("):src.index("struct Problem")]
-    assert "wgmma_ss<W>" in k7 and "wgmma_rs<HD>" in k7 and "pack_bf16" in k7
-    assert "mma(" not in k7 and "ldsm_x4" not in k7
-    for n in (32, 64):  # W, queries a step
+    for kernel in (k7, k8):
+        assert "wgmma_ss<W>" in kernel and "wgmma_rs<HD>" in kernel and "pack_bf16" in kernel
+        assert "mma(" not in kernel and "ldsm_x4" not in kernel
+    for n in (32, 64):  # W, queries (K7) or keys (K8) a step
         assert f"wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 {{" in src
     for hd in fa.HEAD_DIMS:
         assert f"wgmma_rs<{hd}>(float (&d)[{hd // 2}]" in src
         assert f"wgmma.mma_async.sync.aligned.m64n{hd}k16.f32.bf16.bf16 {{" in src
     assert "cp.async.bulk.tensor.5d" in src and "mbarrier.try_wait" in src
     assert k7.count("tma_load(") == 4  # K, V once; a step's Q and dO
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
-    assert "mma(" in k8 and "ldsm_x4_t(" in k8 and "wgmma" not in k8
+    assert k8.count("tma_load(") == 4  # Q, dO once; a step's K and V
+    # K8's tiles in the 32-, 64- or 128-byte swizzle, whole slab rows a box row
+    assert "smem_desc_sw<SPAN>" in k8 and "smem_desc(" not in k8
+    for span in (32, 64, 128):
+        assert f"CU_TENSOR_MAP_SWIZZLE_{span}B" in src
+    # no mma.sync is left, nor its ldmatrix feed
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" not in src
+    assert "ldmatrix.sync" not in src
     assert "atom." not in src and "atomicAdd" not in src  # deterministic: no atomics
     for word in ("cublas", "cutlass", "cudnn"):
         assert word not in src.lower()

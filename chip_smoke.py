@@ -27,6 +27,28 @@ Phases (one JSON object per output line):
              nprobe the kernel route must equal the plain probe
              (ops/ivf.py:_ivf_search) on the same snapshot; recall@10 is
              printed, not asserted
+  sharded_path  ShardedVectorDatabase() (shard_size 5000, durability
+             "shard") with the main path's corpus, queries and oracle, stored
+             in pieces of 50,000: 200 shard files (count and one file's
+             schema and rows asserted), batch, filtered, single and async
+             searches and get_vector spot checks against the oracle, a
+             reopen, 1,000 deletes across the corpus; then on the same
+             directory 20,000 single-row appends with durability "wal" and
+             500 with "wal_fsync", each replayed by a reopen without
+             compact() (wal.log gone, hits equal to the oracle over the grown
+             corpus); ShardedVectorDatabaseUsearch() over the same corpus
+             (distances ascend, top-1 within 0.05 of 1 - cosine, recall@10
+             >= 0.9 against the float32 oracle, a reopen gives the same ids);
+             ShardedVectorDatabase(index="ivf") over 131,072 rows of the
+             mixture (ivf_path's checks, then a reopen that reattaches
+             ivf_layout.bin without k-means and gives the same hits); and
+             hybrid_rerank_results(device=True) on the card over 1,024
+             seeded candidates, some non-ASCII, for a query under 64 bytes
+             and one over, against device=False (order equal where the
+             host's scores are not tied within 1e-5, scores within 1e-4).
+             Prints load, reopen, delete, append and rerank times. Each
+             database's searches are counted from 0 (K1-f32 and its masked
+             entry, K2, K4-bf16 and K3-bf16 must be launched, and no other)
   encoder_path  EmbeddingModel() (the bundled builtin artifact) on texts long
              enough for sequences of 256 and 512 (K6-f32, 2 launches a call)
              and on short ones (no launch), and batches of 1 and of 8 through
@@ -116,8 +138,9 @@ Phases (one JSON object per output line):
              give each kernel's registers, spills and blocks an SM at
              hd = 64.
              "launches" are the counts of the path phases above: the flat
-             phases, and each database of the ivf phase, are driven through
-             the public class with every count at 0 and read just after;
+             phases, and each database of the ivf and sharded phases, are
+             driven through the public class with every count at 0 and read
+             just after;
              every launch made to compare a kernel or a route with its plain
              version runs after that read and does not count
 The last line is {"ok": true, "device": {...}}.
@@ -203,9 +226,12 @@ the tiles from tile_shape and bwd_tile_shapes).
 """
 
 import contextlib
+import gc
 import io
 import json
 import os
+import pickle
+import random
 import re
 import shutil
 import statistics
@@ -224,6 +250,8 @@ if not torch.cuda.is_available():
 import torch.nn.functional as F  # noqa: E402
 
 from minivectordb_tpu_torch import EmbeddingModel, VectorDatabase  # noqa: E402
+from minivectordb_tpu_torch import ShardedVectorDatabase  # noqa: E402
+from minivectordb_tpu_torch import ShardedVectorDatabaseUsearch  # noqa: E402
 from minivectordb_tpu_torch import convert as port_convert  # noqa: E402
 from minivectordb_tpu_torch.core.pipeline import TextSearchPipeline  # noqa: E402
 from minivectordb_tpu_torch.kernels import build  # noqa: E402
@@ -246,6 +274,7 @@ D = 384
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "i8": 1979e12}
 TOL = {"f32": 2e-5, "bf16": 2e-5, "i8": 0.0}
+SHARDED_IVF_ROWS = 131_072  # the sharded phase's index="ivf" corpus
 MASKED = float(np.float32(-3.0e38))
 TOL_K6 = {"f32": 2e-5, "bf16": 2e-2}
 # bfloat16 only, per output row (the hd values of one query and head):
@@ -268,6 +297,8 @@ GRAD_BF16_FACTOR = 4.0
 GRAD_BF16_MEDIAN_FACTOR = 2.0
 GRAD_BF16_QK_CAP = 2.0 ** -4
 SOURCES = build.SOURCES
+# what the sharded classes must launch: K1-f32, K2, K4-bf16 and K3-bf16
+SHARDED_ENTRY_POINTS = {"phase1_f32", "phase1_i8", "ivf_grouped_bf16", "ivf_probe_bf16"}
 # the text path's K6 entry points and the training paths'
 TEXT_ENTRY_POINTS = ("flash_attention_f32", "flash_attention_bf16")
 TRAIN_ENTRY_POINTS = ("flash_attention_lse_f32", "flash_attention_bwd_dkv_f32",
@@ -427,7 +458,9 @@ def load_db(db, corpus: np.ndarray, pieces: int) -> float:
     return time.perf_counter() - t0
 
 
-def phase_main_path(tmp: str) -> dict:
+def phase_main_path(tmp: str) -> tuple:
+    """Returns the corpus, the queries and the oracle's top-10, which the
+    sharded phase drives again."""
     n, b, k = 1_000_000, 256, 10
     rng = np.random.default_rng(SEED)
     corpus = rng.standard_normal((n, D), dtype=np.float32)
@@ -497,7 +530,7 @@ def phase_main_path(tmp: str) -> dict:
         "checked": ["batch", "filtered", "single", "async x4", "after delete"],
     }
     emit(out)
-    return out
+    return corpus, queries, want_v, want_i
 
 
 # ---------------------------------------------------------------------------
@@ -974,6 +1007,322 @@ def phase_ivf_path(tmp: str):
         torch.cuda.empty_cache()
     emit(out)
     return shapes, path_launches
+
+
+# ---------------------------------------------------------------------------
+# sharded path: the sharded classes (shard files, WAL, IVF sidecar) and the
+# device rerank
+# ---------------------------------------------------------------------------
+
+SHARD_SCHEMA = {"embeddings", "metadata", "unique_ids", "inverted_index"}
+
+
+def shard_files(folder: str) -> list:
+    return sorted(f for f in os.listdir(folder) if re.fullmatch(r"shard_\d+\.pkl", f))
+
+
+def read_fused_launches(want: set, what: str) -> dict:
+    """The phase-1 counts since the last reset: exactly the entry points in
+    ``want`` launched, and never the narrow-row kernel."""
+    got = dict(fused_scan.LAUNCHES)
+    assert {n for n, c in got.items() if c > 0} == want, (what, got)
+    assert not any(fused_scan.NARROW_LAUNCHES.values()), (what, fused_scan.NARROW_LAUNCHES)
+    return got
+
+
+def fresh(cls, **kw):
+    """A sharded database through its public constructor; the int8 class
+    prints a banner, kept off the result lines."""
+    with contextlib.redirect_stdout(io.StringIO()):
+        return cls(**kw)
+
+
+def free_card() -> None:
+    """After the caller dropped its database: its buffers go back to the card."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def append_rows(db, first_uid: int, rows: np.ndarray) -> float:
+    """One store_embedding a row (the WAL's per-record path); seconds."""
+    t0 = time.perf_counter()
+    for i in range(rows.shape[0]):
+        db.store_embedding(first_uid + i, rows[i], {"bucket": (first_uid + i) % 16})
+    return time.perf_counter() - t0
+
+
+def sharded_f32_and_wal(tmp: str, corpus, queries, want_v, want_i, k: int) -> dict:
+    """(a) write-through float32 at the main path's corpus; (b) the WAL."""
+    n, b = corpus.shape[0], queries.shape[0]
+    buckets = np.arange(n) % 16
+    folder = os.path.join(tmp, "shards_f32")
+    out = {}
+    fused_scan.reset_launches()
+    db = ShardedVectorDatabase(storage_dir=folder)
+    assert db.shard_size == 5000 and db.durability == "shard"
+    out["load_s"] = load_db(db, corpus, pieces=n // 50_000)
+    files = shard_files(folder)
+    assert len(files) == n // 5000 and sorted(os.listdir(folder)) == files, len(files)
+    with open(os.path.join(folder, "shard_7.pkl"), "rb") as f:
+        data = pickle.load(f)
+    assert set(data) == SHARD_SCHEMA and data["embeddings"].dtype == np.float32
+    assert data["unique_ids"] == list(range(35_000, 40_000))
+    assert np.array_equal(data["embeddings"], corpus[35_000:40_000])
+    assert data["metadata"] == [{"bucket": i % 16} for i in range(35_000, 40_000)]
+    assert data["inverted_index"] == {"bucket": set(range(35_000, 40_000))}
+    del data
+
+    t0 = time.perf_counter()
+    first = db.find_most_similar_batch(queries, k=k)  # uploads the corpus
+    out["first_search_s"] = time.perf_counter() - t0
+    check_hits(first, want_v, want_i, "sharded batch")
+    res, out["batch_256_ms_median"] = timed_batches(db, queries, k)
+    check_hits(res, want_v, want_i, "sharded batch, repeated")
+    filt = db.find_most_similar_batch(queries, k=k, metadata_filter={"bucket": 3})
+    fv, fi = oracle_topk(corpus, queries, k, keep=buckets == 3)
+    check_hits(filt, fv, fi, "sharded filtered batch")
+    assert all(md["bucket"] == 3 for _i, _s, mds in filt for md in mds)
+    ids, scores, _ = db.find_most_similar(queries[0], k=k)
+    check_hits([(ids, scores, None)], want_v[:1], want_i[:1], "sharded single query")
+    handles = [db.find_most_similar_batch_async(queries[j * 64:(j + 1) * 64], k=k)
+               for j in range(4)]
+    for j, h in enumerate(handles):
+        check_hits(h.result(), want_v[j * 64:(j + 1) * 64],
+                   want_i[j * 64:(j + 1) * 64], f"sharded async handle {j}")
+    for uid in (0, 4_999, 5_000, n // 2 + 7, n - 1):  # read from its shard file
+        assert np.array_equal(db.get_vector(uid), corpus[uid]), uid
+    st = db.stats()
+    assert st["shards"] == n // 5000 and st["count"] == n, st
+    del db
+    free_card()
+
+    t0 = time.perf_counter()
+    db = ShardedVectorDatabase(storage_dir=folder)
+    out["reopen_s"] = time.perf_counter() - t0
+    check_hits(db.find_most_similar_batch(queries, k=k), want_v, want_i, "after reopen")
+
+    # 1,000 ids across the corpus, every query's best hit among them
+    doomed = np.unique(want_i[:, 0])
+    others = np.setdiff1d(np.random.default_rng(SEED + 21).choice(n, 4000, replace=False),
+                          doomed)
+    doomed = np.concatenate([doomed, others[: 1000 - doomed.size]])
+    assert doomed.size == 1000
+    t0 = time.perf_counter()
+    db.delete_embeddings_batch(doomed.tolist())
+    out["delete_1000_s"] = time.perf_counter() - t0
+    out["delete_shards_rewritten"] = int(np.unique(doomed // 5000).size)
+    keep = np.ones(n, dtype=bool)
+    keep[doomed] = False
+    dv, di = oracle_topk(corpus, queries, k, keep=keep)
+    after = db.find_most_similar_batch(queries, k=k)
+    check_hits(after, dv, di, "sharded after delete")
+    gone = set(doomed.tolist())
+    assert not any(i in gone for ids, _s, _m in after for i in ids)
+    del db
+    free_card()
+
+    # (b) the WAL: 20,000 appends (the queries first), reopen without
+    # compact(): replayed, wal.log gone, the oracle over the grown corpus
+    wal_path = os.path.join(folder, "wal.log")
+    extra = np.random.default_rng(SEED + 22).standard_normal((20_500, D), dtype=np.float32)
+    extra[:b] = queries
+    db = ShardedVectorDatabase(storage_dir=folder, durability="wal")
+    wal_s = append_rows(db, n, extra[:20_000])
+    # the shard files wait for the replay: 200 of them, the 4 new ones unwritten
+    assert os.path.getsize(wal_path) > 0 and len(shard_files(folder)) == n // 5000
+    del db
+    free_card()
+    t0 = time.perf_counter()
+    db = ShardedVectorDatabase(storage_dir=folder, durability="wal")
+    out["wal_reopen_replay_s"] = time.perf_counter() - t0
+    assert not os.path.exists(wal_path) and len(shard_files(folder)) == n // 5000 + 4
+    assert db.stats()["count"] == n - 1000 + 20_000
+    full = np.concatenate([corpus, extra[:20_000]])
+    keep = np.concatenate([keep, np.ones(20_000, dtype=bool)])
+    gv, gi = oracle_topk(full, queries, k, keep=keep)
+    grown = db.find_most_similar_batch(queries, k=k)
+    check_hits(grown, gv, gi, "after WAL replay")
+    assert [r[0][0] for r in grown] == list(range(n, n + b)), "replayed rows not found"
+
+    # 500 rows with an fsync a record, the same check
+    del db
+    free_card()
+    db = ShardedVectorDatabase(storage_dir=folder, durability="wal_fsync")
+    fsync_s = append_rows(db, n + 20_000, extra[20_000:])
+    del db
+    free_card()
+    t0 = time.perf_counter()
+    db = ShardedVectorDatabase(storage_dir=folder, durability="wal_fsync")
+    out["wal_fsync_reopen_replay_s"] = time.perf_counter() - t0
+    assert not os.path.exists(wal_path)
+    full = np.concatenate([full, extra[20_000:]])
+    keep = np.concatenate([keep, np.ones(500, dtype=bool)])
+    gv, gi = oracle_topk(full, queries, k, keep=keep)
+    check_hits(db.find_most_similar_batch(queries, k=k), gv, gi, "after WAL fsync replay")
+    assert np.array_equal(db.get_vector(n + 20_499), extra[20_499])
+    out["wal_s_per_1000_appends"] = wal_s / 20
+    out["wal_fsync_s_per_1000_appends"] = fsync_s / 0.5
+    out["launches"] = read_fused_launches({"phase1_f32", "phase1_f32_mask"}, "float32 sharded")
+    del db
+    free_card()
+    shutil.rmtree(folder)
+    out["checked"] = [f"{n // 5000} shard files, shard_7.pkl's schema and rows", "batch",
+                      "filtered", "single", "async x4", "get_vector from shard files",
+                      "reopen", "1000 deletes", "WAL replay of 20000 appends",
+                      "wal_fsync replay of 500 appends"]
+    return out
+
+
+def sharded_int8(tmp: str, corpus, queries, want_v, want_i, k: int) -> dict:
+    """(c) ShardedVectorDatabaseUsearch at the main path's corpus."""
+    folder = os.path.join(tmp, "shards_i8")
+    fused_scan.reset_launches()
+    db = fresh(ShardedVectorDatabaseUsearch, storage_dir=folder)
+    out = {"load_s": load_db(db, corpus, pieces=corpus.shape[0] // 50_000)}
+    t0 = time.perf_counter()
+    res = db.find_most_similar_batch(queries, k=k)
+    out["first_search_s"] = time.perf_counter() - t0
+    top1_err = 0.0
+    for b, (ids, dists, _md) in enumerate(res):
+        assert len(ids) == k and all(dists[i] <= dists[i + 1] + 1e-6 for i in range(k - 1)), b
+        top1_err = max(top1_err, abs(dists[0] - (1.0 - float(want_v[b, 0]))))
+    assert top1_err < 0.05, top1_err
+    out["top1_distance_max_abs_err"] = top1_err
+    out["recall_at_10"] = recall_at_k(res, want_i)
+    assert out["recall_at_10"] >= 0.9, out["recall_at_10"]
+    _again, out["batch_256_ms_median"] = timed_batches(db, queries, k)
+    single = db.find_most_similar(queries[0], k=k)
+    assert single[0][0] == res[0][0][0] and list(single[1]) == sorted(single[1])
+    del db
+    free_card()
+    t0 = time.perf_counter()
+    db = fresh(ShardedVectorDatabaseUsearch, storage_dir=folder)
+    out["reopen_s"] = time.perf_counter() - t0
+    assert [r[0] for r in db.find_most_similar_batch(queries, k=k)] == [r[0] for r in res]
+    out["launches"] = read_fused_launches({"phase1_i8"}, "int8 sharded")
+    del db
+    free_card()
+    shutil.rmtree(folder)
+    return out
+
+
+def sharded_ivf(tmp: str, k: int, path_launches: dict) -> dict:
+    """(d) index="ivf": build, batches of 256 (K4-bf16) and 8 (K3-bf16),
+    then reopen: the layout comes back from ivf_layout.bin, no k-means."""
+    corpus, queries = mixture(SHARDED_IVF_ROWS, 256, SEED + 23)
+    folder = os.path.join(tmp, "shards_ivf")
+    ivf_probe.reset_launches()
+    db = ShardedVectorDatabase(storage_dir=folder, index="ivf")
+    assert db._engine.ivf_opts["nlist"] == 1024 and db.nprobe == 32
+    load_s = load_db(db, corpus, pieces=8)
+    out = ivf_common_checks(db, corpus, queries, k, "bfloat16")
+    out["load_s"] = load_s
+    assert os.path.exists(os.path.join(folder, "ivf_layout.bin"))
+    want = db.find_most_similar_batch(queries, k=k)
+    want8 = db.find_most_similar_batch(queries[:8], k=k)
+    del db
+    free_card()
+    t0 = time.perf_counter()
+    db = ShardedVectorDatabase(storage_dir=folder, index="ivf")
+    out["reopen_s"] = time.perf_counter() - t0
+    assert db.stats()["ivf"]["pending_attach"]
+    t0 = time.perf_counter()
+    got = db.find_most_similar_batch(queries, k=k)
+    out["reopen_first_search_s"] = time.perf_counter() - t0
+    assert [r[0] for r in got] == [r[0] for r in want], "reopen ids"
+    assert [r[0] for r in db.find_most_similar_batch(queries[:8], k=k)] == [r[0] for r in want8]
+    ops = db.stats()["ops"]
+    assert "ivf_build" not in ops and ops["ivf_attach"]["count"] == 1, ops
+    out["launches"] = read_path_launches(path_launches, "bfloat16")
+    out["checked"] += ["ivf_layout.bin written", "reopen reattaches without k-means",
+                       "same hits after reopen (batch 256, batch 8)"]
+    del db
+    free_card()
+    shutil.rmtree(folder)
+    return out
+
+
+def rerank_texts(n: int, seed: int) -> list:
+    """n seeded texts of 20-300 characters; one in eight holds non-ASCII
+    characters."""
+    rng = random.Random(seed)
+    words = ["vector", "search", "shard", "index", "query", "kernel", "device",
+             "ranking", "fuzzy", "hash", "the", "of", "and", "a", "database"]
+    odd = ["naïve", "café", "Größe", "résumé", "über", "日本"]
+    texts = []
+    for i in range(n):
+        pool = words + odd if i % 8 == 0 else words
+        t = ""
+        target = rng.randint(20, 300)
+        while len(t) < target:
+            t += rng.choice(pool) + " "
+        texts.append(t[:target])
+    return texts
+
+
+def sharded_rerank(db) -> dict:
+    """(e) hybrid_rerank_results(device=True) on the card against the host
+    path (device=False): the same order where the host's scores are not
+    tied within 1e-5, scores within 1e-4. Each route is timed once, on the
+    host clock (the device route ends in its copy back); the host's pure
+    Python hashing and fuzzy ratios make repeats costly."""
+    texts = rerank_texts(1024, SEED + 24)
+    scores = np.random.default_rng(SEED + 25).random(1024).tolist()
+    out = {"candidates": len(texts), "non_ascii": sum(not t.isascii() for t in texts)}
+    db.hybrid_rerank_results(texts[:32], scores[:32], "warm up", k=1, device=True)
+    for name, query in (("query_short", "fuzzy vector search"),
+                        ("query_long", "a ranking of shard index queries by the "
+                                       "device kernel and the fuzzy hash of a database")):
+        qb = len(query.encode())
+        assert (qb < 64) == (name == "query_short"), qb
+        ranked, ms = {}, {}
+        for route, flag in (("device", True), ("host", False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ranked[route] = db.hybrid_rerank_results(texts, scores, query, k=len(texts),
+                                                     device=flag)
+            ms[route] = (time.perf_counter() - t0) * 1e3
+        dev, host = ranked["device"], ranked["host"]
+        dv, hv = np.asarray(dev[1]), np.asarray(host[1])
+        err = float(np.abs(dv - hv).max())
+        assert len(dev[0]) == len(texts) and err <= 1e-4, (name, err)
+        swaps = [j for j, (a, w) in enumerate(zip(dev[0], host[0])) if a != w]
+        for j in swaps:  # only between host scores tied within 1e-5
+            near = [abs(hv[j] - hv[i]) for i in (j - 1, j + 1) if 0 <= i < hv.size]
+            assert min(near) <= 1e-5, (name, j)
+        out[name] = {"query_bytes": qb, "max_abs_err": err, "order_swaps_within_ties": len(swaps),
+                     "device_ms": ms["device"], "host_ms": ms["host"]}
+    return out
+
+
+def phase_sharded_path(tmp: str, main_data: tuple) -> dict:
+    """ShardedVectorDatabase and ShardedVectorDatabaseUsearch through their
+    public methods at the main path's corpus, index="ivf" on a mixture, and
+    the device rerank. Returns the launch counts of the classes' searches:
+    every count is set to 0 before each database and read after its last
+    call."""
+    t_phase = time.perf_counter()
+    corpus, queries, want_v, want_i = main_data
+    (n, _d), b, k = corpus.shape, queries.shape[0], want_i.shape[1]
+    out = {"phase": "sharded_path", "rows": n, "dim": D, "batch": b, "k": k,
+           "shard_size": 5000}
+    out["float32"] = sharded_f32_and_wal(tmp, corpus, queries, want_v, want_i, k)
+    out["int8"] = sharded_int8(tmp, corpus, queries, want_v, want_i, k)
+    del corpus
+    ivf_launches = {}
+    out["ivf_bfloat16"] = sharded_ivf(tmp, k, ivf_launches)
+    rerank_db = ShardedVectorDatabase(storage_dir=os.path.join(tmp, "shards_rerank"))
+    out["rerank"] = sharded_rerank(rerank_db)
+    launches = {}
+    for counts in (out["float32"]["launches"], out["int8"]["launches"], ivf_launches):
+        for name, count in counts.items():
+            if count:
+                launches[name] = launches.get(name, 0) + count
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
 
 
 def compare_ivf(name, kind, got, want) -> tuple:
@@ -2382,7 +2731,7 @@ def main() -> None:
     smi = phase_env()
     with tempfile.TemporaryDirectory() as tmp:
         fused_scan.reset_launches()
-        phase_main_path(tmp)
+        main_data = phase_main_path(tmp)
         phase_dtypes(tmp)
         launches = dict(fused_scan.LAUNCHES)
         narrow = dict(fused_scan.NARROW_LAUNCHES)
@@ -2391,6 +2740,9 @@ def main() -> None:
         torch.cuda.empty_cache()
         ivf_shapes, ivf_launches = phase_ivf_path(tmp)
         torch.cuda.empty_cache()
+        sharded_launches = phase_sharded_path(tmp, main_data)
+        del main_data
+        torch.cuda.empty_cache()
         model, texts, k6_launches = phase_encoder_path(tmp)
         phase_pipeline_path(tmp, model, texts, k6_launches)
         del model
@@ -2398,7 +2750,8 @@ def main() -> None:
         train_launches = phase_train_path(tmp)
         train_bf16_launches = phase_train_path_bf16(tmp)
     emit({"phase": "launches", "flat_path": launches, "flat_path_narrow": narrow,
-          "ivf_path": ivf_launches, "text_path": k6_launches, "train_path": train_launches,
+          "ivf_path": ivf_launches, "sharded_path": sharded_launches,
+          "text_path": k6_launches, "train_path": train_launches,
           "train_path_bf16": train_bf16_launches})
     path_counts = {**launches, **ivf_launches,
                    **{n: k6_launches[n] for n in TEXT_ENTRY_POINTS},
@@ -2406,6 +2759,8 @@ def main() -> None:
                    **{n: train_bf16_launches[n] for n in TRAIN_BF16_ENTRY_POINTS}}
     missing = [name for name, n in path_counts.items() if n == 0]
     assert not missing, f"the main path never launched: {missing}"
+    missing = SHARDED_ENTRY_POINTS - {n for n, c in sharded_launches.items() if c}
+    assert not missing, f"the sharded path never launched: {missing}"
     torch.cuda.empty_cache()
     emit(phase_kernels(launches, ivf_shapes, ivf_launches, k6_launches,
                        train_launches["e5_large"], train_bf16_launches))

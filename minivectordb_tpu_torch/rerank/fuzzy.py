@@ -5,8 +5,8 @@ equivalent, reference vector_database.py:5, 410-411).
 the best local similarity, scaled to 0..100 — the classic fuzzywuzzy
 algorithm. The similarity kernel is Indel similarity (Levenshtein with
 insertions/deletions only), computed by the pure-Python bit-parallel code
-below (the JAX package's optional C++ fast path, native/fastops, is not
-ported yet; it returns the same values).
+below at every needle length (the JAX package's optional C++ fast path,
+native/fastops, is not ported yet; it returns the same values).
 """
 
 from __future__ import annotations
@@ -23,37 +23,35 @@ def _indel_ratio(s1: str, s2: str) -> float:
     return (lensum - dist) / lensum
 
 
+def _peq_of(s: str) -> dict:
+    """Hyyro's Peq table: for each char, the bit set of its positions in s."""
+    peq: dict = {}
+    for i, ch in enumerate(s):
+        peq[ch] = peq.get(ch, 0) | (1 << i)
+    return peq
+
+
+def _lcs(peq: dict, m: int, text: str) -> int:
+    """LCS length of ``text`` and the m-char string whose Peq table is
+    ``peq``, by Hyyro's bit-parallel algorithm. Python ints hold any width,
+    so needles past 64 chars take the same path (the JAX package runs a
+    quadratic DP there, with the same result: both are exact)."""
+    full = (1 << m) - 1
+    v = full
+    for ch in text:
+        u = v & peq.get(ch, 0)
+        # fixed-width (mod 2^m) arithmetic: discard the carry-out
+        v = ((v + u) | (v - u)) & full
+    return m - v.bit_count()
+
+
 def _indel_distance(s1: str, s2: str) -> int:
     """Indel (LCS-based) edit distance: len1 + len2 - 2*LCS."""
     if len(s1) < len(s2):
         s1, s2 = s2, s1
     if not s2:
         return len(s1)
-    # Hunt–Szymanski-style bit-parallel LCS (Hyyrö's algorithm).
-    if len(s2) <= 64:
-        peq = {}
-        for i, ch in enumerate(s2):
-            peq[ch] = peq.get(ch, 0) | (1 << i)
-        full = (1 << len(s2)) - 1
-        v = full
-        for ch in s1:
-            m = peq.get(ch, 0)
-            u = v & m
-            # fixed-width (mod 2^len) arithmetic: discard the carry-out
-            v = ((v + u) | (v - u)) & full
-        lcs = len(s2) - bin(v).count("1")
-        return len(s1) + len(s2) - 2 * lcs
-    # DP fallback for long needles
-    prev = list(range(len(s2) + 1))
-    for c1 in s1:
-        cur = [prev[0] + 1]
-        for j, c2 in enumerate(s2):
-            if c1 == c2:
-                cur.append(prev[j])
-            else:
-                cur.append(min(prev[j + 1], cur[-1]) + 1)
-        prev = cur
-    return prev[-1]
+    return len(s1) + len(s2) - 2 * _lcs(_peq_of(s2), len(s2), s1)
 
 
 def ratio(s1: str, s2: str) -> int:
@@ -73,9 +71,13 @@ def partial_ratio(s1: str, s2: str) -> int:
     # Exhaustive window slide (same as the C++ fast path, so results are
     # identical with or without the native library; strictly better than
     # fuzzywuzzy's matching-blocks heuristic at rerank-scale inputs).
+    # The needle's Peq table is built once. Each window's
+    # _indel_ratio(shorter, window) is (2m - dist) / 2m = LCS / m, the same
+    # float (both are the correctly rounded quotient of one rational).
+    peq = _peq_of(shorter)
     best = 0.0
     for start in range(0, len(longer) - m + 1):
-        r = _indel_ratio(shorter, longer[start : start + m])
+        r = _lcs(peq, m, longer[start : start + m]) / m
         if r > 0.995:
             return 100
         best = max(best, r)

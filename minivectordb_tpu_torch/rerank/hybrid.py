@@ -17,11 +17,11 @@ LEXICOGRAPHIC on stringified floats and it returns numpy strings
 (vector_database.py:427-438). Here the sort is numeric and scores come back
 as floats. Orderings agree on the reference's own tests.
 
-Port note: the JAX package routes candidate sets of 32 or more to a batched
-device program (rerank/device.py). That module is not ported yet (ROADMAP
-queue 1, item "rerank/device.py"), so ``device=True`` raises
-``NotImplementedError`` and ``device=None`` / ``device=False`` take the host
-path at every candidate count. Both paths compute the same scores.
+Candidate sets of 32 or more route to the batched device rerank
+(rerank/device.py), as in the JAX package. Deliberate difference: an error
+on the device path reaches the caller, under ``device=None`` too — the JAX
+package swallows it there and carries on on the host, which would hide the
+device. The host path keeps the reference's graceful degrade.
 """
 
 from __future__ import annotations
@@ -33,16 +33,31 @@ from minivectordb_tpu_torch.rerank.hashing import text_hash_scores
 
 DEFAULT_WEIGHTS = (0.80, 0.15, 0.05)
 
+# Candidate counts at or above this route to the batched device rerank
+# (rerank/device.py) — at reference scale (k=6) host Python wins on latency;
+# at candidate-set scale the batched device path wins.
+DEVICE_RERANK_THRESHOLD = 32
+
 
 def hybrid_rerank_results(
     sentences, search_scores, query, k=5, weights=DEFAULT_WEIGHTS,
-    device: bool | None = None,
+    device: bool | None = None, *, torch_device=None,
 ):
-    """device=None or False: host path. device=True: not ported yet."""
-    if device:
-        raise NotImplementedError(
-            "hybrid_rerank_results(device=True) needs rerank/device.py, "
-            "which is not ported yet (ROADMAP.md, queue 1: rerank/device.py)"
+    """device=True runs the batched device rerank, False the host path;
+    None (default) routes by candidate count. torch_device: where the device
+    rerank runs; ``None`` means the CUDA card and raises when there is none
+    (the database classes pass their own device)."""
+    use_device = (
+        device
+        if device is not None
+        else len(sentences) >= DEVICE_RERANK_THRESHOLD
+    )
+    if use_device:
+        from minivectordb_tpu_torch.rerank.device import hybrid_rerank_device
+
+        return hybrid_rerank_device(
+            sentences, search_scores, query, k=k, weights=weights,
+            device=torch_device,
         )
     try:
         hash_scores = text_hash_scores(query, sentences)

@@ -29,8 +29,8 @@ What changed underneath, against the reference:
 methods; its trained layout travels in the pickle under the extra key
 ``"ivf"`` (numpy arrays and builtins, the JAX package's schema).
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP item):
-``mesh=...`` and ``hybrid_rerank_results(device=True)``.
+Not ported yet: ``mesh=...`` raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -320,11 +320,12 @@ class VectorDatabase:
 
     def hybrid_rerank_results(self, sentences, search_scores, query, k=5,
                               weights=(0.80, 0.15, 0.05), device=None):
-        """device=None or False: the host path. device=True (the JAX
-        package's batched device rerank) is not ported yet and raises
-        NotImplementedError (rerank/hybrid.py)."""
+        """device=True runs the batched rerank on this database's device,
+        False the host path; None routes by candidate count
+        (rerank/hybrid.py)."""
         return _hybrid_rerank(sentences, search_scores, query, k=k,
-                              weights=weights, device=device)
+                              weights=weights, device=device,
+                              torch_device=self._engine.device)
 
     def autocut_scores(self, score_list):
         return engine_mod.autocut_scores(score_list)

@@ -120,23 +120,41 @@ def test_fuzzy_matches(seed):
 @pytest.mark.parametrize("n", [0, 6, 31, 40])
 def test_hybrid_rerank_host_path_matches(n):
     """The JAX package's host path (device=False) at every candidate count;
-    the port's default (device=None) is that host path."""
+    the port's default (device=None) is that host path below 32 candidates,
+    and at 32 and more routes to the device rerank as JAX's does (held to
+    JAX's default there within 1e-4, the device rerank tests' tolerance)."""
     rng = np.random.default_rng(n)
     docs = _sentences(n + 7, n)
     scores = rng.random(n).tolist()
     want = jhybrid(docs, scores, "vector search kernel", k=5, device=False)
-    got = thybrid(docs, scores, "vector search kernel", k=5)
+    got = thybrid(docs, scores, "vector search kernel", k=5, device=False)
     assert list(got[0]) == list(want[0])
     np.testing.assert_allclose(
         np.asarray(got[1], dtype=np.float64),
         np.asarray(want[1], dtype=np.float64), rtol=0, atol=1e-12,
     )
-    assert thybrid(docs, scores, "vector search kernel", k=5, device=False)[0] == got[0]
+    default = thybrid(docs, scores, "vector search kernel", k=5, torch_device="cpu")
+    if n < 32:
+        assert default == got
+    else:
+        jdefault = jhybrid(docs, scores, "vector search kernel", k=5)
+        assert list(default[0]) == list(jdefault[0]) == list(got[0])
+        np.testing.assert_allclose(np.asarray(default[1], np.float64),
+                                   np.asarray(jdefault[1], np.float64), rtol=0, atol=1e-4)
 
 
 def test_hybrid_rerank_device_true_raises_and_degrades_like_jax():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        thybrid(["a", "b"], [0.5, 0.4], "a", device=True)
+    """device=True runs the device rerank (without a card only when asked
+    for the CPU); the host path degrades like JAX's on a bad input."""
+    import torch
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            thybrid(["a", "b"], [0.5, 0.4], "a", device=True)
+    got = thybrid(["a", "b"], [0.5, 0.4], "a", device=True, torch_device="cpu")
+    want = jhybrid(["a", "b"], [0.5, 0.4], "a", device=True)
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-4)
     # the graceful-degrade contract: a bad input returns the truncated inputs
     bad = (["a", "b", "c"], [0.3, "x", 0.1], "a")
     assert thybrid(*bad, k=2) == jhybrid(*bad, k=2, device=False)

@@ -1,5 +1,6 @@
 """The port stands alone: it imports torch and numpy, never jax and nothing of
-the JAX package; its public class has the JAX class's surface plus `device`."""
+the JAX package; its public classes have the JAX classes' surfaces plus
+`device`."""
 
 import ast
 import inspect
@@ -41,11 +42,15 @@ def test_import_in_fresh_process_loads_no_jax():
         "import minivectordb_tpu_torch.models.train_builtin\n"
         "import minivectordb_tpu_torch.models.builtin_data\n"
         "import minivectordb_tpu_torch.models.quality_probes\n"
+        "import minivectordb_tpu_torch.core.wal, minivectordb_tpu_torch.core.sharding\n"
+        "import minivectordb_tpu_torch.rerank.device\n"
+        "from minivectordb_tpu_torch import ShardedVectorDatabase, ShardedVectorDatabaseUsearch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'minivectordb_tpu'))\n"
         "assert not bad, bad\n"
-        "assert sorted(p.__all__) == ['AlternativeModel', 'EmbeddingModel', "
-        "'VectorDatabase', '__version__'], p.__all__\n"
+        "assert p.__all__ == ['VectorDatabase', 'ShardedVectorDatabase', "
+        "'ShardedVectorDatabaseUsearch', 'EmbeddingModel', 'AlternativeModel', "
+        "'__version__'], p.__all__\n"
         "assert p.EmbeddingModel(device='cpu').weights_source == 'bundled-trained'\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'minivectordb_tpu'))\n"
@@ -118,10 +123,17 @@ def _public(cls):
     return {n for n in dir(cls) if not n.startswith("_")}
 
 
-def test_public_surface_is_the_jax_class_plus_device():
-    from minivectordb_tpu.vector_database import VectorDatabase as JaxDB
-    from minivectordb_tpu_torch import VectorDatabase as TorchDB
+def _jax_and_port_classes():
+    import minivectordb_tpu as jax_pkg
+    import minivectordb_tpu_torch as port
 
+    return [(getattr(jax_pkg, n), getattr(port, n)) for n in
+            ("VectorDatabase", "ShardedVectorDatabase", "ShardedVectorDatabaseUsearch")]
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["flat", "sharded", "usearch"])
+def test_public_surface_is_the_jax_class_plus_device(which):
+    JaxDB, TorchDB = _jax_and_port_classes()[which]
     assert _public(TorchDB) == _public(JaxDB)
     for name in sorted(_public(JaxDB)):
         j, t = inspect.getattr_static(JaxDB, name), inspect.getattr_static(TorchDB, name)

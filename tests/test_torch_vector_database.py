@@ -249,9 +249,13 @@ def test_unported_parts_raise_and_approx_serves(tmp_path, what):
         with pytest.raises(ValueError, match="calibrate_nprobe requires index='ivf'"):
             TorchDB(storage_file=path, device="cpu").calibrate_nprobe()
     elif what == "hybrid_device":
+        # device=True runs the device rerank on the database's own device
         db = TorchDB(storage_file=path, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            db.hybrid_rerank_results(["a"], [0.1], "a", device=True)
+        from minivectordb_tpu.rerank.hybrid import hybrid_rerank_results as jhybrid
+
+        got = db.hybrid_rerank_results(["ab", "cd"], [0.1, 0.9], "cd", k=1, device=True)
+        want = jhybrid(["ab", "cd"], [0.1, 0.9], "cd", k=1, device=True)
+        assert got[0] == want[0] == ("cd",) and abs(got[1][0] - want[1][0]) <= 1e-4
         assert db.hybrid_rerank_results(["ab", "cd"], [0.1, 0.9], "cd", k=1)[0] == ("cd",)
     else:
         _, corpus, queries, _ = _data()

@@ -49,6 +49,24 @@ Phases (one JSON object per output line):
              Prints load, reopen, delete, append and rerank times. Each
              database's searches are counted from 0 (K1-f32 and its masked
              entry, K2, K4-bf16 and K3-bf16 must be launched, and no other)
+  mesh_path  mesh= (parallel/) through the public classes, with 4 logical
+             shards of the card (search_mesh(4, device="cuda:0"), 262,144
+             rows each) over the main path's corpus, queries and oracle:
+             float32 (ids equal to the oracle's where scores are not tied,
+             scores 2e-5) for a 256-query batch, a filtered batch, a batch
+             of 8, async handles and 256 appended rows (the incremental sync
+             ships one slab, not the corpus); bfloat16 and int8 by recall@10
+             against the float32 oracle; each 256-query search launches K1-f32
+             (K1-bf16, K2) exactly 4 times; index="ivf" on the mesh over
+             131,072 rows of the mixture with bfloat16 and int8 lists and the
+             row-sharded rescore (K3-bf16, K5; nprobe = nlist equals the
+             oracle); ShardedVectorDatabase(mesh=search_mesh()) over the
+             card's devices; init_pod over NCCL as a one-rank world through a
+             file:// store and PodScanIndex on a (1, 4) pod mesh against the
+             oracle. Prints ms per 256-query batch on the mesh beside the
+             same corpus unsharded in this run (logical shards on one card
+             run one after the other: no speed-up can show), load and IVF
+             build seconds
   encoder_path  EmbeddingModel() (the bundled builtin artifact) on texts long
              enough for sequences of 256 and 512 (K6-f32, 2 launches a call)
              and on short ones (no launch), and batches of 1 and of 8 through
@@ -138,11 +156,12 @@ Phases (one JSON object per output line):
              give each kernel's registers, spills and blocks an SM at
              hd = 64.
              "launches" are the counts of the path phases above: the flat
-             phases, and each database of the ivf and sharded phases, are
+             phases, and each database of the ivf, sharded and mesh phases, are
              driven through the public class with every count at 0 and read
              just after;
              every launch made to compare a kernel or a route with its plain
-             version runs after that read and does not count
+             version runs after that read and does not count; each kernel row
+             also gives its launches on the mesh path ("mesh_launches")
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances. Kernel against plain version, scores of magnitude <= 1: float32
@@ -265,6 +284,8 @@ from minivectordb_tpu_torch.models.tokenizer import HashTokenizer  # noqa: E402
 from minivectordb_tpu_torch.ops import flash_attention as flash_ops  # noqa: E402
 from minivectordb_tpu_torch.ops import fused_scan, ivf as ivf_ops  # noqa: E402
 from minivectordb_tpu_torch.ops import ivf_probe, scan as scan_ops  # noqa: E402
+from minivectordb_tpu_torch.parallel import dist_ivf, multihost  # noqa: E402
+from minivectordb_tpu_torch.parallel.mesh import search_mesh  # noqa: E402
 from minivectordb_tpu_torch.profile_search import clustered_corpus  # noqa: E402
 from minivectordb_tpu_torch.profile_search import phase1_operands  # noqa: E402
 
@@ -275,6 +296,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "i8": 1979e12}
 TOL = {"f32": 2e-5, "bf16": 2e-5, "i8": 0.0}
 SHARDED_IVF_ROWS = 131_072  # the sharded phase's index="ivf" corpus
+MESH_SHARDS = 4  # mesh_path's logical shards on the one card
 MASKED = float(np.float32(-3.0e38))
 TOL_K6 = {"f32": 2e-5, "bf16": 2e-2}
 # bfloat16 only, per output row (the hd values of one query and head):
@@ -1503,6 +1525,342 @@ def ivf_kernel_rows(shapes: dict, launches: dict) -> list:
         })
         torch.cuda.empty_cache()
     return rows
+
+
+# ---------------------------------------------------------------------------
+# mesh path: mesh= through the public classes (parallel/), logical shards
+# on the one card, and a one-rank NCCL pod
+# ---------------------------------------------------------------------------
+
+# the entry points each mesh database must launch, and the only ones
+MESH_ENTRY_POINTS = {
+    "float32": {"phase1_f32"}, "bfloat16": {"phase1_bf16"}, "int8": {"phase1_i8"},
+    "ivf_bfloat16": {"ivf_probe_bf16"}, "ivf_int8": {"ivf_grouped_i8"},
+}
+# kernel row name -> the entry point whose mesh launches it reports
+MESH_ROW_ENTRY = {
+    "K1-f32": "phase1_f32", "K1-f32-mask": "phase1_f32_mask",
+    "K1-bf16": "phase1_bf16", "K1-bf16-mask": "phase1_bf16_mask",
+    "K2-int8": "phase1_i8", "K2-int8-mask": "phase1_i8_mask",
+    "K3-f32": "ivf_probe_f32", "K3-bf16": "ivf_probe_bf16",
+    "K4-f32": "ivf_grouped_f32", "K4-bf16": "ivf_grouped_bf16",
+    "K5-int8": "ivf_grouped_i8",
+}
+
+
+def reset_all_launches() -> None:
+    fused_scan.reset_launches()
+    ivf_probe.reset_launches()
+
+
+def read_mesh_launches(total: dict, want: set, what: str) -> dict:
+    """The phase-1 and probe counts since the last reset: exactly the entry
+    points in ``want`` launched, the narrow-row kernel never. Adds them to
+    ``total``."""
+    got = {n: c for n, c in {**fused_scan.LAUNCHES, **ivf_probe.LAUNCHES}.items() if c}
+    assert set(got) == want, (what, got)
+    assert not any(fused_scan.NARROW_LAUNCHES.values()), (what, fused_scan.NARROW_LAUNCHES)
+    for name, count in got.items():
+        total[name] = total.get(name, 0) + count
+    return got
+
+
+def one_search_launches(db, queries, k, entry: str) -> int:
+    """Launches of ``entry`` by one 256-query search, counted from 0 (the
+    caller reads its path's counts before and resets after)."""
+    reset_all_launches()
+    db.find_most_similar_batch(queries, k=k)
+    return {**fused_scan.LAUNCHES, **ivf_probe.LAUNCHES}[entry]
+
+
+def hits_arrays(results) -> tuple:
+    """(scores (B, k) float32, ids (B, k) int64) of a class's results."""
+    return (np.asarray([r[1] for r in results], np.float32),
+            np.asarray([r[0] for r in results], np.int64))
+
+
+def unsharded_hits(tmp, dtype, corpus, queries, k) -> dict:
+    """The same corpus in the same device_dtype without a mesh, in this run:
+    its batch, filtered batch and batch of 8 (the hits the mesh must give,
+    since it stores the same bytes and its per-shard candidates cover the
+    flat store's), and its ms per 256-query batch."""
+    db = VectorDatabase(storage_file=os.path.join(tmp, f"unsharded_{dtype}.pkl"),
+                        device_dtype=dtype)
+    load_db(db, corpus, pieces=4)
+    db.find_most_similar_batch(queries, k=k)
+    res, ms = timed_batches(db, queries, k)
+    out = {"batch": hits_arrays(res), "ms": ms,
+           "filtered": hits_arrays(db.find_most_similar_batch(
+               queries, k=k, metadata_filter={"bucket": 3})),
+           "eight": hits_arrays(db.find_most_similar_batch(queries[:8], k=k))}
+    del db, res
+    free_card()
+    return out
+
+
+def hold_scan_shards(snap, queries, what: str) -> dict:
+    """Every shard's row block of a mesh snapshot through the phase-1 kernel
+    its searches launch (K1-f32, K1-bf16 or K2), at the shapes the mesh gives
+    it, against the plain version at TOL: unmasked, and with the shard's
+    slice of the filtered batch's mask (bucket 3; row r has bucket r % 16).
+    Returns the largest error of each shard."""
+    kind = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "i8"}[snap.dtype]
+    lr = snap.local_rows
+    q = torch.from_numpy(queries).to(DEV)
+    if kind == "i8":
+        qk, qinv = scan_ops.quantize_queries_int8(q)
+    else:
+        qk, qinv = scan_ops._normalize(q).to(snap.dtype).contiguous(), None
+    keep = np.zeros(snap.capacity, dtype=bool)
+    keep[: snap.count] = np.arange(snap.count) % 16 == 3
+    errs = {}
+    for j, (s, dev) in enumerate(snap.shards):
+        count = min(max(snap.count - s * lr, 0), lr)
+        if count == 0:
+            continue  # its search scans nothing and launches no kernel
+        ops = (snap.bufs[j], snap.inv_norms[j], qk.to(dev),
+               None if qinv is None else qinv.to(dev))
+        mask = scan_ops.to_device(keep[s * lr:(s + 1) * lr], dev)
+        errs[str(s)] = max(
+            compare(kind, ops, count, m, f"{what} shard {s}" + (" mask" if m is not None else ""))[0]
+            for m in (None, mask))
+    return errs
+
+
+def hold_ivf_shards(snap, queries, what: str) -> dict:
+    """Every shard's lists of a mesh IVF snapshot, probed as its search
+    probes them at the index's default nprobe, through K3 (float32 /
+    bfloat16 lists) or K5 (int8 lists, on group_pairs' groups) against the
+    plain version at TOL. Returns the error of each shard."""
+    q = scan_ops._normalize(torch.from_numpy(queries).to(DEV))
+    p = snap.probe_width()
+    errs = {}
+    for j, (s, dev) in enumerate(snap.shards):
+        lists, _ids, valid = (t[j] for t in snap.tables)
+        qn = q.to(dev)
+        probe = snap.shard_probe(j, qn, p)
+        if lists.dtype == torch.int8:
+            kind = "i8"
+            qi, qinv = ivf_probe.quantize_queries_ivf(qn)
+            g = int(min(ivf_probe.GROUP_MAX, max(8, probe.numel())))
+            step_list, step_q, _ps, _pl = ivf_probe.group_pairs(probe, int(lists.shape[0]), g)
+            args = (lists, qi.to(torch.int8)[step_q], step_list, valid,
+                    snap.list_inv[j], qinv[step_q])
+            got = ivf_probe.grouped_scores_q(*args)
+            torch.cuda.synchronize()
+            want = ivf_probe.grouped_scores_q_plain(*args)
+        else:
+            kind = "bf16" if lists.dtype == torch.bfloat16 else "f32"
+            args = (lists, qn.to(lists.dtype).contiguous(), probe.to(torch.int32))
+            got = ivf_probe.probe_scores(*args)
+            torch.cuda.synchronize()
+            want = ivf_probe.probe_scores_plain(*args)
+        errs[str(s)] = compare_ivf(f"{what} shard {s}", kind, got, want)[0]
+    return errs
+
+
+def mesh_flat(tmp, dtype, corpus, queries, want_v, want_i, k, total, flat) -> dict:
+    """(a) float32 / (b) bfloat16, int8: VectorDatabase(mesh=4 logical shards
+    of the card) over the main path's corpus. ``flat`` holds the unsharded
+    store's hits in the same dtype (unsharded_hits)."""
+    n, b = corpus.shape[0], queries.shape[0]
+    buckets = np.arange(n) % 16
+    reset_all_launches()
+    db = VectorDatabase(storage_file=os.path.join(tmp, f"mesh_{dtype}.pkl"),
+                        device_dtype=dtype, mesh=search_mesh(MESH_SHARDS, device=DEV))
+    assert db._engine.device == DEV
+    out = {"unsharded_batch_256_ms_median": flat["ms"], "load_s": load_db(db, corpus, pieces=4)}
+    t0 = time.perf_counter()
+    first = db.find_most_similar_batch(queries, k=k)  # ships the row blocks
+    out["first_search_s"] = time.perf_counter() - t0
+    dist = db._engine._dist
+    assert dist.capacity == MESH_SHARDS * dist.local_rows >= n, dist.capacity
+    out["shard_rows"] = dist.local_rows
+    res, out["batch_256_ms_median"] = timed_batches(db, queries, k)
+    assert [r[0] for r in res] == [r[0] for r in first]
+    filt = db.find_most_similar_batch(queries, k=k, metadata_filter={"bucket": 3})
+    assert all(md["bucket"] == 3 for _i, _s, mds in filt for md in mds)
+    fv, fi = oracle_topk(corpus, queries, k, keep=buckets == 3)
+    eight, out["batch_8_ms_median"] = timed_batches(db, queries[:8], k)
+    handles = [db.find_most_similar_batch_async(queries[j * 64:(j + 1) * 64], k=k)
+               for j in range(4)]
+    pending = [h.result() for h in handles]
+    # the same bytes as the unsharded store: its hits, in every dtype
+    check_hits_tied(first, *flat["batch"], f"mesh {dtype} batch vs unsharded")
+    check_hits_tied(res, *flat["batch"], f"mesh {dtype} timed batch vs unsharded")
+    check_hits_tied(filt, *flat["filtered"], f"mesh {dtype} filtered vs unsharded")
+    check_hits_tied(eight, *flat["eight"], f"mesh {dtype} batch of 8 vs unsharded")
+    check_hits_tied([r for h in pending for r in h], *flat["batch"],
+                    f"mesh {dtype} async vs unsharded")
+    if dtype == "float32":
+        check_hits_tied(first, want_v, want_i, "mesh batch")
+        check_hits_tied(filt, fv, fi, "mesh filtered batch")
+        check_hits_tied(eight, want_v[:8], want_i[:8], "mesh batch of 8")
+        for j, got in enumerate(pending):
+            check_hits_tied(got, want_v[j * 64:(j + 1) * 64],
+                            want_i[j * 64:(j + 1) * 64], f"mesh async handle {j}")
+        # append the queries themselves: the incremental sync ships one
+        # 256-row slab, not the corpus, and each query finds its own row
+        before = dist.bytes_uploaded
+        db.store_embeddings_batch(list(range(n, n + b)), queries,
+                                  [{"bucket": i % 16} for i in range(n, n + b)])
+        grown = db.find_most_similar_batch(queries, k=k)
+        out["append_256_bytes_uploaded"] = dist.bytes_uploaded - before
+        assert 0 < out["append_256_bytes_uploaded"] <= b * D * 4, out
+        assert [r[0][0] for r in grown] == list(range(n, n + b)), "appended rows not found"
+        assert dist.bytes_uploaded - before < n * D * 4
+    else:
+        out["recall_at_10_async"] = recall_at_k([r for h in pending for r in h], want_i)
+        out["recall_at_10"] = recall_at_k(res, want_i)
+        out["recall_at_10_filtered"] = recall_at_k(filt, fi)
+        out["recall_at_10_batch_8"] = recall_at_k(eight, want_i[:8])
+        assert min(out["recall_at_10"], out["recall_at_10_filtered"],
+                   out["recall_at_10_async"]) >= 0.9, out
+    entry = {"float32": "phase1_f32", "bfloat16": "phase1_bf16", "int8": "phase1_i8"}[dtype]
+    want_entries = MESH_ENTRY_POINTS[dtype] | {entry + "_mask"}
+    out["launches"] = read_mesh_launches(total, want_entries, f"mesh {dtype}")
+    out["launches_one_256_search"] = one_search_launches(db, queries, k, entry)
+    assert out["launches_one_256_search"] == MESH_SHARDS, out
+    out["shard_max_abs_err"] = hold_scan_shards(dist.snapshot(), queries, f"mesh {dtype}")
+    reset_all_launches()
+    del db, dist
+    free_card()
+    return out
+
+
+def mesh_ivf(tmp, lists_dtype, k, total) -> dict:
+    """(c) index="ivf" on the mesh: f32 engine, quantized lists, so the
+    rescore runs row-sharded against the mesh's exact-scan blocks."""
+    corpus, queries = mixture(SHARDED_IVF_ROWS, 256, SEED + 23)
+    reset_all_launches()
+    db = VectorDatabase(storage_file=os.path.join(tmp, f"mesh_ivf_{lists_dtype}.pkl"),
+                        index="ivf", ivf_opts={"lists_dtype": lists_dtype},
+                        mesh=search_mesh(MESH_SHARDS, device=DEV))
+    out = {"load_s": load_db(db, corpus, pieces=2)}
+    t0 = time.perf_counter()
+    db.find_most_similar_batch(queries, k=k)  # builds, reshards
+    out["first_search_s"] = time.perf_counter() - t0
+    eng = db._engine
+    ivf = eng._ivf
+    assert isinstance(ivf, dist_ivf.DistributedIVFIndex) and ivf._data is None
+    assert eng.store._buf is None  # the build buffer went back to the card
+    out["build_s"] = db.stats()["ops"]["ivf_build"]["total_s"]
+    out.update(nlist_effective=ivf.nlist, lists_per_shard=ivf._local_lists,
+               P=ivf.pad_len, nprobe=db.nprobe)
+    want_v, want_i = oracle_topk(corpus, queries, k)
+    res, out["batch_256_ms_median"] = timed_batches(db, queries, k)
+    eight, out["batch_8_ms_median"] = timed_batches(db, queries[:8], k)
+    out["recall_at_10_batch_256"] = recall_at_k(res, want_i)
+    out["recall_at_10_batch_8"] = recall_at_k(eight, want_i[:8])
+    # the single-device path's calibration target
+    assert min(out["recall_at_10_batch_256"], out["recall_at_10_batch_8"]) >= 0.95, out
+    exact = db.find_most_similar_batch(queries[:32], k=k, nprobe=ivf.nlist)
+    check_hits_tied(exact, want_v[:32], want_i[:32], f"mesh ivf {lists_dtype} nprobe = nlist")
+    out["launches"] = read_mesh_launches(total, MESH_ENTRY_POINTS["ivf_" + lists_dtype],
+                                         f"mesh ivf {lists_dtype}")
+    out["shard_max_abs_err"] = hold_ivf_shards(ivf.snapshot(), queries,
+                                               f"mesh ivf {lists_dtype}")
+    reset_all_launches()
+    out["checked"] = ["recall@10 >= 0.95 at the default nprobe (batch 256, batch 8)",
+                      "nprobe = nlist equals the oracle (batch 32)",
+                      "each shard's probe kernel against its plain version",
+                      "build buffer released, rescore row-sharded"]
+    del db, eng, ivf
+    free_card()
+    return out
+
+
+def mesh_sharded_class(tmp, corpus, queries, k, total) -> dict:
+    """(d) ShardedVectorDatabase(mesh=search_mesh()): the card's real
+    devices (one), over the first 131,072 rows of the main corpus."""
+    rows = corpus[:SHARDED_IVF_ROWS]
+    folder = os.path.join(tmp, "mesh_shards")
+    reset_all_launches()
+    mesh = search_mesh()
+    assert mesh.devices.size == torch.cuda.device_count()
+    db = ShardedVectorDatabase(storage_dir=folder, mesh=mesh)
+    out = {"devices": mesh.devices.size, "load_s": load_db(db, rows, pieces=2)}
+    want_v, want_i = oracle_topk(rows, queries, k)
+    res, out["batch_256_ms_median"] = timed_batches(db, queries, k)
+    check_hits_tied(res, want_v, want_i, "sharded class on search_mesh()")
+    ids, scores, _ = db.find_most_similar(queries[0], k=k)
+    check_hits_tied([(ids, scores, None)], want_v[:1], want_i[:1], "sharded class, one query")
+    assert len(shard_files(folder)) == -(-SHARDED_IVF_ROWS // 5000)
+    out["launches"] = read_mesh_launches(total, {"phase1_f32"}, "sharded class on a mesh")
+    out["shard_max_abs_err"] = hold_scan_shards(db._engine._dist.snapshot(), queries,
+                                                "sharded class on a mesh")
+    reset_all_launches()
+    del db
+    free_card()
+    shutil.rmtree(folder)
+    return out
+
+
+def mesh_pod(tmp, corpus, queries, want_v, want_i, k, total) -> dict:
+    """(e) init_pod over NCCL as a one-rank world through a file:// store;
+    PodScanIndex on a (1, 4) pod mesh: each search ends in an NCCL
+    all-gather of the host's merged list."""
+    import torch.distributed as dist
+
+    n = corpus.shape[0]
+    reset_all_launches()
+    t0 = time.perf_counter()
+    multihost.init_pod("file://" + os.path.join(tmp, "pod_store"), 1, 0, device=DEV)
+    out = {"init_pod_s": time.perf_counter() - t0, "backend": dist.get_backend()}
+    assert out["backend"] == "nccl"
+    try:
+        mesh = multihost.pod_mesh(1, MESH_SHARDS, device=DEV)
+        assert mesh.distributed and mesh.devices.shape == (1, MESH_SHARDS)
+        pod = multihost.PodScanIndex(mesh, D)
+        t0 = time.perf_counter()
+        pod.load_local(corpus, 0, n)
+        torch.cuda.synchronize()
+        out["load_local_s"] = time.perf_counter() - t0
+        vals, gids = pod.search(queries, k)
+        check_hits_tied([(gids[b].tolist(), vals[b].tolist(), None) for b in range(len(gids))],
+                        want_v, want_i, "pod search")
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pod.search(queries, k)
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["batch_256_ms_median"] = statistics.median(times)
+        out["launches"] = read_mesh_launches(total, {"phase1_f32"}, "pod")
+        assert out["launches"]["phase1_f32"] == 6 * MESH_SHARDS, out
+    finally:
+        dist.destroy_process_group()
+    del pod
+    free_card()
+    return out
+
+
+def phase_mesh_path(tmp: str, main_data: tuple) -> dict:
+    """mesh= through VectorDatabase and ShardedVectorDatabase: 4 logical
+    shards of the card (search_mesh(4, device="cuda:0")) over the main
+    path's corpus, float32 against its oracle, bfloat16 and int8 by recall;
+    index="ivf" on the mesh; search_mesh() over the card's devices; a
+    one-rank NCCL pod. Returns the launch counts of the classes' searches
+    (every count set to 0 before each database, read after its last call)."""
+    t_phase = time.perf_counter()
+    corpus, queries, want_v, want_i = main_data
+    (n, _d), b, k = corpus.shape, queries.shape[0], want_i.shape[1]
+    out = {"phase": "mesh_path", "rows": n, "dim": D, "batch": b, "k": k,
+           "shards": MESH_SHARDS}
+    launches = {}
+    for dtype in ("float32", "bfloat16", "int8"):
+        # the same corpus unsharded in this run, before the mesh's counts
+        flat = unsharded_hits(tmp, dtype, corpus, queries, k)
+        out[dtype] = mesh_flat(tmp, dtype, corpus, queries, want_v, want_i, k, launches, flat)
+    for lists_dtype in ("bfloat16", "int8"):
+        out["ivf_" + lists_dtype] = mesh_ivf(tmp, lists_dtype, k, launches)
+    out["sharded_class"] = mesh_sharded_class(tmp, corpus, queries, k, launches)
+    out["pod"] = mesh_pod(tmp, corpus, queries, want_v, want_i, k, launches)
+    reset_all_launches()
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2741,6 +3099,8 @@ def main() -> None:
         ivf_shapes, ivf_launches = phase_ivf_path(tmp)
         torch.cuda.empty_cache()
         sharded_launches = phase_sharded_path(tmp, main_data)
+        torch.cuda.empty_cache()
+        mesh_launches = phase_mesh_path(tmp, main_data)
         del main_data
         torch.cuda.empty_cache()
         model, texts, k6_launches = phase_encoder_path(tmp)
@@ -2751,6 +3111,7 @@ def main() -> None:
         train_bf16_launches = phase_train_path_bf16(tmp)
     emit({"phase": "launches", "flat_path": launches, "flat_path_narrow": narrow,
           "ivf_path": ivf_launches, "sharded_path": sharded_launches,
+          "mesh_path": mesh_launches,
           "text_path": k6_launches, "train_path": train_launches,
           "train_path_bf16": train_bf16_launches})
     path_counts = {**launches, **ivf_launches,
@@ -2761,9 +3122,15 @@ def main() -> None:
     assert not missing, f"the main path never launched: {missing}"
     missing = SHARDED_ENTRY_POINTS - {n for n, c in sharded_launches.items() if c}
     assert not missing, f"the sharded path never launched: {missing}"
+    missing = set().union(*MESH_ENTRY_POINTS.values()) - {
+        n for n, c in mesh_launches.items() if c}
+    assert not missing, f"the mesh path never launched: {missing}"
     torch.cuda.empty_cache()
-    emit(phase_kernels(launches, ivf_shapes, ivf_launches, k6_launches,
-                       train_launches["e5_large"], train_bf16_launches))
+    kernels = phase_kernels(launches, ivf_shapes, ivf_launches, k6_launches,
+                            train_launches["e5_large"], train_bf16_launches)
+    for row in kernels["kernels"]:
+        row["mesh_launches"] = mesh_launches.get(MESH_ROW_ENTRY.get(row["name"]), 0)
+    emit(kernels)
     print(smi, flush=True)
     emit({
         "ok": True,

@@ -13,7 +13,10 @@ kernels written in CUDA C++ for Hopper (``csrc/phase1.cu``,
 Modules mirror the JAX package's layout (``ops/scan.py``,
 ``ops/fused_scan.py`` for ``ops/pallas_scan.py``, ``core/store.py``,
 ``core/engine.py``, ``vector_database.py``, ``sharded_vector_database.py``,
-``models/``, ``embedding_model.py``).
+``models/``, ``embedding_model.py``). ``parallel/`` maps search onto a
+device mesh (``mesh=``): shard-local top-k over a row-partitioned corpus
+(or list-partitioned IVF lists) and a merge, and pod search across
+processes over ``torch.distributed``.
 
     from minivectordb_tpu_torch import EmbeddingModel, ShardedVectorDatabase, VectorDatabase
     db = VectorDatabase("db.pkl")            # on the CUDA card

@@ -17,8 +17,11 @@ overflow to a small exact side store, deletes tombstone slots in place, and
 broad filters ride the probe with a device mask and an exact-scan fallback
 that keeps the reference's exact-count contract.
 
-The JAX engine's mesh branches (``mesh=...``) are not ported yet: asking for
-them raises ``NotImplementedError`` naming the ROADMAP item. Its
+``mesh=...`` (a parallel/mesh.py Mesh) shards the search: the exact scan
+runs row-partitioned over the mesh (parallel/dist_scan.py, synced from the
+host mirror incrementally), the IVF index list-partitioned
+(parallel/dist_ivf.py), and deletes compact eagerly (the row-sharded buffers
+re-sync from the compacted host mirror). The JAX engine's
 ``precompile_async`` hook (XLA programs compiled under a pending upload) has
 no counterpart: PyTorch compiles nothing.
 """
@@ -46,6 +49,7 @@ from minivectordb_tpu_torch.filters.engine import (
 from minivectordb_tpu_torch.ops import scan as scan_ops
 from minivectordb_tpu_torch.ops.ivf import IVFIndex
 from minivectordb_tpu_torch.ops.scan import fetch_results as _fetch_results
+from minivectordb_tpu_torch.parallel.mesh import Mesh
 from minivectordb_tpu_torch.utils.telemetry import Telemetry
 
 _MASK_CACHE_MAX = 64
@@ -69,8 +73,6 @@ _HOST_SUB_TOTAL_BYTES = int(
 # deletes. Env-tunable for delete-heavy workloads.
 _COMPACT_FRAC = float(os.environ.get("MINIVECTORDB_TORCH_COMPACT_FRAC", 0.25))
 _COMPACT_FLOOR = int(os.environ.get("MINIVECTORDB_TORCH_COMPACT_FLOOR", 4096))
-
-_MESH_ROADMAP = "ROADMAP.md, queue 1: parallel/ (torch.distributed)"
 
 
 def _prefetch_to_host(vals, idx) -> scan_ops.ResultFetch:
@@ -318,12 +320,34 @@ class SearchEngine:
         if index not in ("flat", "ivf"):
             raise ValueError(f"Unknown index kind: {index}")
         if mesh is not None:
-            raise NotImplementedError(
-                f"mesh-sharded search is not ported yet ({_MESH_ROADMAP})"
-            )
+            if not isinstance(mesh, Mesh):
+                raise TypeError(
+                    "mesh must be a minivectordb_tpu_torch.parallel.mesh.Mesh "
+                    f"(search_mesh / pod_mesh), not {type(mesh).__name__}"
+                )
+            if mesh.distributed:
+                raise ValueError(
+                    "a database's mesh is one process's (search_mesh); a pod "
+                    "across processes serves through parallel/multihost.py"
+                )
+            # the engine's device (store, masks, results) is the mesh's
+            # first; a device that names another one is a contradiction
+            first = mesh.local_shards()[0][1]
+            if device is not None and scan_ops.resolve_device(device) != first:
+                raise ValueError(
+                    f"device={device!r} disagrees with the mesh, whose first "
+                    f"device is {first}"
+                )
+            device = first
         # device=None means the CUDA card and raises when there is none;
         # the engine never carries on on the CPU unless asked to
         self.device = scan_ops.resolve_device(device)
+        # Optional Mesh: searches run row-partitioned across it (shard-local
+        # top-k + merge, parallel/dist_scan.py)
+        self.mesh = mesh
+        self._dist = None
+        self._dist_version = -1
+        self._dist_dirty_from = 0  # lowest row not yet synced to the mesh
         # Optional path for persisting the trained IVF layout OUTSIDE the
         # corpus pickle (sharded databases: write-through shards have no
         # single pickle to carry it). Written on build/attach/calibrate,
@@ -493,6 +517,7 @@ class SearchEngine:
         row = self.store.append(embedding).start
         if self._ivf_overflow is not None:
             self._ivf_overflow.append(embedding)
+        self._dist_dirty_from = min(self._dist_dirty_from, row)
         self.uids.append(unique_id)
         self.inverse_id_map[unique_id] = row
         self.metadata.append(metadata_dict)
@@ -517,6 +542,7 @@ class SearchEngine:
         rows = self.store.append(mat)
         if self._ivf_overflow is not None:
             self._ivf_overflow.append(mat)
+        self._dist_dirty_from = min(self._dist_dirty_from, rows.start)
         start = rows.start
         self.uids.extend(unique_ids)
         self.inverse_id_map.update(
@@ -533,14 +559,18 @@ class SearchEngine:
         """Remove uids. Observable semantics match the reference's eager
         np.delete compaction (vector_database.py:119-155): deleted uids
         vanish from every map and the public id_map/embeddings renumber
-        densely. Physically the rows are TOMBSTONED — O(deleted) work per
-        call instead of moving the O(N*d) tail and re-streaming it over the
-        link — and compacted lazily once dead rows pass _COMPACT_FRAC of the
-        corpus."""
+        densely. Physically single-device engines TOMBSTONE the rows —
+        O(deleted) work per call instead of moving the O(N*d) tail and
+        re-streaming it over the link — and compact lazily once dead rows
+        pass _COMPACT_FRAC of the corpus (mesh engines keep eager
+        compaction: their row-sharded buffers re-sync from the compacted
+        host mirror)."""
         if not unique_ids:
             return
         with self.telemetry.timed("delete"):
             self._delete_many_tombstone(unique_ids)
+            if self.mesh is not None:
+                self._compact_tombstones()
 
     def _delete_many_tombstone(self, unique_ids: list) -> None:
         by_row = {}
@@ -586,6 +616,8 @@ class SearchEngine:
             return
         with self.telemetry.timed("delete_compaction"):
             dead = self.store.compact_dead()
+            # the mesh's row blocks re-sync from the first row that moved
+            self._dist_dirty_from = min(self._dist_dirty_from, int(dead[0]))
             doomed = set(dead.tolist())
             new_uids, new_metadata = [], []
             for row, uid in enumerate(self.uids):
@@ -639,6 +671,10 @@ class SearchEngine:
         self.meta_index = MetadataIndex()
         self.columns = ColumnStore()
         self._invalidate_ivf()
+        # a later load() re-ships every row to the mesh
+        self._dist = None
+        self._dist_version = -1
+        self._dist_dirty_from = 0
 
     # -- IVF lifecycle (index='ivf') ----------------------------------------
 
@@ -973,7 +1009,9 @@ class SearchEngine:
         index). Kept separate so _ensure_ivf's auto-calibration can't
         recurse back through calibrate_nprobe -> _ensure_ivf."""
         ivf = self._ivf.snapshot()
-        snap = self.store.snapshot()
+        snap = self._index_snapshot()
+        if self.mesh is not None and ivf.quantized:
+            ivf.attach_sharded_rescore(snap)
         built = self._ivf_built_count
         if queries is None:
             rng = np.random.default_rng(seed)
@@ -987,7 +1025,7 @@ class SearchEngine:
             q = q[None, :]
         kk = max(1, min(k, built))
         exact_idx = np.asarray(
-            snap.search(q, min(k, self.count), None, mode=self.search_mode)[1]
+            self._snapshot_search(snap, q, min(k, self.count), None)[1]
         )
         # truth restricted to indexed rows: overflow rows are served by an
         # exact side-scan at query time, never by the probe
@@ -1057,14 +1095,37 @@ class SearchEngine:
         return buf, inv, count
 
     def _wrap_ivf(self, ivf):
-        """The JAX engine reshards the trained index list-per-chip on a mesh
-        here; until ``mesh=...`` is ported the index is served as it is."""
-        return ivf
+        """On a mesh, reshard the trained index list-per-device
+        (parallel/dist_ivf.py).
+
+        When the engine's distributed exact-scan buffer is float32
+        (device_dtype 'float32'/'mixed' — DistributedScanIndex coerces
+        'mixed' to float32), the quantized-lists exact rescore runs
+        ROW-SHARDED against that buffer (_scan attaches it per search), so
+        the wrapper drops its single-device corpus reference and
+        _release_mesh_build_buffer can free the store's build-time buffer."""
+        if self.mesh is None:
+            return ivf
+        from minivectordb_tpu_torch.parallel.dist_ivf import DistributedIVFIndex
+
+        return DistributedIVFIndex(
+            self.mesh, ivf,
+            keep_single_device_rescore=self.device_dtype
+            not in ("float32", "mixed"),
+        )
 
     def _release_mesh_build_buffer(self) -> None:
-        """The JAX engine frees the store's single-device build buffer here
-        on a mesh; a single-device engine keeps it — it IS the search
-        buffer."""
+        """On mesh engines the store's single-device buffer only serves the
+        k-means build (search runs on the sharded corpus; the quantized
+        rescore is either sharded too or pinned via _pin_ivf_corpus): once
+        the index is wrapped and holds no reference to it, free it.
+        Single-device engines keep it — it IS the search buffer."""
+        if (
+            self.mesh is not None
+            and self._ivf is not None
+            and self._ivf._data is None
+        ):
+            self.store.release_device()
 
     def load(self, embeddings, uids, metadatas, inverted_index=None) -> None:
         self.reset()
@@ -1083,6 +1144,59 @@ class SearchEngine:
             self.meta_index.rebuild(self.uids, self.metadata)
         self.columns.rebuild(self.metadata)
         self._version += 1
+
+    def _index_snapshot(self):
+        """Frozen searchable view (caller holds self.lock): the mesh's
+        distributed index (row-partitioned shard-local top-k + merge) when a
+        mesh is configured, else the single-device store.
+
+        Mesh sync is INCREMENTAL: only rows from the lowest dirty row are
+        re-shipped (padded to a power-of-two slab, the window shifted left
+        rather than run off the buffer); a full reload happens only when the
+        capacity bucket changes or most of the corpus is dirty."""
+        if self.mesh is None:
+            return self.store.snapshot()
+        if self._dist is None:
+            from minivectordb_tpu_torch.parallel.dist_scan import (
+                DistributedScanIndex,
+            )
+
+            self._dist = DistributedScanIndex(
+                self.mesh, self.embedding_size, device_dtype=self.device_dtype
+            )
+        if self._dist_version != self._version:
+            view = self.store.view()
+            dist = self._dist
+            start = self._dist_dirty_from
+            n_dirty = max(0, self.count - start)
+            if (
+                dist._bufs is None
+                or self.count > dist.capacity
+                or n_dirty > 0.5 * dist.capacity
+            ):
+                dist.load(view)
+            elif n_dirty == 0:
+                dist.count = self.count  # pure tail shrink: count masks it
+            else:
+                # zero-fill past the live rows (the dead zone is masked at
+                # search time)
+                p = min(scan_ops.capacity_bucket(n_dirty, 8), dist.capacity)
+                if start + p > dist.capacity:
+                    start = dist.capacity - p
+                slab = np.zeros((p, view.shape[1]), dtype=np.float32)
+                live = min(start + p, self.count) - start
+                slab[:live] = view[start : start + live]
+                dist.update(slab, start, self.count)
+            self._dist_version = self._version
+            self._dist_dirty_from = self.count
+        return self._dist.snapshot()
+
+    def _snapshot_search(self, snap, q, search_k, mask, fetch=True,
+                         mask_dev=None, host_sub=None):
+        if self.mesh is not None:
+            return snap.search(q, search_k, mask=mask, fetch=fetch)
+        return snap.search(q, search_k, mask, mode=self.search_mode,
+                           fetch=fetch, mask_dev=mask_dev, host_sub=host_sub)
 
     def _device_mask_thunk(self, metadata_filter, exclude_filter, or_filters,
                            mask):
@@ -1303,13 +1417,26 @@ class SearchEngine:
                 # this scan runs outside the lock against the uids/metadata
                 # captured below
                 ivf = self._ivf.snapshot()
+                if (
+                    self.mesh is not None
+                    and ivf.quantized
+                    and ivf.data is None
+                ):
+                    # row-sharded exact rescore: bind the distributed scan
+                    # snapshot (synced here, under the lock, so its rows
+                    # match the id space the probe's tables index into).
+                    # Only float32 mesh engines drop the single-device
+                    # rescore corpus (data is None); bf16/int8 engines keep
+                    # it, and building the sharded exact-scan buffer for
+                    # them would cost a redundant corpus copy
+                    ivf.attach_sharded_rescore(self._index_snapshot())
                 built = self._ivf_built_count
                 if self._ivf_overflow is not None and self._ivf_overflow.count:
                     osnap = self._ivf_overflow.snapshot()
                     if hold is not None:
                         hold.append(osnap)
             else:
-                snap = self.store.snapshot()
+                snap = self._index_snapshot()
                 if hold is not None:
                     hold.append(snap)
             uids, metadata = self.uids, self.metadata
@@ -1335,9 +1462,12 @@ class SearchEngine:
                     metadata_filter, exclude_filter, or_filters, mask
                 )
             )
+            # mesh engines use the mask thunk only on the IVF branch (the
+            # exact mesh path ships the host mask to its shards itself) and
+            # have no host route
             host_sub = (
                 None
-                if mask is None
+                if mask is None or self.mesh is not None
                 else self._host_sub_thunk(
                     metadata_filter, exclude_filter, or_filters, mask,
                     n_candidates,
@@ -1447,9 +1577,10 @@ class SearchEngine:
                     )
             return vals, idx, uids, metadata
         with self.telemetry.timed("device_scan"):
-            vals, idx = snap.search(q, search_k, mask, mode=self.search_mode,
-                                    fetch=fetch, mask_dev=mask_dev,
-                                    host_sub=host_sub)
+            vals, idx = self._snapshot_search(
+                snap, q, search_k, mask, fetch=fetch, mask_dev=mask_dev,
+                host_sub=host_sub,
+            )
         return vals, idx, uids, metadata
 
     def _as_device(self, t):

@@ -109,12 +109,11 @@ def save_checkpoint(path: str, params, opt_state=None, step: int = 0,
 def load_checkpoint(path: str, shardings=None):
     """Returns (params, opt_state, step, extra) as numpy pytrees, from a
     checkpoint of either package. ``shardings`` (a multi-device layout)
-    raises until the port has a mesh (ROADMAP queue 1, item 13:
-    ``parallel/`` -> ``torch.distributed``)."""
+    raises: it comes with training on a mesh (ROADMAP queue 1, item 13b)."""
     if shardings is not None:
         raise NotImplementedError(
-            "sharded checkpoints wait for the port's mesh (queue 1, item 13: "
-            "parallel/ -> torch.distributed)"
+            "sharded checkpoints are not ported yet (ROADMAP.md, queue 1, "
+            "item 13b: training on a mesh)"
         )
     with open(path, "rb") as f:
         payload = _Unpickler(f).load()

@@ -35,8 +35,8 @@ JAX module is functional:
   JAX layout (models/checkpoint.py, convert.adamw_state_to_numpy).
 
 Float32 products are IEEE float32: TF32 stays off (ops/scan.py). ``mesh=``
-(data and tensor parallelism) raises until the port has ``parallel/``
-(ROADMAP queue 1, item 13).
+(data and tensor parallelism) raises: training on a mesh is ROADMAP queue 1,
+item 13b (parallel/ has the search half).
 """
 
 from __future__ import annotations
@@ -63,8 +63,8 @@ ADAMW = {"betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": 1e-4}
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "training on a mesh waits for the port's parallel/ (queue 1, item 13: "
-            "parallel/ -> torch.distributed; param_shardings comes with it)"
+            "training on a mesh is not ported yet (ROADMAP.md, queue 1, "
+            "item 13b: training on a mesh; param_shardings comes with it)"
         )
 
 

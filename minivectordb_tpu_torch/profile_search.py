@@ -16,6 +16,8 @@
     python -m minivectordb_tpu_torch.profile_search --train [--batch 8]
         [--seq 512] [--dtype float32|bfloat16]
         [--against OTHER/flash_attention_bwd.cu | OTHER/flash_attention_bwd_bf16.cu]
+    python -m minivectordb_tpu_torch.profile_search --mesh 4 [--rows N]
+        [--batch B] [--dtypes float32,bfloat16,int8]
 
 Builds a seeded corpus straight into a ``VectorStore`` (no metadata), then
 times the stages of ``StoreSnapshot._device_search``'s fused route one by one
@@ -74,6 +76,15 @@ in bfloat16, the blocks an SM holds. Both this source and ``--against`` (another
 or flash_attention_bwd_bf16.cu for bfloat16, with the same C interface) are
 called the same way, straight through their C entry points, in turns (other,
 this, this, other).
+
+With ``--mesh N`` it loads the corpus into a ``DistributedScanIndex`` over N
+logical shards of the card (parallel/) for each of ``--dtypes`` and times one
+mesh search stage by stage with CUDA events: each shard's phase-1 kernel and
+its whole local top-k (phases 1-3), the merge, the whole
+``DistSnapshot.search(fetch=False)``, and the search on the host clock;
+beside it the same corpus in one ``VectorStore`` (the unsharded fused scan).
+Then ``torch.profiler`` over ``--reps`` mesh searches gives the device's busy
+time by kernel name and its idle share of the window.
 
 With ``--train`` it times one contrastive training step (models/train.py) at
 the e5-large widths, in ``--dtype`` (float32, or bfloat16: weights,
@@ -197,6 +208,111 @@ def profile(dtype: str, corpus: np.ndarray, queries: np.ndarray, k: int,
         snap.search(queries, k)
         wall.append((time.perf_counter() - t0) * 1e3)
     out["snapshot_search_wall_ms"] = statistics.median(wall)
+    return out
+
+
+def _wall_ms(fn, reps: int) -> float:
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _device_busy(fn, reps: int) -> dict:
+    """torch.profiler over ``reps`` calls: device time by kernel name and
+    the idle share of the window (1 - device busy / host wall)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name = {}
+    for ev in prof.key_averages():
+        # device-side events only (kernels, copies): an operator's own row
+        # repeats its kernels' time
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            by_name[ev.key] = dev_us
+    busy_us = sum(by_name.values())
+    if busy_us == 0:
+        return {"device_busy": "not measured: the trace holds no device time"}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"window_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / wall_us,
+            "top_kernels_ms": {name: us / 1e3 for name, us in top}}
+
+
+def profile_mesh(dtype: str, shards: int, corpus: np.ndarray, queries: np.ndarray,
+                 k: int, reps: int) -> dict:
+    from minivectordb_tpu_torch.parallel import dist_scan
+    from minivectordb_tpu_torch.parallel.mesh import search_mesh
+
+    mesh = search_mesh(shards, device=torch.device("cuda", torch.cuda.current_device()))
+    index = dist_scan.DistributedScanIndex(mesh, corpus.shape[1], device_dtype=dtype)
+    t0 = time.perf_counter()
+    index.load(corpus)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    snap = index.snapshot()
+    dev, lr = snap.device, snap.local_rows
+    b = queries.shape[0]
+    kb = scan_ops.k_bucket(k, lr)
+    q = scan_ops.to_device(queries, dev)
+    qn = scan_ops._normalize(q)
+    qi, qinv = scan_ops.quantize_queries_int8(q)
+    fused = snap.use_fused(b)
+    kernel_ms, local_ms, pairs = [], [], {}
+    for j, (s, _d) in enumerate(snap.shards):
+        buf, inv = snap.bufs[j], snap.inv_norms[j]
+        count = min(max(snap.count - s * lr, 0), lr)
+        if dtype == "int8":
+            kernel_ms.append(_event_ms(
+                lambda: fused_scan.subtile_maxima_int8(buf, inv, qi, qinv, count), reps))
+        else:
+            qd = qn.to(buf.dtype).contiguous()
+            kernel_ms.append(_event_ms(
+                lambda: fused_scan.subtile_maxima(buf, inv, qd, count), reps))
+
+        def local(buf=buf, inv=inv, count=count, s=s):
+            return dist_scan._local_topk(buf, inv, q, count, None, kb, s * lr, fused)
+
+        local_ms.append(_event_ms(local, reps))
+        pairs[s] = local()
+    k_final = min(kb, shards * kb)
+    out = {
+        "device_dtype": dtype, "shards": shards, "rows": int(corpus.shape[0]),
+        "shard_rows": lr, "batch": b, "k": k, "fused_route": fused,
+        "load_s": load_s,
+        "phase1_kernel_ms_per_shard": kernel_ms,
+        "local_topk_ms_per_shard": local_ms,
+        "merge_ms": _event_ms(
+            lambda: dist_scan.mesh_merge(mesh, pairs, k_final, dev), reps),
+        "mesh_search_device_ms": _event_ms(
+            lambda: snap.search(q, k, fetch=False), reps),
+        "mesh_search_wall_ms": _wall_ms(lambda: snap.search(queries, k), reps),
+        "mesh_profiler": _device_busy(lambda: snap.search(queries, k), reps),
+    }
+    del snap, index, pairs
+    torch.cuda.empty_cache()
+    store = VectorStore(corpus.shape[1], dtype)
+    store.append(corpus)
+    flat = store.snapshot()
+    out["unsharded_search_device_ms"] = _event_ms(
+        lambda: flat.search(q, k, fetch=False), reps)
+    out["unsharded_search_wall_ms"] = _wall_ms(lambda: flat.search(queries, k), reps)
+    out["unsharded_profiler"] = _device_busy(lambda: flat.search(queries, k), reps)
     return out
 
 
@@ -860,6 +976,8 @@ def main() -> None:
                     help="time one training step at the e5-large widths, stage by stage")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
                     help="with --train / --backward: the encoder's type")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="time one search over this many logical shards of the card")
     ap.add_argument("--against", default=None,
                     help="with --attention / --phase1 / --backward / --train: another "
                          "flash_attention.cu / phase1.cu / flash_attention_bwd[_bf16].cu "
@@ -920,6 +1038,13 @@ def main() -> None:
     rng = np.random.default_rng(args.seed)
     corpus = rng.standard_normal((args.rows, args.dim), dtype=np.float32)
     queries = rng.standard_normal((args.batch, args.dim), dtype=np.float32)
+    if args.mesh:
+        for dtype in args.dtypes.split(","):
+            res = profile_mesh(dtype, args.mesh, corpus, queries, args.k, args.reps)
+            res["card"] = smi
+            print(json.dumps(res), flush=True)
+            torch.cuda.empty_cache()
+        return
     for dtype in args.dtypes.split(","):
         res = profile(dtype, corpus, queries, args.k, args.reps)
         res["card"] = smi

@@ -19,8 +19,9 @@ the phase-1 kernels of csrc/phase1.cu, or the IVF probe kernels of
 csrc/ivf_probe.cu with ``index="ivf"``); the reference also searches
 globally — its shards are never searched independently (SURVEY.md §2c).
 
-Not ported yet: ``mesh=...`` raises ``NotImplementedError`` naming its
-ROADMAP item (core/engine.py).
+``mesh=`` maps the search onto a device mesh (parallel/): shard-local top-k
+over a row-partitioned corpus and one merge; the shard files stay a
+persistence unit.
 """
 
 from __future__ import annotations

@@ -29,8 +29,8 @@ What changed underneath, against the reference:
 methods; its trained layout travels in the pickle under the extra key
 ``"ivf"`` (numpy arrays and builtins, the JAX package's schema).
 
-Not ported yet: ``mesh=...`` raises ``NotImplementedError`` naming its
-ROADMAP item.
+``mesh=`` (``parallel.mesh.search_mesh(...)``) shards the search across
+devices, or across logical shards of one device (parallel/).
 """
 
 from __future__ import annotations
@@ -74,7 +74,10 @@ class VectorDatabase:
         guarantee. search_mode: 'exact' or 'approx' (batches of 16 and more:
         the fused scan with a zero phase-2 margin; smaller batches are
         served exactly).
-        mesh: not ported yet (anything but None raises NotImplementedError).
+        mesh: a parallel.mesh.Mesh (``search_mesh(...)``): searches run
+        row-partitioned across its shards (flat) or list-partitioned
+        (index='ivf'), shard-local top-k then one merge. ``device`` defaults
+        to the mesh's first device; one that disagrees raises.
         index: 'flat' (exact scan) or 'ivf' — coarse-quantized ANN, built
         lazily once the corpus passes ivf_opts['build_threshold'] rows
         (incremental inserts overflow to an exact side-buffer until the

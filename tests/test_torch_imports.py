@@ -44,6 +44,8 @@ def test_import_in_fresh_process_loads_no_jax():
         "import minivectordb_tpu_torch.models.quality_probes\n"
         "import minivectordb_tpu_torch.core.wal, minivectordb_tpu_torch.core.sharding\n"
         "import minivectordb_tpu_torch.rerank.device\n"
+        "import minivectordb_tpu_torch.parallel.mesh, minivectordb_tpu_torch.parallel.dist_scan\n"
+        "import minivectordb_tpu_torch.parallel.dist_ivf, minivectordb_tpu_torch.parallel.multihost\n"
         "from minivectordb_tpu_torch import ShardedVectorDatabase, ShardedVectorDatabaseUsearch\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'minivectordb_tpu'))\n"

@@ -83,7 +83,8 @@ def test_device_defaults_to_cuda_and_mesh_raises(tmp_path):
     else:
         with pytest.raises(RuntimeError, match="CUDA"):
             ShardedVectorDatabase(folder)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mesh= is ported (parallel/): what is not a Mesh raises
+    with pytest.raises(TypeError, match="Mesh"):
         ShardedVectorDatabase(folder, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         ShardedVectorDatabase(folder, durability="bogus", device="cpu")

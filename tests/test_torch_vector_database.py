@@ -243,8 +243,18 @@ def test_unported_parts_raise_and_approx_serves(tmp_path, what):
         with pytest.raises(ValueError):
             TorchDB(storage_file=path, index="hnsw", device="cpu")
     elif what == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # mesh= is ported (parallel/): what is not a Mesh, or a device that
+        # disagrees with the mesh, raises
+        import torch
+
+        from minivectordb_tpu_torch.parallel.mesh import search_mesh
+
+        with pytest.raises(TypeError, match="Mesh"):
             TorchDB(storage_file=path, mesh=object(), device="cpu")
+        with pytest.raises(ValueError, match="disagrees"):
+            TorchDB(storage_file=path, mesh=search_mesh(2, device="cpu"), device="meta")
+        db = TorchDB(storage_file=path, mesh=search_mesh(2, device="cpu"))
+        assert db._engine.device == torch.device("cpu")
     elif what == "calibrate_nprobe":
         with pytest.raises(ValueError, match="calibrate_nprobe requires index='ivf'"):
             TorchDB(storage_file=path, device="cpu").calibrate_nprobe()

@@ -48,7 +48,11 @@ Phases (one JSON object per output line):
              host's scores are not tied within 1e-5, scores within 1e-4).
              Prints load, reopen, delete, append and rerank times. Each
              database's searches are counted from 0 (K1-f32 and its masked
-             entry, K2, K4-bf16 and K3-bf16 must be launched, and no other)
+             entry, K2, K4-bf16 and K3-bf16 must be launched, and no other).
+             The native host fast path (native/fastops.cpp, g++ at first use)
+             must build, and by its counters every one of the 20,500 WAL
+             appends and the host rerank's hashing and fuzzy ratios (1,025
+             and 1,024 calls a query) must go through it
   mesh_path  mesh= (parallel/) through the public classes, with 4 logical
              shards of the card (search_mesh(4, device="cuda:0"), 262,144
              rows each) over the main path's corpus, queries and oracle:
@@ -113,6 +117,33 @@ Phases (one JSON object per output line):
              checkpoint, which must repeat it bit for bit (the kernels use no
              atomics). Last, after the counts are read, step 1's gradients
              against a float32 run of the same weights (below)
+  train_mesh_path  training on a (dp, tp) = (2, 2) mesh of logical
+             positions on the card (train_mesh(4, tp=2, device="cuda:0");
+             parallel/tensor_parallel.py) at the e5-large widths, float32
+             then bfloat16, from seeded weights and train_batches(3, 8, .):
+             the single-device train_loop's 3 steps first (the reference),
+             then on the mesh train_loop's 2 steps with the checkpoint
+             (gathered into the JAX pytree) at step 2, step 3, and step 3
+             again from load_checkpoint(shardings=param_shardings(...)),
+             which must repeat it (float32 1e-5, bfloat16 bit for bit); each
+             step's loss within 1e-4 of the single-device step's (bfloat16:
+             2e-3), every parameter after 3 steps within 2 * lr * steps (+ 4
+             bfloat16 ulps), in float32 each leaf's mean within lr / 4 (the
+             k bias exempt), step 1's gradients of every leaf within 1e-3
+             (bfloat16: 0.25) of the single-device step's, relative (q and
+             k: to their layer's v gradient), the dp replicas equal bit for
+             bit; K6-lse, K7 and K8 of the run's type 192 launches a step (2
+             encodes x 24 layers x 4 positions, each at nh = 8 heads), none
+             of the other type (asserted). Then one bfloat16 step on
+             train_mesh(pod=True) over a one-rank NCCL group (init_pod through a
+             file:// store), equal bit for bit to the single-device step;
+             and K6-lse, K7, K8 of both types at one tp shard's shape (4
+             sequences, nh = 8, S = 512, hd = 64) against their plain
+             versions, timed beside them; the bfloat16 row-parallel partial
+             products (tensor cores, float32 out) against the same products
+             upcast to float32, both timed. Prints host-clock ms per mesh step
+             beside the single-device step (logical positions run one after
+             the other: no speed-up can show), checkpoint times, peak memory
   kernels    every kernel instantiation held against its plain PyTorch
              version over its whole output and timed beside it, beside one
              library call, and beside the card's bound: the phase-1 kernels
@@ -161,7 +192,8 @@ Phases (one JSON object per output line):
              just after;
              every launch made to compare a kernel or a route with its plain
              version runs after that read and does not count; each kernel row
-             also gives its launches on the mesh path ("mesh_launches")
+             also gives its launches on the mesh path ("mesh_launches") and
+             on the training mesh path ("train_mesh_launches")
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances. Kernel against plain version, scores of magnitude <= 1: float32
@@ -281,11 +313,13 @@ from minivectordb_tpu_torch.models import train as train_mod  # noqa: E402
 from minivectordb_tpu_torch.models import train_builtin  # noqa: E402
 from minivectordb_tpu_torch.models.checkpoint import load_checkpoint  # noqa: E402
 from minivectordb_tpu_torch.models.tokenizer import HashTokenizer  # noqa: E402
+from minivectordb_tpu_torch.native import fastops  # noqa: E402
 from minivectordb_tpu_torch.ops import flash_attention as flash_ops  # noqa: E402
 from minivectordb_tpu_torch.ops import fused_scan, ivf as ivf_ops  # noqa: E402
 from minivectordb_tpu_torch.ops import ivf_probe, scan as scan_ops  # noqa: E402
 from minivectordb_tpu_torch.parallel import dist_ivf, multihost  # noqa: E402
-from minivectordb_tpu_torch.parallel.mesh import search_mesh  # noqa: E402
+from minivectordb_tpu_torch.parallel import tensor_parallel  # noqa: E402
+from minivectordb_tpu_torch.parallel.mesh import search_mesh, train_mesh  # noqa: E402
 from minivectordb_tpu_torch.profile_search import clustered_corpus  # noqa: E402
 from minivectordb_tpu_torch.profile_search import phase1_operands  # noqa: E402
 
@@ -1300,11 +1334,17 @@ def sharded_rerank(db) -> dict:
         assert (qb < 64) == (name == "query_short"), qb
         ranked, ms = {}, {}
         for route, flag in (("device", True), ("host", False)):
+            fastops.reset_calls()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             ranked[route] = db.hybrid_rerank_results(texts, scores, query, k=len(texts),
                                                      device=flag)
             ms[route] = (time.perf_counter() - t0) * 1e3
+        # the host route hashed the query and every text, and took every
+        # fuzzy ratio, through the native library (its counters)
+        native = dict(fastops.CALLS)
+        assert native["hash_ngrams"] == len(texts) + 1, native
+        assert native["partial_ratio"] == len(texts), native
         dev, host = ranked["device"], ranked["host"]
         dv, hv = np.asarray(dev[1]), np.asarray(host[1])
         err = float(np.abs(dv - hv).max())
@@ -1314,7 +1354,8 @@ def sharded_rerank(db) -> dict:
             near = [abs(hv[j] - hv[i]) for i in (j - 1, j + 1) if 0 <= i < hv.size]
             assert min(near) <= 1e-5, (name, j)
         out[name] = {"query_bytes": qb, "max_abs_err": err, "order_swaps_within_ties": len(swaps),
-                     "device_ms": ms["device"], "host_ms": ms["host"]}
+                     "device_ms": ms["device"], "host_ms": ms["host"],
+                     "host_native_calls": native}
     return out
 
 
@@ -1329,7 +1370,17 @@ def phase_sharded_path(tmp: str, main_data: tuple) -> dict:
     (n, _d), b, k = corpus.shape, queries.shape[0], want_i.shape[1]
     out = {"phase": "sharded_path", "rows": n, "dim": D, "batch": b, "k": k,
            "shard_size": 5000}
+    # the native host fast path (native/fastops.cpp) builds with g++ at
+    # first use; the WAL appends and the host rerank must go through it
+    t0 = time.perf_counter()
+    native = fastops.available()
+    assert native, native.detail
+    out["native"] = {"library": os.path.relpath(native.detail),
+                     "first_use_build_s": time.perf_counter() - t0}
+    fastops.reset_calls()
     out["float32"] = sharded_f32_and_wal(tmp, corpus, queries, want_v, want_i, k)
+    out["native"]["wal_appends"] = fastops.CALLS["wal_append"]
+    assert fastops.CALLS["wal_append"] == 20_500, fastops.CALLS  # 20,000 "wal", 500 "wal_fsync"
     out["int8"] = sharded_int8(tmp, corpus, queries, want_v, want_i, k)
     del corpus
     ivf_launches = {}
@@ -2738,6 +2789,432 @@ def phase_train_path_bf16(tmp: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# train_mesh_path: training on a (dp, tp) = (2, 2) mesh of the card
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_SHAPE = (2, 2)  # train_mesh_path's logical (dp, tp) positions on the card
+# kernel row name -> its entry point, for the rows' "train_mesh_launches"
+TRAIN_ROW_ENTRY = dict(zip(("K6-f32-lse", "K7-f32", "K8-f32"), TRAIN_ENTRY_POINTS)) | dict(
+    zip(("K6-bf16-lse", "K7-bf16", "K8-bf16"), TRAIN_BF16_ENTRY_POINTS))
+
+
+def bf16_ulp(x: np.ndarray) -> float:
+    """One bfloat16 ulp at the largest magnitude of x."""
+    big = float(np.abs(x.astype(np.float32)).max())
+    return float(2.0 ** (np.floor(np.log2(max(big, 2.0 ** -126))) - 7))
+
+
+MESH_BF16_LOSS_TOL = 2e-3  # the bfloat16 mesh loss against one device's
+MESH_MEAN_LR = 0.25  # float32; tests/test_torch_train.py's BF16_MEAN_LR
+# step 1's gradients, mesh against one device: |g_mesh - g| / |g| a leaf
+MESH_GRAD_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.25}
+
+
+def loss_tolerance(bf16: bool) -> float:
+    """The mesh step's loss against the single-device step's: 1e-4 in float32
+    (tests/test_train.py's bound for JAX's sharded step); in bfloat16
+    MESH_BF16_LOSS_TOL, the predicted difference: the tp partial sums and the
+    dp gradient sums round to bfloat16 at other points than the
+    single-device step's products, and 24 layers carry the difference. Both
+    are well under the loss's own movement from step to step (about 0.03)."""
+    return MESH_BF16_LOSS_TOL if bf16 else 1e-4
+
+
+def mesh_vs_single(mesh_tree, single_tree, steps: int, lr: float, bf16: bool) -> dict:
+    """Every parameter leaf of the mesh run against the single-device run
+    after ``steps`` AdamW steps from the same weights. Each element within
+    2 * lr * steps (+ 4 bfloat16 ulps of the leaf's largest value in
+    bfloat16): Adam moves an element by about lr a step whatever its
+    gradient's size (m_hat / sqrt(v_hat) is +-1 at step 1), so an element
+    whose gradient is rounding noise (near zero, its sign set by the
+    summation order: the tp partial sums, the dp gradient sum) can move by lr
+    one way in one run and the other way in the other; a bfloat16 parameter
+    also rounds each update to its ulp. That envelope holds whatever the
+    gradient is. In float32 each leaf's mean error is held to MESH_MEAN_LR *
+    lr too, the k bias exempt (its gradient is zero but for rounding:
+    softmax ignores a shift of a query's logits), as tests/test_torch_train.py
+    holds the port against JAX. In bfloat16 that rule fails for a right
+    gradient at these widths: the last layers' biases and the q and k
+    projections have rounding-bound gradients (PERF.md section 6), which
+    Adam turns into moves of lr either way; the means are reported, and
+    mesh_gradients_vs_single holds the gradients themselves."""
+    worst = (0.0, "")
+    means = {}
+    over_lr = total = 0
+    sum_err = 0.0
+    for (path, got), (_p, want) in zip(leaf_items(mesh_tree), leaf_items(single_tree)):
+        g, w = got.astype(np.float32), want.astype(np.float32)
+        err = np.abs(g - w)
+        limit = 2 * lr * steps + (4 * bf16_ulp(w) if bf16 else 0.0)
+        assert float(err.max()) <= limit, (path, float(err.max()), limit)
+        if not path.endswith(".k.b"):
+            means[path] = float(err.mean(dtype=np.float64))
+        if float(err.max()) > worst[0]:
+            worst = (float(err.max()), path)
+        over_lr += int((err > lr).sum())
+        total += err.size
+        sum_err += float(err.sum(dtype=np.float64))
+    top = sorted(means, key=lambda p: -means[p])[:3]
+    out = {"max_abs_diff": worst[0], "max_abs_diff_leaf": worst[1],
+           "mean_abs_diff": sum_err / total,
+           "largest_leaf_means": {p: means[p] for p in top},
+           "bound": f"2 * lr * steps = {2 * lr * steps}"
+           + (" + 4 bfloat16 ulps of the leaf's largest value" if bf16 else
+              f"; each leaf's mean but the k biases' {MESH_MEAN_LR} * lr = {MESH_MEAN_LR * lr}"),
+           "share_of_elements_over_lr": over_lr / total}
+    assert bf16 or means[top[0]] <= MESH_MEAN_LR * lr, out
+    return out
+
+
+def gradients_numpy(model, to_numpy) -> dict:
+    """The gradients of a run's last step as the JAX pytree: every parameter
+    of ``model`` overwritten by its gradient, then ``to_numpy(model)``."""
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.grad)
+    return to_numpy(model)
+
+
+def mesh_gradients_vs_single(cfg, batch: dict, seed: int, dtype, mesh) -> dict:
+    """Step 1's gradients on the mesh (summed over dp, gathered from replica
+    0's pieces) against the single-device step's, from the same seeded
+    weights: per parameter leaf |g_mesh - g| / |g| (Frobenius), for the q and
+    k projections over the norm of their layer's v-weight gradient (their own
+    is rounding-bound at random weights, PERF.md section 6). Asserted
+    <= MESH_GRAD_TOL: between the rounding level (a bfloat16 step's
+    gradients lie a median 0.045 from a float32 run's in
+    compare_gradients_bf16) and what a wrong gradient gives (a gradient
+    counted twice is 1.0 away, one of two dp replicas' gradients missing
+    about 0.5)."""
+    enc, state, opt = train_mod.init_training(cfg, seeded_encoder(cfg, seed, dtype), device=DEV)
+    enc, state, m = train_mod.make_train_step(cfg, opt)(enc, state, batch)
+    loss = float(m["loss"])
+    want = dict(leaf_items(gradients_numpy(enc, port_convert.encoder_to_numpy)))
+    del enc, state, opt, m
+    free_card()
+    weights = port_convert.encoder_to_numpy(seeded_encoder(cfg, seed, dtype))
+    menc, mstate, mopt = train_mod.init_training(cfg, weights, mesh=mesh)
+    menc, mstate, mm = train_mod.make_train_step(cfg, mopt, mesh=mesh)(menc, mstate, batch)
+    mesh_loss = float(mm["loss"])
+    got = dict(leaf_items(gradients_numpy(menc, tensor_parallel.gather)))
+    del menc, mstate, mopt, mm, weights
+    free_card()
+    rel = {}
+    for path, w in want.items():
+        scale_of = path.rsplit(".", 2)[0] + ".v.w" if logit_path(path) else path
+        scale = float(np.linalg.norm(want[scale_of].astype(np.float32)))
+        diff = got[path].astype(np.float32) - w.astype(np.float32)
+        rel[path] = float(np.linalg.norm(diff)) / max(scale, 1e-30)
+    top = sorted(rel, key=lambda p: -rel[p])[:4]
+    out = {"loss": mesh_loss, "single_device_loss": loss, "leaves": len(rel),
+           "median_rel": statistics.median(rel.values()),
+           "largest_rel": {p: rel[p] for p in top}, "tolerance": MESH_GRAD_TOL[dtype]}
+    assert all(np.isfinite(v) for v in rel.values()) and rel[top[0]] <= MESH_GRAD_TOL[dtype], out
+    return out
+
+
+def leaf_items(tree, path=""):
+    """(path, array) of a numpy pytree, in the JAX package's key order."""
+    if isinstance(tree, dict):
+        for key in sorted(tree):
+            yield from leaf_items(tree[key], f"{path}.{key}" if path else key)
+    elif isinstance(tree, list):
+        for i, val in enumerate(tree):
+            yield from leaf_items(val, f"{path}.{i}")
+    else:
+        yield path, np.asarray(tree)
+
+
+def replicas_equal(menc) -> bool:
+    """Every position's parameters equal, bit for bit, to its tp shard's in
+    replica 0, and every replicated parameter to position 0's."""
+    tp = menc.tp
+    named = {pos: dict(p.named_parameters()) for pos, p in menc.pieces.items()}
+    with torch.no_grad():
+        for pos, params in named.items():
+            for name, param in params.items():
+                if not torch.equal(param, named[pos % tp][name]):
+                    return False
+                if not tensor_parallel._is_split(name) and not torch.equal(param, named[0][name]):
+                    return False
+    return True
+
+
+def drive_mesh_training(tmp: str, batches: list, seed: int, dtype) -> dict:
+    """The e5-large widths in ``dtype`` on train_mesh(4, tp=2, device=DEV):
+    step 1's gradients against the single-device step's
+    (mesh_gradients_vs_single), the single-device train_loop's 3 steps (the
+    reference; neither counted), then on the mesh train_loop's 2 steps with the checkpoint at
+    step 2, step 3, and step 3 again from the checkpoint loaded with
+    shardings=param_shardings(...). Every count is set to 0 just before the
+    mesh runs and read just after: 4 steps of 2 encodes x 24 layers x 4
+    positions of K6-lse, K7 and K8 of the run's type."""
+    cfg = model_configs.E5_LARGE
+    bf16 = dtype == torch.bfloat16
+    lr = 1e-4
+    ck = os.path.join(tmp, "train_mesh_ck_bf16.pkl" if bf16 else "train_mesh_ck.pkl")
+    marks = []
+
+    def log(_line):
+        marks.append(time.perf_counter())
+
+    mesh = train_mesh(TRAIN_MESH_SHAPE[0] * TRAIN_MESH_SHAPE[1], tp=TRAIN_MESH_SHAPE[1],
+                      device=DEV)
+    assert mesh.devices.shape == TRAIN_MESH_SHAPE and not mesh.distributed
+    t0 = time.perf_counter()
+    grads = mesh_gradients_vs_single(cfg, batches[0], seed, dtype, mesh)
+    grads["s"] = time.perf_counter() - t0
+    enc = seeded_encoder(cfg, seed, dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single, _o, hist_single = train_mod.train_loop(
+        cfg, enc, iter(batches), steps=3, learning_rate=lr, log_every=1, log_fn=log, device=DEV)
+    single_step_s = [marks[0] - t0, marks[1] - marks[0], marks[2] - marks[1]]
+    single_tree = port_convert.encoder_to_numpy(single)
+    del enc, single, _o
+    free_card()
+    weights = port_convert.encoder_to_numpy(seeded_encoder(cfg, seed, dtype))  # the same seed
+
+    flash_ops.reset_launches()
+    marks.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    menc, mo, hist = train_mod.train_loop(
+        cfg, weights, iter(batches[:2]), steps=2, mesh=mesh, learning_rate=lr,
+        checkpoint_path=ck, log_every=1, log_fn=log)
+    t_end = time.perf_counter()
+    step_s = [marks[0] - t0, marks[1] - marks[0]]
+    save_s = t_end - marks[1]
+    marks.clear()
+    t0 = time.perf_counter()
+    menc, mo, hist3 = train_mod.train_loop(
+        cfg, menc, iter(batches[2:3]), steps=1, mesh=mesh, start_step=2, opt_state=mo,
+        learning_rate=lr, log_every=1, log_fn=log)
+    step_s.append(marks[0] - t0)
+    hist += hist3
+    replicas_bit_equal = replicas_equal(menc)
+    assert replicas_bit_equal, "the dp replicas of a tp shard differ"
+    del mo, weights
+    free_card()
+
+    t0 = time.perf_counter()
+    ck_params, ck_opt, ck_step, _extra = load_checkpoint(
+        ck, shardings=train_mod.param_shardings(mesh, menc))
+    load_s = time.perf_counter() - t0
+    assert ck_step == 2, ck_step
+    q_w = ck_params["layers"][0]["q"]["w"]
+    assert isinstance(q_w, tensor_parallel.ShardedArray)
+    assert tuple(q_w.shards[3].shape) == (cfg.hidden, cfg.hidden // 2), q_w.shards[3].shape
+    assert q_w.shards[3].device == DEV
+    t0 = time.perf_counter()
+    resumed, _ro, hist_r = train_mod.train_loop(
+        cfg, ck_params, iter(batches[2:3]), steps=1, mesh=mesh, start_step=2, opt_state=ck_opt,
+        learning_rate=lr, log_every=1, log_fn=lambda _l: None)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
+    per_step = 2 * cfg.layers * mesh.devices.size
+    entries = TRAIN_BF16_ENTRY_POINTS if bf16 else TRAIN_ENTRY_POINTS
+    launches = read_k6_launches({}, {name: 4 * per_step for name in entries},
+                                f"e5-large mesh training, {dtype}")
+    del ck_params, ck_opt, _ro
+    loss3, loss3_r = hist3[0]["loss"], hist_r[0]["loss"]
+    with torch.no_grad():
+        resume_diff = max(float((a - b).abs().max())
+                          for a, b in zip(menc.parameters(), resumed.parameters()))
+    assert abs(loss3 - loss3_r) <= 1e-5 * max(1.0, abs(loss3)), (loss3, loss3_r)
+    assert resume_diff <= 1e-5, resume_diff
+    if bf16:
+        assert menc.dtype == resumed.dtype == torch.bfloat16
+        assert loss3 == loss3_r and resume_diff == 0.0, (loss3, loss3_r, resume_diff)
+    del resumed
+    mesh_tree = tensor_parallel.gather(menc)
+    del menc
+    free_card()
+    loss_diffs = [abs(m["loss"] - s["loss"]) for m, s in zip(hist, hist_single)]
+    assert all(np.isfinite(h["loss"]) for h in hist), hist
+    assert max(loss_diffs) <= loss_tolerance(bf16), (hist, hist_single)
+    return {
+        "dtype": str(dtype).replace("torch.", ""),
+        "mesh": list(mesh.devices.shape),
+        "history": hist,
+        "single_device_history": hist_single,
+        "loss_vs_single_max_abs": max(loss_diffs),
+        "loss_tolerance": loss_tolerance(bf16),
+        "params_vs_single_after_3_steps": mesh_vs_single(mesh_tree, single_tree, 3, lr, bf16),
+        "step1_gradients_vs_single": grads,
+        "dp_replicas_bit_equal": replicas_bit_equal,
+        "mesh_step_s": step_s,
+        "mesh_ms_per_step": step_s[1] * 1e3,
+        "single_step_s": single_step_s,
+        "single_ms_per_step": single_step_s[1] * 1e3,
+        "checkpoint_save_s": save_s,
+        "checkpoint_bytes": os.path.getsize(ck),
+        "checkpoint_load_placed_s": load_s,
+        "resume_step_s": resume_s,
+        "resumed_vs_uninterrupted_max_param_diff": resume_diff,
+        "peak_memory_bytes_mesh_runs": peak_bytes,
+        "launches": launches,
+        "launches_per_step": per_step,
+        "steps_run": 4,
+    }
+
+
+def train_mesh_pod(tmp: str, batch: dict, seed: int) -> dict:
+    """One bfloat16 step on train_mesh(pod=True) over a one-rank NCCL process group
+    (init_pod through a file:// store, as mesh_path's pod): the collectives'
+    torch.distributed backend on the card. It must repeat the single-device
+    step from the same weights bit for bit (a (1, 1) mesh reduces nothing)."""
+    import torch.distributed as dist
+
+    cfg = model_configs.E5_LARGE
+    quiet = {"learning_rate": 1e-4, "log_every": 1, "log_fn": lambda _l: None}
+    single, _o, hist_s = train_mod.train_loop(
+        cfg, seeded_encoder(cfg, seed, torch.bfloat16), iter([batch]), 1, device=DEV, **quiet)
+    del _o
+    weights = port_convert.encoder_to_numpy(seeded_encoder(cfg, seed, torch.bfloat16))
+    multihost.init_pod("file://" + os.path.join(tmp, "train_pod_store"), 1, 0, device=DEV)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = train_mesh(pod=True)
+        assert mesh.distributed and mesh.devices.shape == (1, 1), mesh.devices.shape
+        menc, _mo, hist = train_mod.train_loop(cfg, weights, iter([batch]), 1, mesh=mesh,
+                                               **quiet)
+        with torch.no_grad():
+            diff = max(float((a.float() - b.float()).abs().max())
+                       for a, b in zip(menc.pieces[0].parameters(), single.parameters()))
+        assert hist[0]["loss"] == hist_s[0]["loss"] and diff == 0.0, (hist, hist_s, diff)
+    finally:
+        dist.destroy_process_group()
+    del menc, _mo, single
+    free_card()
+    return {"backend": "nccl", "world_size": 1, "mesh": [1, 1], "loss": hist[0]["loss"],
+            "single_device_loss": hist_s[0]["loss"], "max_param_diff": diff}
+
+
+def hold_shard_kernels(lengths: list) -> dict:
+    """K6-lse, K7 and K8 of both types at one tp shard's shape (a dp
+    replica's 4 sequences, nh = 8 of the 16 heads, S = 512, hd = 64, the
+    replica's lengths) against their plain versions (compare_backward[_bf16]'s
+    tolerances), timed beside them by CUDA events."""
+    cfg = model_configs.E5_LARGE
+    b, nh = len(lengths), cfg.heads // TRAIN_MESH_SHAPE[1]
+    s, hd = 512, cfg.hidden // cfg.heads
+    out = {"shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths": lengths}}
+    for dtype, compare in ((torch.float32, compare_backward),
+                           (torch.bfloat16, compare_backward_bf16)):
+        case = attention_case(b, nh, s, hd, dtype, lengths, SEED + 120)
+        errs = compare(case, f"tp shard {dtype}")
+        q, k, v, seg = case
+        scale = 1.0 / float(np.sqrt(hd))
+        gen = torch.Generator(device=DEV)
+        gen.manual_seed(SEED + 121)
+        dout = torch.randn(q.shape, device=DEV, generator=gen).to(dtype)
+        o, lse = flash_ops.flash_attention_lse(q, k, v, seg, scale)
+        ops = flash_ops._bwd_operands(q, k, v, seg, o, dout, lse)
+        kind = "bf16" if dtype == torch.bfloat16 else "f32"
+        times = {f"K6-{kind}-lse": (lambda: flash_ops.flash_attention_lse(q, k, v, seg, scale),
+                                    lambda: flash_ops.flash_attention_lse_plain(q, k, v, seg,
+                                                                                scale)),
+                 f"K7-{kind}": (lambda: flash_ops._bwd_dkv(*ops, scale), None),
+                 f"K8-{kind}": (lambda: flash_ops._bwd_dq(*ops, scale), None)}
+        plain_bwd = event_ms(lambda: flash_ops.flash_attention_bwd_plain(
+            q, k, v, seg, o, dout, lse, scale), 3, warmup=1)
+        for name, (run, plain) in times.items():
+            out[name] = {"max_abs_err": errs[name], "ms": event_ms(run, 20),
+                         "plain_ms": event_ms(plain, 3, warmup=1) if plain else plain_bwd}
+            if name + "_share" in errs:
+                out[name]["max_share_of_tolerance"] = errs[name + "_share"]
+        del case, q, k, v, seg, dout, o, lse, ops
+    free_card()
+    return out
+
+
+def hold_partials(rows: int) -> dict:
+    """The bfloat16 row-parallel partial products of one tp position
+    (tensor_parallel._partial: attn_out's 512 and ffn_out's 2,048 input
+    rows of the 1,024 outputs, over a dp replica's ``rows`` tokens), forward
+    and backward, against the same products of the operands upcast to
+    float32 (the CPU's formulation): the forward within 1e-5 of the largest
+    output (float32 summation order), dh and dw within one bfloat16 ulp of
+    their largest value. Both timed by CUDA events."""
+    cfg = model_configs.E5_LARGE
+    tp = TRAIN_MESH_SHAPE[1]
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 122)
+    out = {"rows": rows}
+    for name, width in (("attn_out", cfg.hidden // tp), ("ffn_out", cfg.intermediate // tp)):
+        h = torch.randn((rows, width), device=DEV, generator=gen).to(torch.bfloat16)
+        lin = torch.nn.Linear(width, cfg.hidden, device=DEV, dtype=torch.bfloat16)
+        g = torch.randn((rows, cfg.hidden), device=DEV, generator=gen).to(torch.bfloat16).float()
+        h.requires_grad_(True)
+
+        def card():
+            y = tensor_parallel._partial(h, lin)
+            return (y, *torch.autograd.grad(y, (h, lin.weight), g))
+
+        def upcast():
+            y = F.linear(h.float(), lin.weight.float())
+            return (y, *torch.autograd.grad(y, (h, lin.weight), g))
+
+        got, want = card(), upcast()
+        errs = [float((a.detach().float() - b.float()).abs().max()) for a, b in zip(got, want)]
+        limits = [1e-5 * float(want[0].abs().max())] + [
+            bf16_ulp(b.float().cpu().numpy()) for b in want[1:]]
+        assert got[0].dtype == torch.float32 and got[1].dtype == torch.bfloat16, got
+        assert all(e <= lim for e, lim in zip(errs, limits)), (name, errs, limits)
+        w = lin.weight.detach()
+        x = h.detach()
+        # the forward product alone, 50 calls between two events: the card's
+        # time where the host keeps ahead of it
+        fwd = {"tensor_cores_f32_out": lambda: torch.mm(x, w.T, out_dtype=torch.float32),
+               "upcast_f32": lambda: F.linear(x.float(), w.float()),
+               "bf16_out_library": lambda: F.linear(x, w)}
+        out[name] = {"in": width, "out": cfg.hidden, "max_abs_err_y_dh_dw": errs,
+                     "tolerance": limits, "ms_fwd_bwd": event_ms(card, 20),
+                     "upcast_ms_fwd_bwd": event_ms(upcast, 5, warmup=1),
+                     "gflop_fwd_bwd": 3 * 2 * rows * width * cfg.hidden / 1e9,
+                     "forward_ms_per_call": {
+                         k: event_ms(lambda f=f: [f() for _ in range(50)], 3, warmup=1) / 50
+                         for k, f in fwd.items()}}
+        del h, lin, g, got, want, w, x, fwd
+    free_card()
+    return out
+
+
+def phase_train_mesh_path(tmp: str) -> dict:
+    """Training on a (dp, tp) = (2, 2) mesh of logical positions on the card
+    at the e5-large widths, float32 then bfloat16 (drive_mesh_training), one
+    step over a one-rank NCCL group, and the kernels at one tp shard's
+    shape. Returns the mesh runs' launches (both types summed)."""
+    t_phase = time.perf_counter()
+    batches = train_batches(3, 8, SEED + 111)
+    out = {"phase": "train_mesh_path", "mesh": list(TRAIN_MESH_SHAPE),
+           "config": "e5-large widths (24 layers, hidden 1024, 16 heads of 64, "
+                     "intermediate 4096, vocab 250037), seeded weights",
+           "batch_pairs": 8, "seq": 512, "learning_rate": 1e-4}
+    launches = {}
+    for key, dtype, seed in (("float32", torch.float32, SEED + 110),
+                             ("bfloat16", torch.bfloat16, SEED + 112)):
+        out[key] = drive_mesh_training(tmp, batches, seed, dtype)
+        for name, count in out[key]["launches"].items():
+            launches[name] = launches.get(name, 0) + count
+    # each float32 entry point launched only by the float32 run, and so on
+    for name in TRAIN_BF16_ENTRY_POINTS:
+        assert out["float32"]["launches"][name] == 0, out["float32"]["launches"]
+    for name in TRAIN_ENTRY_POINTS:
+        assert out["bfloat16"]["launches"][name] == 0, out["bfloat16"]["launches"]
+    out["process_group"] = train_mesh_pod(tmp, batches[0], SEED + 113)
+    first = batches[0]["q_mask"][: 8 // TRAIN_MESH_SHAPE[0]].sum(axis=1)
+    out["tp_shard_kernels"] = hold_shard_kernels([int(n) for n in first])
+    out["tp_partials"] = hold_partials(int(first.size) * 512)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # K6 with lse, K7, K8: against their plain versions
 # ---------------------------------------------------------------------------
 
@@ -3109,11 +3586,13 @@ def main() -> None:
         torch.cuda.empty_cache()
         train_launches = phase_train_path(tmp)
         train_bf16_launches = phase_train_path_bf16(tmp)
+        train_mesh_launches = phase_train_mesh_path(tmp)
     emit({"phase": "launches", "flat_path": launches, "flat_path_narrow": narrow,
           "ivf_path": ivf_launches, "sharded_path": sharded_launches,
           "mesh_path": mesh_launches,
           "text_path": k6_launches, "train_path": train_launches,
-          "train_path_bf16": train_bf16_launches})
+          "train_path_bf16": train_bf16_launches,
+          "train_mesh_path": train_mesh_launches})
     path_counts = {**launches, **ivf_launches,
                    **{n: k6_launches[n] for n in TEXT_ENTRY_POINTS},
                    **{n: train_launches["e5_large"][n] for n in TRAIN_ENTRY_POINTS},
@@ -3125,11 +3604,15 @@ def main() -> None:
     missing = set().union(*MESH_ENTRY_POINTS.values()) - {
         n for n, c in mesh_launches.items() if c}
     assert not missing, f"the mesh path never launched: {missing}"
+    missing = [n for n in TRAIN_ENTRY_POINTS + TRAIN_BF16_ENTRY_POINTS
+               if not train_mesh_launches.get(n)]
+    assert not missing, f"the training mesh path never launched: {missing}"
     torch.cuda.empty_cache()
     kernels = phase_kernels(launches, ivf_shapes, ivf_launches, k6_launches,
                             train_launches["e5_large"], train_bf16_launches)
     for row in kernels["kernels"]:
         row["mesh_launches"] = mesh_launches.get(MESH_ROW_ENTRY.get(row["name"]), 0)
+        row["train_mesh_launches"] = train_mesh_launches.get(TRAIN_ROW_ENTRY.get(row["name"]), 0)
     emit(kernels)
     print(smi, flush=True)
     emit({

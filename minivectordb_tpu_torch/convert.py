@@ -16,7 +16,12 @@ a corpus over) hand state across as numpy arrays and builtins:
   ``np.asarray``) becomes a loaded ``models.encoder.Encoder``, and back;
 - the AdamW state of a training run (optax's ``ScaleByAdamState``: count, mu
   and nu, the moments in the parameters' pytree layout) becomes the state of
-  a ``torch.optim.AdamW`` over an ``Encoder``'s parameters, and back.
+  a ``torch.optim.AdamW`` over an ``Encoder``'s parameters, and back;
+- on a (dp, tp) training mesh, either pytree (parameters, or AdamW's mu and
+  nu) splits into the pieces of the tensor-parallel positions
+  (``shard_tree``, by ``parallel.mesh.train_spec``) and joins again
+  (``unshard_trees``); a piece loads into a piece ``Encoder``
+  (``encoder_from_numpy(..., tp=)``) like a whole tree into a whole one.
 
 A bfloat16 encoder's pytree (JAX's ``init_params(..., dtype=jnp.bfloat16)``)
 has ``ml_dtypes.bfloat16`` numpy leaves. They are recognised by their dtype's
@@ -37,6 +42,7 @@ from minivectordb_tpu_torch.core.engine import SearchEngine
 from minivectordb_tpu_torch.models import convert as model_convert
 from minivectordb_tpu_torch.models.encoder import Encoder, EncoderConfig
 from minivectordb_tpu_torch.ops import scan as scan_ops
+from minivectordb_tpu_torch.parallel.mesh import train_spec
 
 
 def tensor_from_numpy(arr: np.ndarray, device, bf16: bool = False) -> torch.Tensor:
@@ -209,7 +215,8 @@ def _tree_of(encoder: Encoder, leaf) -> dict:
     return tree
 
 
-def encoder_from_numpy(params: dict, cfg: EncoderConfig, device=None) -> Encoder:
+def encoder_from_numpy(params: dict, cfg: EncoderConfig, device=None,
+                       tp: int = 1) -> Encoder:
     """A loaded ``Encoder`` on ``device`` from the parameter pytree.
 
     ``params`` is the JAX package's pytree with numpy leaves (nested, or the
@@ -224,7 +231,12 @@ def encoder_from_numpy(params: dict, cfg: EncoderConfig, device=None) -> Encoder
     packages). The pytree's dense weights are (in, out), for ``x @ w``; the
     port stores them (out, in), as ``torch.nn.functional.linear`` reads
     them, and transposes each ONCE, here, never per call. ``device=None``
-    means the CUDA card and raises without one."""
+    means the CUDA card and raises without one.
+
+    With ``tp`` > 1, ``params`` is one tensor-parallel position's piece
+    (``shard_tree``) and the result that position's piece ``Encoder``.
+    Leaves may also be tensors (in the pytree's layout), as a placed
+    checkpoint holds them."""
     dev = scan_ops.resolve_device(device)
     if "layers" not in params:
         params = model_convert._unflatten_params(params, cfg.layers)
@@ -232,8 +244,11 @@ def encoder_from_numpy(params: dict, cfg: EncoderConfig, device=None) -> Encoder
         raise ValueError(
             f"{len(params['layers'])} layers of parameters for a config of {cfg.layers}"
         )
-    bf16 = _is_bf16(np.asarray(params["word_emb"]))
-    enc = Encoder(cfg, dev, torch.bfloat16 if bf16 else torch.float32)
+    emb = params["word_emb"]
+    bf16 = (emb.dtype == torch.bfloat16 if isinstance(emb, torch.Tensor)
+            else _is_bf16(np.asarray(emb)))
+    enc = Encoder(cfg, "meta", torch.bfloat16 if bf16 else torch.float32, tp)
+    enc = enc.to_empty(device=dev)
     with torch.no_grad():
         for path, param, transposed in _param_paths(enc):
             leaf = _module_layout(_at(params, path), param, transposed, enc)
@@ -244,9 +259,20 @@ def encoder_from_numpy(params: dict, cfg: EncoderConfig, device=None) -> Encoder
 
 
 def _module_layout(arr, param, transposed: bool, encoder: Encoder) -> torch.Tensor:
-    """A pytree leaf as a tensor of ``param``'s shape on its device:
-    bfloat16 for a bfloat16 leaf, else float32. Only token type 0 is ever
-    used: a wider ``type_emb`` keeps that row."""
+    """A pytree leaf (numpy, or a tensor) as a tensor of ``param``'s shape on
+    its device: bfloat16 for a bfloat16 leaf, else float32. Only token type 0
+    is ever used: a wider ``type_emb`` keeps that row."""
+    if isinstance(arr, torch.Tensor):
+        t = arr.detach()
+        if t.dtype != torch.bfloat16:
+            t = t.to(torch.float32)
+        if param is encoder.type_emb:
+            t = t[:1]
+        want = tuple(param.shape)[::-1] if transposed else tuple(param.shape)
+        if tuple(t.shape) != want:
+            raise ValueError(f"parameter of shape {tuple(t.shape)}, expected {want}")
+        t = t.to(param.device)
+        return t.T if transposed else t
     arr = np.asarray(arr)
     bf16 = _is_bf16(arr)
     if bf16:
@@ -313,10 +339,7 @@ def adamw_state_from_numpy(state, encoder: Encoder, optimizer) -> None:
     ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())`` (read
     without optax by ``models/checkpoint.py``). Moments of a wider
     ``type_emb`` (a converted checkpoint) keep row 0, as the parameter does."""
-    if isinstance(state, Mapping):
-        count, mu, nu = state["count"], state["mu"], state["nu"]
-    else:
-        count, mu, nu = tuple(state[0])[:3]  # ScaleByAdamState(count, mu, nu)
+    count, mu, nu = adamw_fields(state)
     if "layers" not in mu or len(mu["layers"]) != len(encoder.layers):
         raise ValueError("the AdamW state does not have the encoder's layers")
     step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
@@ -330,3 +353,57 @@ def adamw_state_from_numpy(state, encoder: Encoder, optimizer) -> None:
                                   "exp_avg_sq": moment(nu)}
 
 
+
+
+def adamw_fields(state) -> tuple:
+    """(count, mu, nu) of an AdamW state in either package's form:
+    ``adamw_state_to_numpy``'s dict, or optax's
+    ``(ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())``."""
+    if isinstance(state, Mapping):
+        return state["count"], state["mu"], state["nu"]
+    return tuple(state[0])[:3]
+
+
+def shard_leaf(leaf, spec, index: int, tp: int):
+    """The ``index``-th of ``tp`` blocks of a leaf along the mesh axis its
+    spec names (the leaf itself when replicated)."""
+    if not any(spec):
+        return leaf
+    axis = [a is not None for a in spec].index(True)
+    n = leaf.shape[axis]
+    if n % tp:
+        raise ValueError(
+            f"a dimension of {n} does not split into {tp} tensor-parallel shards"
+        )
+    lo, hi = index * n // tp, (index + 1) * n // tp
+    return leaf[lo:hi] if axis == 0 else leaf[:, lo:hi]
+
+
+def shard_tree(tree, index: int, tp: int, path: tuple = ()):
+    """Tensor-parallel position ``index``'s piece of a parameter pytree (or
+    of AdamW's mu or nu, which have its structure): each leaf's block by
+    ``parallel.mesh.train_spec``, the replicated leaves whole. Leaves are
+    numpy arrays or tensors, in the JAX package's layout (dense weights (in,
+    out))."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, index, tp, path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [shard_tree(v, index, tp, path + (i,)) for i, v in enumerate(tree)]
+    return shard_leaf(tree, train_spec(path), index, tp)
+
+
+def unshard_trees(trees: list, path: tuple = ()):
+    """The whole pytree from the pieces of tensor-parallel positions 0 ...
+    tp - 1 (numpy leaves): the sharded leaves joined along their mesh axis,
+    the replicated ones taken from position 0."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: unshard_trees([t[k] for t in trees], path + (k,)) for k in first}
+    if isinstance(first, list):
+        return [unshard_trees([t[i] for t in trees], path + (i,))
+                for i in range(len(first))]
+    spec = train_spec(path)
+    if not any(spec):
+        return first
+    axis = [a is not None for a in spec].index(True)
+    return np.concatenate([np.asarray(t) for t in trees], axis=axis)

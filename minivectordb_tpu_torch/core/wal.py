@@ -16,11 +16,11 @@ durability pass ``fsync=True`` per append (``durability="wal_fsync"`` on
 the database), which fsyncs each record before returning.
 
 Record framing: [magic 'MVDW' u32][payload_len u64 LE][crc32 u32 LE][payload]
-(payload = pickled op tuple). Appends are pure Python: the JAX package's
-optional C++ fast path (native/fastops) is not ported yet, and without its
-built library the JAX package writes these same bytes in Python too. A torn
-or corrupt tail record is detected by CRC/length and ignored (at most the
-in-flight op is lost — same guarantee as the reference's torn pickle write).
+(payload = pickled op tuple). Appends go through the C++ fast path
+(native/fastops, ``mvdb_wal_append``) when its library is built, else pure
+Python: the same bytes either way. A torn or corrupt tail record is detected
+by CRC/length and ignored (at most the in-flight op is lost — same guarantee
+as the reference's torn pickle write).
 """
 
 from __future__ import annotations
@@ -30,12 +30,19 @@ import pickle
 import struct
 import zlib
 
+from minivectordb_tpu_torch.native import fastops
+
 _MAGIC = 0x5744564D  # 'MVDW'
 _HEADER = struct.Struct("<IQI")  # magic, payload_len, crc32
 
 
 def append_record(path: str, op: tuple, fsync: bool = False) -> None:
     payload = pickle.dumps(op)
+    ok = fastops.wal_append(path, payload, fsync)
+    if ok:
+        return
+    if ok is False:
+        raise OSError(f"WAL append failed: {path}")
     crc = zlib.crc32(payload) & 0xFFFFFFFF
     with open(path, "ab") as f:
         f.write(_HEADER.pack(_MAGIC, len(payload), crc))

@@ -21,6 +21,12 @@ other's checkpoints:
   both packages (``convert.tensor_to_numpy``), so a bfloat16 run resumes in
   bfloat16 in either. The unpickler takes ``ml_dtypes.bfloat16`` and no other
   class of ml_dtypes.
+- a run on a (dp, tp) mesh writes the same file: its placed params and
+  AdamW state gathered into the JAX pytree (``tensor_parallel.gather``),
+  as ``np.asarray`` gathers the JAX package's sharded arrays. So a mesh run's
+  checkpoint of either package loads into a single-device run of either, and
+  the other way round; ``load_checkpoint(path, shardings=)`` places the
+  params on a mesh.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 
 from minivectordb_tpu_torch import convert
 from minivectordb_tpu_torch.models.encoder import Encoder
+from minivectordb_tpu_torch.parallel import tensor_parallel
 
 # optax's state classes as a JAX checkpoint pickles them, by name
 ScaleByAdamState = collections.namedtuple("ScaleByAdamState", "count mu nu")
@@ -83,11 +90,20 @@ def _to_host(tree):
 
 def save_checkpoint(path: str, params, opt_state=None, step: int = 0,
                     extra: dict | None = None) -> None:
-    """``params``: an ``Encoder`` (written as the JAX pytree) or any pytree of
-    arrays and tensors. ``opt_state``: with an ``Encoder``, its AdamW's
+    """``params``: an ``Encoder`` (written as the JAX pytree), a
+    ``MeshEncoder`` (gathered into it) or any pytree of arrays and tensors.
+    ``opt_state``: with an ``Encoder`` or a ``MeshEncoder``, its AdamW's
     ``state`` (``optimizer.state``, as ``models/train.py`` passes it around),
-    written in the JAX layout; else any pytree, or None."""
-    if isinstance(params, Encoder):
+    written in the JAX layout; else any pytree, or None. On a mesh across
+    processes every process calls it (the gather is collective) and process
+    0 writes the file."""
+    if isinstance(params, tensor_parallel.MeshEncoder):
+        host_opt = (None if opt_state is None
+                    else tensor_parallel.gather_adamw(params, opt_state))
+        host_params = tensor_parallel.gather(params)
+        if params.mesh.process_index not in (None, 0):
+            return
+    elif isinstance(params, Encoder):
         host_opt = (None if opt_state is None
                     else convert.adamw_state_to_numpy(opt_state, params))
         host_params = convert.encoder_to_numpy(params)
@@ -108,13 +124,15 @@ def save_checkpoint(path: str, params, opt_state=None, step: int = 0,
 
 def load_checkpoint(path: str, shardings=None):
     """Returns (params, opt_state, step, extra) as numpy pytrees, from a
-    checkpoint of either package. ``shardings`` (a multi-device layout)
-    raises: it comes with training on a mesh (ROADMAP queue 1, item 13b)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "sharded checkpoints are not ported yet (ROADMAP.md, queue 1, "
-            "item 13b: training on a mesh)"
-        )
+    checkpoint of either package. With ``shardings`` (``param_shardings``'
+    pytree for a training mesh) the params are placed into their mesh
+    layout: a pytree of ``tensor_parallel.ShardedArray``, each leaf's block
+    of every position this process holds on that position's device, which
+    ``init_training`` / ``train_loop(mesh=)`` take. The opt state stays
+    numpy, as in the JAX package."""
     with open(path, "rb") as f:
         payload = _Unpickler(f).load()
-    return payload["params"], payload["opt_state"], payload["step"], payload["extra"]
+    params = payload["params"]
+    if shardings is not None:
+        params = tensor_parallel.place_tree(params, shardings)
+    return params, payload["opt_state"], payload["step"], payload["extra"]

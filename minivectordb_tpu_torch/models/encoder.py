@@ -86,18 +86,22 @@ class _DenseParams(nn.Module):
 
 class EncoderLayer(nn.Module):
     """One post-LN transformer layer's parameters: the dense layers q, k, v,
-    attn_out, ffn_in, ffn_out and the two layer norms."""
+    attn_out, ffn_in, ffn_out and the two layer norms. With ``tp`` > 1 it is
+    one tensor-parallel shard's piece (parallel/tensor_parallel.py): q, k, v
+    and ffn_in keep 1/tp of their output columns (whole heads), attn_out and
+    ffn_out 1/tp of their input rows."""
 
-    def __init__(self, cfg: EncoderConfig, device, dtype):
+    def __init__(self, cfg: EncoderConfig, device, dtype, tp: int = 1):
         super().__init__()
-        self.q = _DenseParams(cfg.hidden, cfg.hidden, device, dtype)
-        self.k = _DenseParams(cfg.hidden, cfg.hidden, device, dtype)
-        self.v = _DenseParams(cfg.hidden, cfg.hidden, device, dtype)
-        self.attn_out = _DenseParams(cfg.hidden, cfg.hidden, device, dtype)
-        self.attn_ln = _LayerNormParams(cfg.hidden, device, dtype)
-        self.ffn_in = _DenseParams(cfg.hidden, cfg.intermediate, device, dtype)
-        self.ffn_out = _DenseParams(cfg.intermediate, cfg.hidden, device, dtype)
-        self.ffn_ln = _LayerNormParams(cfg.hidden, device, dtype)
+        h, inter = cfg.hidden, cfg.intermediate
+        self.q = _DenseParams(h, h // tp, device, dtype)
+        self.k = _DenseParams(h, h // tp, device, dtype)
+        self.v = _DenseParams(h, h // tp, device, dtype)
+        self.attn_out = _DenseParams(h // tp, h, device, dtype)
+        self.attn_ln = _LayerNormParams(h, device, dtype)
+        self.ffn_in = _DenseParams(h, inter // tp, device, dtype)
+        self.ffn_out = _DenseParams(inter // tp, h, device, dtype)
+        self.ffn_ln = _LayerNormParams(h, device, dtype)
 
 
 class Encoder(nn.Module):
@@ -105,18 +109,22 @@ class Encoder(nn.Module):
     eval mode with ``requires_grad`` off (the module has no dropout, so eval
     and train mode compute the same); training switches ``requires_grad`` on
     (models/train.py:init_training). Parameters are uninitialised until
-    ``init_params`` or ``convert.encoder_from_numpy`` fills them."""
+    ``init_params`` or ``convert.encoder_from_numpy`` fills them. ``tp`` > 1
+    makes one tensor-parallel position's piece (``EncoderLayer``), which
+    only parallel/tensor_parallel.py encodes."""
 
-    def __init__(self, cfg: EncoderConfig, device="cpu", dtype=torch.float32):
+    def __init__(self, cfg: EncoderConfig, device="cpu", dtype=torch.float32,
+                 tp: int = 1):
         super().__init__()
         self.cfg = cfg
+        self.tp = tp
         kw = {"device": device, "dtype": dtype}
         self.word_emb = nn.Parameter(torch.empty((cfg.vocab_size, cfg.hidden), **kw))
         self.pos_emb = nn.Parameter(torch.empty((cfg.max_positions, cfg.hidden), **kw))
         self.type_emb = nn.Parameter(torch.zeros((1, cfg.hidden), **kw))
         self.emb_ln = _LayerNormParams(cfg.hidden, device, dtype)
         self.layers = nn.ModuleList(
-            EncoderLayer(cfg, device, dtype) for _ in range(cfg.layers)
+            EncoderLayer(cfg, device, dtype, tp) for _ in range(cfg.layers)
         )
         self.requires_grad_(False)
         self.eval()
@@ -183,25 +191,51 @@ def _use_flash_attention(seq: int, head_dim: int, device: torch.device) -> bool:
     )
 
 
-def _attention(x, layer: EncoderLayer, mask, cfg: EncoderConfig,
-               allow_flash: bool = True):
-    b, s, h = x.shape
-    nh, hd = cfg.heads, cfg.hidden // cfg.heads
-    # (B, nh, S, hd) views of the (B, S, H) projections: no copy
-    q = _dense(x, layer.q).view(b, s, nh, hd).transpose(1, 2)
+def attention_context(x, layer: EncoderLayer, mask, head_dim: int,
+                      allow_flash: bool = True):
+    """The attention of one layer up to its output projection: the q, k and
+    v projections of x, split into heads of ``head_dim`` (all the layer
+    holds: a tensor-parallel piece holds whole heads), and the context
+    (B, S, heads * head_dim) in x's type."""
+    b, s, _h = x.shape
+    hd = head_dim
+    # (B, nh, S, hd) views of the (B, S, nh * hd) projections: no copy
+    q = _dense(x, layer.q)
+    nh = q.shape[-1] // hd
+    q = q.view(b, s, nh, hd).transpose(1, 2)
     k = _dense(x, layer.k).view(b, s, nh, hd).transpose(1, 2)
     v = _dense(x, layer.v).view(b, s, nh, hd).transpose(1, 2)
     if allow_flash and _use_flash_attention(s, hd, x.device):
         seg = mask.to(torch.int32)  # pads form their own segment (0)
         ctx = flash_ops.flash_attention(q, k, v, seg, 1.0 / math.sqrt(hd))
-        return _dense(ctx.transpose(1, 2).reshape(b, s, h), layer.attn_out)
+        return ctx.transpose(1, 2).reshape(b, s, nh * hd)
     # float32 logits of exact products, as the JAX einsum asks for
     logits = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
     logits = logits / math.sqrt(hd)
     logits = logits.masked_fill(~mask[:, None, None, :], torch.finfo(torch.float32).min)
     probs = torch.softmax(logits, dim=-1).to(x.dtype)
     ctx = torch.matmul(probs, v)  # float32 accumulation, one rounding
-    return _dense(ctx.transpose(1, 2).reshape(b, s, h), layer.attn_out)
+    return ctx.transpose(1, 2).reshape(b, s, nh * hd)
+
+
+def _attention(x, layer: EncoderLayer, mask, cfg: EncoderConfig,
+               allow_flash: bool = True):
+    ctx = attention_context(x, layer, mask, cfg.hidden // cfg.heads, allow_flash)
+    return _dense(ctx, layer.attn_out)
+
+
+def embed_tokens(encoder: Encoder, input_ids, attention_mask):
+    """The embeddings' sum and their layer norm: the hidden states (B, S, H)
+    that enter layer 0, in the parameters' type."""
+    cfg = encoder.cfg
+    attention_mask = attention_mask.to(torch.int64)
+    positions = torch.cumsum(attention_mask, dim=-1) * attention_mask + cfg.pad_id
+    x = (
+        encoder.word_emb[input_ids.to(torch.int64)]
+        + encoder.pos_emb[positions]
+        + encoder.type_emb[0]
+    )
+    return _layer_norm(x, encoder.emb_ln.g, encoder.emb_ln.b, cfg.layer_norm_eps)
 
 
 def encode(encoder: Encoder, input_ids, attention_mask, allow_flash: bool = True):
@@ -214,15 +248,13 @@ def encode(encoder: Encoder, input_ids, attention_mask, allow_flash: bool = True
     Runs under the caller's grad mode: the serving callers enter
     ``torch.inference_mode()`` themselves, training records the graph."""
     cfg = encoder.cfg
-    attention_mask = attention_mask.to(torch.int64)
+    if encoder.tp != 1:
+        raise ValueError(
+            "a tensor-parallel piece encodes through "
+            "parallel/tensor_parallel.py, with the other pieces of its row"
+        )
     mask = attention_mask.to(torch.bool)
-    positions = torch.cumsum(attention_mask, dim=-1) * attention_mask + cfg.pad_id
-    x = (
-        encoder.word_emb[input_ids.to(torch.int64)]
-        + encoder.pos_emb[positions]
-        + encoder.type_emb[0]
-    )
-    x = _layer_norm(x, encoder.emb_ln.g, encoder.emb_ln.b, cfg.layer_norm_eps)
+    x = embed_tokens(encoder, input_ids, attention_mask)
     for layer in encoder.layers:
         attn = _attention(x, layer, mask, cfg, allow_flash)
         x = _layer_norm(x + attn, layer.attn_ln.g, layer.attn_ln.b,

@@ -1,4 +1,5 @@
-"""Contrastive fine-tuning of the embedding encoder, on one card.
+"""Contrastive fine-tuning of the embedding encoder, on one card or on a
+(dp, tp) mesh.
 
 Counterpart of ``minivectordb_tpu/models/train.py``: in-batch InfoNCE over
 (query, passage) pairs through the encoder, with the same functions,
@@ -34,9 +35,16 @@ JAX module is functional:
   exp_avg_sq), updated in place by each step; checkpoints carry it in the
   JAX layout (models/checkpoint.py, convert.adamw_state_to_numpy).
 
-Float32 products are IEEE float32: TF32 stays off (ops/scan.py). ``mesh=``
-(data and tensor parallelism) raises: training on a mesh is ROADMAP queue 1,
-item 13b (parallel/ has the search half).
+Float32 products are IEEE float32: TF32 stays off (ops/scan.py).
+
+``mesh=`` (a (dp, tp) mesh from ``parallel.mesh.train_mesh``) trains with
+data and tensor parallelism, as the JAX package's ``make_train_step(mesh=)``
+does through GSPMD: ``param_shardings`` gives the Megatron layout in the JAX
+package's terms, the batch rows split over dp, and
+``parallel/tensor_parallel.py`` holds the placement, the sharded step and
+its collectives. ``params`` is then a ``tensor_parallel.MeshEncoder`` (one
+piece ``Encoder`` a position this process holds), ``opt_state`` maps each
+position to its AdamW's state, and checkpoints hold the gathered JAX pytree.
 """
 
 from __future__ import annotations
@@ -55,17 +63,34 @@ from minivectordb_tpu_torch.models.encoder import (
     mean_pool_normalize,
 )
 from minivectordb_tpu_torch.ops import scan as scan_ops
+from minivectordb_tpu_torch.parallel import tensor_parallel
+from minivectordb_tpu_torch.parallel.mesh import NamedSharding, train_spec
 
 # optax.adamw's defaults
 ADAMW = {"betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": 1e-4}
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "training on a mesh is not ported yet (ROADMAP.md, queue 1, "
-            "item 13b: training on a mesh; param_shardings comes with it)"
-        )
+def param_shardings(mesh, params) -> dict:
+    """Megatron-style tensor-parallel layout of the encoder's parameter
+    pytree, as the JAX package gives it: q/k/v and ffn_in shard the OUTPUT
+    dim (column parallel), attn_out and ffn_out the INPUT dim (row
+    parallel), embeddings and layer norms are replicated. A pytree of
+    ``parallel.mesh.NamedSharding`` in the JAX layout (dense weights (in,
+    out)), whatever ``params`` is: the numpy pytree, an ``Encoder`` or a
+    ``MeshEncoder``."""
+    if isinstance(params, tensor_parallel.MeshEncoder):
+        params = next(iter(params.pieces.values()))
+    if isinstance(params, Encoder):
+        params = convert._tree_of(params, lambda _p, _t: None)
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path + (i,)) for i, v in enumerate(node)]
+        return NamedSharding(mesh, train_spec(path))
+
+    return walk(params, ())
 
 
 def batch_to(batch: dict, device) -> dict:
@@ -117,8 +142,11 @@ def make_train_step(cfg: EncoderConfig, optimizer, mesh=None,
     opt_state, {"loss", "accuracy"})``: forward, backward, one AdamW update of
     ``optimizer`` (whose ``state`` is ``opt_state``), in place. The metrics
     are scalar tensors on the card (read them when they are wanted: a read
-    waits for the step)."""
-    _no_mesh(mesh)
+    waits for the step). With a mesh, the sharded step of
+    ``parallel/tensor_parallel.py`` over ``init_training(mesh=)``'s
+    placed params and optimizer."""
+    if mesh is not None:
+        return tensor_parallel.make_step(cfg, optimizer, mesh, temperature)
 
     def step(params, opt_state, batch):
         batch = batch_to(batch, params.device)
@@ -137,8 +165,20 @@ def init_training(cfg: EncoderConfig, params, mesh=None,
     optimizer). ``params`` is an ``Encoder`` (moved to ``device`` in place if
     it lies elsewhere) or the JAX parameter pytree as numpy arrays (loaded by
     ``convert.encoder_from_numpy``). ``device=None`` means the CUDA card and
-    raises without one."""
-    _no_mesh(mesh)
+    raises without one.
+
+    With a mesh the mesh names the devices (``device``, when given, must be
+    its own): ``params`` (a pytree, a placed checkpoint, an ``Encoder`` or a
+    ``MeshEncoder``) is placed by ``param_shardings`` into a ``MeshEncoder``,
+    and the optimizer is one AdamW a position (``MeshAdamW``)."""
+    if mesh is not None:
+        tensor_parallel.check_mesh(mesh)
+        if device is not None and {scan_ops.resolve_device(device)} != {
+                d for _pos, d in mesh.local_shards()}:
+            raise ValueError(f"device {device!r} is not the mesh's")
+        placed = tensor_parallel.place(params, cfg, mesh).requires_grad_(True)
+        optimizer = tensor_parallel.MeshAdamW(placed, learning_rate, **ADAMW)
+        return placed, optimizer.state, optimizer
     dev = scan_ops.resolve_device(device)
     if isinstance(params, Encoder):
         encoder = params if params.device == dev else params.to(dev)
@@ -153,6 +193,9 @@ def _resume(opt_state, encoder: Encoder, optimizer) -> None:
     """Loads ``opt_state`` into a fresh optimizer: a torch AdamW state over
     this encoder's parameters (an earlier ``train_loop``'s), or a checkpoint's
     numpy state of either package."""
+    if isinstance(encoder, tensor_parallel.MeshEncoder):
+        tensor_parallel.resume(opt_state, encoder, optimizer)
+        return
     if isinstance(opt_state, Mapping) and all(isinstance(p, torch.Tensor) for p in opt_state):
         for param in encoder.parameters():
             if param in opt_state:
@@ -183,8 +226,9 @@ def train_loop(
     q_ids/q_mask/p_ids/p_mask (numpy arrays; optional soft ``labels``).
     ``opt_state`` resumes an optimizer: a checkpoint's (either package's) or
     an earlier call's. Returns (params, opt_state, history); params is the
-    trained ``Encoder``. ``device=None`` means the CUDA card and raises
-    without one."""
+    trained ``Encoder``, or with a mesh the trained ``MeshEncoder`` (its
+    checkpoints hold the gathered JAX pytree). ``device=None`` means the
+    CUDA card and raises without one."""
     from minivectordb_tpu_torch.models.checkpoint import save_checkpoint
 
     params, fresh_opt, optimizer = init_training(

@@ -18,6 +18,8 @@
         [--against OTHER/flash_attention_bwd.cu | OTHER/flash_attention_bwd_bf16.cu]
     python -m minivectordb_tpu_torch.profile_search --mesh 4 [--rows N]
         [--batch B] [--dtypes float32,bfloat16,int8]
+    python -m minivectordb_tpu_torch.profile_search --train-mesh [--tp 2]
+        [--dtype float32|bfloat16] [--batch 8] [--seq 512] [--processes N]
 
 Builds a seeded corpus straight into a ``VectorStore`` (no metadata), then
 times the stages of ``StoreSnapshot._device_search``'s fused route one by one
@@ -102,6 +104,18 @@ flash_attention_bwd.cu, or flash_attention_bwd_bf16.cu for bfloat16) the
 steps of one process alternate between this source's K7 / K8 and the other's
 (other, this, this, other, ...; ``--reps`` steps each), and the other's
 medians are given as ``other_*``: the same host, weights and data for both.
+
+With ``--train-mesh`` it times the training step at the e5-large widths in
+``--dtype`` on a (dp, tp) mesh over every visible card in this process
+(``train_mesh(tp=--tp)``, parallel/tensor_parallel.py), beside the
+single-device step on the first card, from the same seeded weights (drawn on
+the CPU) and batches: host-clock ms per step (each ends in reading the loss),
+the median over ``--reps`` steps (at most 10) after a first step, and each
+step's loss. With ``--processes N`` (N cards at least) N more processes join
+an NCCL group through a TCP store on localhost, one card each, and run the
+same steps on ``train_mesh(tp=--tp, pod=True)`` over the group; their losses and each
+position's parameter checksum (the float64 sum of its piece) after the steps
+are compared with the in-process mesh's.
 """
 
 from __future__ import annotations
@@ -119,6 +133,7 @@ import time
 import numpy as np
 import torch
 
+from minivectordb_tpu_torch import convert as port_convert
 from minivectordb_tpu_torch.core.store import VectorStore
 from minivectordb_tpu_torch.kernels import build
 from minivectordb_tpu_torch.models import configs as model_configs
@@ -662,6 +677,153 @@ def profile_train(batch: int, seq: int, seed: int, reps: int,
 _OTHER_LOGS: dict = {}  # source path -> its compiler output (ptxas -v), when built here
 
 
+def _mesh_weights(cfg, seed: int, dtype: str) -> dict:
+    """Seeded weights as the JAX pytree, drawn on the CPU so that every
+    process draws the same values."""
+    gen = torch.Generator().manual_seed(seed)
+    enc = encoder_mod.init_params(cfg, gen, "cpu", getattr(torch, dtype))
+    return port_convert.encoder_to_numpy(enc)
+
+
+def _mesh_batches(cfg, batch: int, seq: int, seed: int, steps: int) -> list:
+    """``steps`` batches of ``batch`` seeded (query, passage) pairs of token
+    ids, ragged lengths of 200 ... ``seq``."""
+    rng = np.random.default_rng(seed)
+
+    def tokens():
+        lengths = rng.integers(min(200, seq), seq + 1, size=batch)
+        mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32)
+        ids = rng.integers(4, cfg.vocab_size, (batch, seq)).astype(np.int32)
+        ids[mask == 0] = cfg.pad_id
+        return ids, mask
+
+    out = []
+    for _ in range(steps):
+        (q_ids, q_mask), (p_ids, p_mask) = tokens(), tokens()
+        out.append({"q_ids": q_ids, "q_mask": q_mask, "p_ids": p_ids, "p_mask": p_mask})
+    return out
+
+
+def _timed_steps(step, params, state, batches) -> tuple:
+    """Host-clock ms of each step, which ends in reading its loss, and the
+    losses."""
+    ms, losses = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return params, ms, losses
+
+
+def _checksums(menc) -> dict:
+    """Position -> the float64 sum of every parameter of its piece."""
+    with torch.no_grad():
+        return {pos: sum(float(p.double().sum()) for p in piece.parameters())
+                for pos, piece in menc.pieces.items()}
+
+
+def _train_mesh_worker(rank: int, n: int, addr: str, tp: int, cfg, dtype: str,
+                       batch: int, seq: int, seed: int, steps: int, device: str,
+                       out_dir: str) -> None:
+    """One process of --train-mesh --processes: joins the group, trains the
+    steps on train_mesh(tp=tp, pod=True) over it, writes its times, losses and
+    checksums to out_dir/<rank>.json."""
+    from minivectordb_tpu_torch.parallel.mesh import init_pod, train_mesh
+    import torch.distributed as dist
+
+    init_pod(addr, n, rank, device=device)
+    try:
+        mesh = train_mesh(tp=tp, device=device, pod=True)
+        menc, state, opt = train_mod.init_training(cfg, _mesh_weights(cfg, seed, dtype),
+                                                   mesh=mesh)
+        step = train_mod.make_train_step(cfg, opt, mesh=mesh)
+        menc, ms, losses = _timed_steps(step, menc, state,
+                                        _mesh_batches(cfg, batch, seq, seed, steps))
+        res = {"rank": rank, "mesh": list(mesh.devices.shape), "ms": ms, "losses": losses,
+               "checksums": _checksums(menc)}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def profile_train_mesh(tp: int, dtype: str, batch: int, seq: int, seed: int, reps: int,
+                       processes: int = 0, cfg=None, device=None) -> dict:
+    """The training step on a (dp, tp) mesh over every visible card (or, with
+    ``device``, ``processes`` logical positions of it), beside the
+    single-device step; with ``processes``, the same steps on a mesh over
+    that many processes (see the module docstring)."""
+    import socket
+    import tempfile
+
+    from minivectordb_tpu_torch.parallel.mesh import train_mesh
+
+    cfg = cfg or model_configs.E5_LARGE
+    steps = reps + 1
+    weights = _mesh_weights(cfg, seed, dtype)
+    batches = _mesh_batches(cfg, batch, seq, seed, steps)
+    first = torch.device(device) if device else torch.device("cuda", 0)
+    out = {"train_mesh": "e5-large widths" if cfg is model_configs.E5_LARGE else str(cfg),
+           "dtype": dtype, "pairs": batch, "seq": seq, "steps": steps}
+    enc, state, opt = train_mod.init_training(cfg, weights, device=first)
+    _enc, ms, losses = _timed_steps(train_mod.make_train_step(cfg, opt), enc, state, batches)
+    out["single_device"] = {"ms": ms, "ms_per_step": statistics.median(ms[1:]),
+                            "losses": losses}
+    del enc, _enc, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = train_mesh(processes or None, tp=tp, device=device)
+    menc, state, opt = train_mod.init_training(cfg, weights, mesh=mesh)
+    menc, ms, losses = _timed_steps(train_mod.make_train_step(cfg, opt, mesh=mesh),
+                                    menc, state, batches)
+    sums = _checksums(menc)
+    out["in_process"] = {"mesh": list(mesh.devices.shape),
+                         "devices": sorted({str(d) for d in mesh.devices.reshape(-1)}),
+                         "ms": ms, "ms_per_step": statistics.median(ms[1:]),
+                         "losses": losses}
+    del menc, state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not processes:
+        return out
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    addr = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [ctx.Process(target=_train_mesh_worker, args=(
+            rank, processes, addr, tp, cfg, dtype, batch, seq, seed, steps,
+            device or f"cuda:{rank}", out_dir)) for rank in range(processes)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=1200)
+        codes = [p.exitcode for p in procs]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        if codes != [0] * processes:
+            raise RuntimeError(f"--train-mesh workers exited with {codes}")
+        ranks = []
+        for rank in range(processes):
+            with open(os.path.join(out_dir, f"{rank}.json")) as f:
+                ranks.append(json.load(f))
+    got = {int(pos): v for r in ranks for pos, v in r["checksums"].items()}
+    out["processes"] = {
+        "world": processes, "mesh": ranks[0]["mesh"], "backend": "nccl" if not device else "gloo",
+        "ms_rank0": ranks[0]["ms"], "ms_per_step_rank0": statistics.median(ranks[0]["ms"][1:]),
+        "losses_rank0": ranks[0]["losses"],
+        "losses_equal_in_process": all(r["losses"] == losses for r in ranks),
+        "max_loss_diff_in_process": max(abs(a - b) for r in ranks
+                                        for a, b in zip(r["losses"], losses)),
+        "checksums_equal_in_process": got == sums,
+        "max_checksum_diff": max(abs(got[pos] - sums[pos]) for pos in sums),
+    }
+    return out
+
+
 def _load_other(src: str, name: str, argtypes: dict):
     """Builds another csrc/<name>.cu (same C interface) with the package's
     flags into the build directory and loads it."""
@@ -978,6 +1140,11 @@ def main() -> None:
                     help="with --train / --backward: the encoder's type")
     ap.add_argument("--mesh", type=int, default=0,
                     help="time one search over this many logical shards of the card")
+    ap.add_argument("--train-mesh", action="store_true",
+                    help="time the training step on a (dp, tp) mesh over the visible cards")
+    ap.add_argument("--tp", type=int, default=2, help="with --train-mesh: the tp width")
+    ap.add_argument("--processes", type=int, default=0,
+                    help="with --train-mesh: also run the mesh over this many NCCL processes")
     ap.add_argument("--against", default=None,
                     help="with --attention / --phase1 / --backward / --train: another "
                          "flash_attention.cu / phase1.cu / flash_attention_bwd[_bf16].cu "
@@ -985,7 +1152,7 @@ def main() -> None:
     args = ap.parse_args()
     batch_given = args.batch is not None
     if args.batch is None:
-        args.batch = 32 if args.embed else 8 if args.train else 256
+        args.batch = 32 if args.embed else 8 if args.train or args.train_mesh else 256
     if not torch.cuda.is_available():
         raise SystemExit("profile_search needs a CUDA device")
     smi = subprocess.run(
@@ -1008,6 +1175,13 @@ def main() -> None:
         for res in profile_backward(args.against, args.dtype, batches, args.seed, args.reps):
             res["card"] = smi
             print(json.dumps(res), flush=True)
+        return
+    if args.train_mesh:
+        res = profile_train_mesh(args.tp, args.dtype, args.batch, args.seq, args.seed,
+                                 min(args.reps, 10), args.processes)
+        res["card"] = smi
+        res["cards"] = torch.cuda.device_count()
+        print(json.dumps(res), flush=True)
         return
     if args.train:
         res = profile_train(args.batch, args.seq, args.seed, min(args.reps, 10), args.dtype,

@@ -4,12 +4,14 @@ equivalent, reference vector_database.py:5, 410-411).
 ``partial_ratio(a, b)`` slides the shorter string along the longer and takes
 the best local similarity, scaled to 0..100 — the classic fuzzywuzzy
 algorithm. The similarity kernel is Indel similarity (Levenshtein with
-insertions/deletions only), computed by the pure-Python bit-parallel code
-below at every needle length (the JAX package's optional C++ fast path,
-native/fastops, is not ported yet; it returns the same values).
+insertions/deletions only), computed by the C++ fast path (native/fastops)
+when its library is built, else by the pure-Python bit-parallel code below at
+every needle length; both return the same values.
 """
 
 from __future__ import annotations
+
+from minivectordb_tpu_torch.native import fastops
 
 
 def _indel_ratio(s1: str, s2: str) -> float:
@@ -62,6 +64,9 @@ def ratio(s1: str, s2: str) -> int:
 
 def partial_ratio(s1: str, s2: str) -> int:
     """Best-window similarity 0..100 (thefuzz.fuzz.partial_ratio equivalent)."""
+    r = fastops.partial_ratio(s1, s2)
+    if r is not None:
+        return r
     if s1 == s2:
         return 100
     if not s1 or not s2:

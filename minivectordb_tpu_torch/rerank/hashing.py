@@ -5,8 +5,9 @@ Replaces the reference's sklearn dependency
 reference vector_database.py:9, 388-393): lowercased character 1..6-grams,
 signed murmur3 feature hashing into 64 buckets, L2-normalized.
 
-The n-grams are hashed by the pure-Python murmur3 below (the JAX package's
-optional C++ fast path, native/fastops, is not ported yet).
+The n-grams are hashed by the C++ fast path (native/fastops) when its
+library is built, else by the pure-Python murmur3 below, with the same
+result, as the JAX package does.
 Exact sklearn bit-parity is not required by the reference's tests (only the
 cosine-similarity *behavior* matters for reranking), but the algorithm —
 including murmur3 seed 0 over UTF-8 bytes and alternate-sign hashing — is
@@ -16,6 +17,8 @@ the same, so scores are equivalent.
 from __future__ import annotations
 
 import numpy as np
+
+from minivectordb_tpu_torch.native import fastops
 
 N_FEATURES = 64
 NGRAM_MIN, NGRAM_MAX = 1, 6
@@ -69,12 +72,14 @@ def hash_text_features(text: str) -> np.ndarray:
 
     Mirrors reference ``_fetch_hash_text_features`` (vector_database.py:388-393).
     """
-    vec = np.zeros(N_FEATURES, dtype=np.float64)
-    for gram in _char_ngrams(text):
-        h = murmur3_32(gram.encode("utf-8"))
-        signed = h - 0x100000000 if h >= 0x80000000 else h  # int32 view
-        idx = abs(signed) % N_FEATURES
-        vec[idx] += 1.0 if signed >= 0 else -1.0
+    vec = fastops.hash_ngrams(text.lower(), N_FEATURES, NGRAM_MIN, NGRAM_MAX)
+    if vec is None:  # no native library: the same hashing in Python
+        vec = np.zeros(N_FEATURES, dtype=np.float64)
+        for gram in _char_ngrams(text):
+            h = murmur3_32(gram.encode("utf-8"))
+            signed = h - 0x100000000 if h >= 0x80000000 else h  # int32 view
+            idx = abs(signed) % N_FEATURES
+            vec[idx] += 1.0 if signed >= 0 else -1.0
     norm = np.linalg.norm(vec)
     return vec / norm if norm > 0 else vec
 

@@ -329,8 +329,9 @@ def test_mesh_constructors():
     assert [s for s, _ in p.local_shards()] == [0, 1, 2, 3]
     with pytest.raises(ValueError, match="n_hosts is required"):
         tmesh.pod_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 13b"):
-        tmesh.train_mesh(2)
+    t = tmesh.train_mesh(2, device="cpu")  # item 13b: the (dp, tp) mesh, tp halved to fit
+    assert t.devices.shape == (1, 2) and t.axis_names == (tmesh.DP_AXIS, tmesh.TP_AXIS)
+    assert tmesh.train_mesh(3, tp=2, device="cpu").devices.shape == (3, 1)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tmesh.search_mesh()

@@ -173,14 +173,22 @@ def test_train_loop_history_and_checkpoint_cadence_match_jax(tmp_path):
 
 
 def test_mesh_raises_naming_the_roadmap_item():
+    """Training on a mesh is ported (ROADMAP item 13b): the three entry points
+    take a (dp, tp) mesh from train_mesh, and raise for anything else, naming
+    train_mesh (tests/test_torch_train_mesh.py holds the sharded step)."""
+    from minivectordb_tpu_torch.parallel.mesh import train_mesh
+
     kw, params, batches = _tiny_setup()
     cfg = EncoderConfig(**kw)
     for call in (lambda: ttrain.make_train_step(cfg, None, mesh=object()),
-                 lambda: ttrain.init_training(cfg, params, mesh=object(), device="cpu"),
-                 lambda: ttrain.train_loop(cfg, params, iter(batches), 1, mesh=object(),
-                                           device="cpu")):
-        with pytest.raises(NotImplementedError, match="item 13"):
+                 lambda: ttrain.init_training(cfg, params, mesh=object()),
+                 lambda: ttrain.train_loop(cfg, params, iter(batches), 1, mesh=object())):
+        with pytest.raises(TypeError, match="train_mesh"):
             call()
+    mesh = train_mesh(2, device="cpu")
+    enc, _o, hist = ttrain.train_loop(cfg, params, iter(batches), 1, mesh=mesh, log_every=1,
+                                      log_fn=lambda _s: None)
+    assert sorted(enc.pieces) == [0, 1] and np.isfinite(hist[0]["loss"])
 
 
 def test_training_defaults_to_the_card():

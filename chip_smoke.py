@@ -90,6 +90,25 @@ Phases (one JSON object per output line):
              rows): 32 long queries, with and without a metadata filter, and
              on an index="ivf" copy, against find_most_similar_batch of the
              model's embeddings; every stored text finds itself first
+  slots_path  the bundled trained slots, which run heads of 48 (small) and
+             128 (large, bgem3): EmbeddingModel(use_quantized_onnx_model=False,
+             alternative_model=slot) in float32 and with
+             compute_dtype="bfloat16" (MINIVECTORDB_TORCH_WEIGHTS unset for
+             the phase: the bundled artifact must serve) on 32 texts of the
+             slot's own words for each of the buckets S = 256 and S = 512 (one
+             text cut at 512 tokens): K6 of the call's type cfg.layers times a
+             call and nothing else; the embeddings against the same module
+             with the plain attention and against the class built on the CPU
+             (float32 2e-5; bfloat16 2e-2 and a cosine of 0.999); ms per call
+             and texts/s on the host clock (median of 5). Then
+             models/train_builtin.py's main with --slot small and --slot large
+             (4 steps, batch 64, S = 256, float32, --force, into the run's
+             temporary directory): K6-f32-lse, K7-f32 and K8-f32 2 x layers
+             launches a step each, no bfloat16 launch (asserted); the artifact
+             loads through EmbeddingModel; step 1's loss and gradients at the
+             slot's config against the plain-attention module
+             (train_path's tolerances) on 8 pairs of hashed ids below the
+             slot's vocabulary of 4,096, ragged and padded to S = 256
   train_path contrastive training (models/train.py) at the e5-large widths,
              weights from a seeded torch.Generator: batches of 8 (query,
              passage) pairs of 200-505 seeded words through the slot's hashing
@@ -185,7 +204,13 @@ Phases (one JSON object per output line):
              K8's 64-byte swizzle), beside SDPA's bfloat16 forward and
              backward with the same mask; the bfloat16 K7 / K8 rows also
              give each kernel's registers, spills and blocks an SM at
-             hd = 64.
+             hd = 64. Then, report only, the same kernels at the bundled
+             slots' head widths, hd = 48 and hd = 128 ("<kernel> hd<hd>"
+             rows, each held against its plain version): K6-f32 and K6-bf16
+             at the embed call's B = 32, nh = 8, S = 512; K6-lse, K7 and K8 of
+             both types at train_builtin's B = 64, nh = 8, S = 256, with
+             registers and spills (and blocks an SM for the bfloat16
+             backward) at that width; their launches are slots_path's.
              "launches" are the counts of the path phases above: the flat
              phases, and each database of the ivf, sharded and mesh phases, are
              driven through the public class with every count at 0 and read
@@ -304,6 +329,7 @@ from minivectordb_tpu_torch import EmbeddingModel, VectorDatabase  # noqa: E402
 from minivectordb_tpu_torch import ShardedVectorDatabase  # noqa: E402
 from minivectordb_tpu_torch import ShardedVectorDatabaseUsearch  # noqa: E402
 from minivectordb_tpu_torch import convert as port_convert  # noqa: E402
+from minivectordb_tpu_torch import embedding_model  # noqa: E402
 from minivectordb_tpu_torch.core.pipeline import TextSearchPipeline  # noqa: E402
 from minivectordb_tpu_torch.kernels import build  # noqa: E402
 from minivectordb_tpu_torch.models import configs as model_configs  # noqa: E402
@@ -723,7 +749,8 @@ def tiling_cases() -> list:
 
 
 def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
-                  k6_launches: dict, train_launches: dict, train_bf16_launches: dict) -> dict:
+                  k6_launches: dict, train_launches: dict, train_bf16_launches: dict,
+                  slot_launches: dict) -> dict:
     # small ragged case first: d not a multiple of the chunk, B below a block;
     # int8 rows of 24 bytes take the narrow-row kernel, bf16 rows of 48 the
     # Hopper one
@@ -795,6 +822,7 @@ def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
     kernels += encoder_kernel_rows(k6_launches)
     kernels += train_kernel_rows(train_launches)
     kernels += train_bf16_kernel_rows(train_bf16_launches)
+    kernels += slot_kernel_rows(slot_launches)
     return {"kernels": kernels}
 
 
@@ -2035,71 +2063,85 @@ def encoder_kernel_rows(launches: dict) -> list:
 
     b, nh, s, hd = 32, 16, 512, 64
     lengths = seeded_lengths(b, s, 200, SEED + 42)
+    rows = []
+    for kind in dtypes:
+        row = k6_row(kind, (b, nh, s, hd), lengths, SEED + 43,
+                     launches[f"flash_attention_{kind}"], f"K6-{kind}")
+        row["small_max_abs_err"] = small[kind][0]
+        row["small_max_err_over_row_tolerance"] = small[kind][1]
+        rows.append(row)
+    return rows
+
+
+def k6_row(kind, shape, lengths, seed, launches: int, name: str) -> dict:
+    """K6 of ``kind`` at ``shape`` = (B, nh, S, hd) with the given lengths,
+    held against its plain version (compare_attention), timed beside it,
+    beside SDPA with a boolean segment mask and beside the bound; with the
+    kernel's registers and spills at that hd."""
+    b, nh, s, hd = shape
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[kind]
     scale = 1.0 / float(np.sqrt(hd))
     pairs = sum(n * n + (s - n) * (s - n) for n in lengths)
-    rows = []
-    for kind, dtype in dtypes.items():
-        case = attention_case(b, nh, s, hd, dtype, lengths, SEED + 43)
-        q, k, v, seg = case
-        err, share = compare_attention(kind, case, f"K6-{kind}")
-        same = (seg[:, None, :, None] == seg[:, None, None, :])  # (B, 1, S, S)
+    case = attention_case(b, nh, s, hd, dtype, lengths, seed)
+    q, k, v, seg = case
+    err, share = compare_attention(kind, case, name)
+    same = (seg[:, None, :, None] == seg[:, None, None, :])  # (B, 1, S, S)
 
-        def run():
-            return flash_ops.flash_attention(q, k, v, seg, scale)
+    def run():
+        return flash_ops.flash_attention(q, k, v, seg, scale)
 
-        def plain():
-            return flash_ops.flash_attention_plain(q, k, v, seg, scale)
+    def plain():
+        return flash_ops.flash_attention_plain(q, k, v, seg, scale)
 
-        def library():
-            return F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)
+    def library():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)
 
-        want = plain().to(torch.float32)
-        lib_err = float((library().to(torch.float32) - want).abs().max())
-        del want
-        # plain, kernel, kernel, plain: both versions inside one run
-        plain_a = event_ms(plain, 3, warmup=1)
-        ms_a = event_ms(run, 20)
-        ms_b = event_ms(run, 20)
-        plain_b = event_ms(plain, 3, warmup=1)
-        lib_ms = event_ms(library, 10)
-        item = q.element_size()
-        n_bytes = 4 * b * nh * s * hd * item + b * s * 4
-        n_ops = 4 * nh * hd * pairs
-        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-        t_ops = n_ops / PEAK_OPS_S[kind] * 1e3
-        ms = statistics.median([ms_a, ms_b])
-        rows.append({
-            "name": f"K6-{kind}",
-            "route": "cuda",
-            "source": "minivectordb_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "minivectordb_tpu/models/encoder.py:138",
-            "launches": launches[f"flash_attention_{kind}"],
-            "max_abs_err": err,
-            "tolerance": TOL_K6[kind],
-            "row_tolerance": None if kind == "f32" else
-            f"{TOL_K6_ROW_REL} * max|plain| over the row + {TOL_K6_ROW_ABS}",
-            "max_err_over_row_tolerance": share,
-            "ms": ms,
-            "plain_ms": statistics.median([plain_a, plain_b]),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
-            "library": "scaled_dot_product_attention, boolean (B, 1, S, S) segment mask",
-            "library_max_abs_err_vs_plain": lib_err,
-            "bound_bytes": n_bytes,
-            "bound_operations": n_ops,
-            "tflops_counted": n_ops / (ms * 1e-3) / 1e12,
-            **multiplied_work(seg, flash_ops.tile_shape(dtype, hd), 4, nh, hd, n_ops, ms),
-            "dense_operations": 4 * b * nh * s * s * hd,
-            "dense_tflops": 4 * b * nh * s * s * hd / (ms * 1e-3) / 1e12,
-            "shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths_min": min(lengths),
-                      "lengths_mean": float(np.mean(lengths))},
-            "small_max_abs_err": small[kind][0],
-            "small_max_err_over_row_tolerance": small[kind][1],
-        })
-        del case, q, k, v, seg, same
-        torch.cuda.empty_cache()
-    return rows
+    want = plain().to(torch.float32)
+    lib_err = float((library().to(torch.float32) - want).abs().max())
+    del want
+    # plain, kernel, kernel, plain: both versions inside one run
+    plain_a = event_ms(plain, 3, warmup=1)
+    ms_a = event_ms(run, 20)
+    ms_b = event_ms(run, 20)
+    plain_b = event_ms(plain, 3, warmup=1)
+    lib_ms = event_ms(library, 10)
+    item = q.element_size()
+    n_bytes = 4 * b * nh * s * hd * item + b * s * 4
+    n_ops = 4 * nh * hd * pairs
+    t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+    t_ops = n_ops / PEAK_OPS_S[kind] * 1e3
+    ms = statistics.median([ms_a, ms_b])
+    row = {
+        "name": name,
+        "route": "cuda",
+        "source": "minivectordb_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "minivectordb_tpu/models/encoder.py:138",
+        "launches": launches,
+        "max_abs_err": err,
+        "tolerance": TOL_K6[kind],
+        "row_tolerance": None if kind == "f32" else
+        f"{TOL_K6_ROW_REL} * max|plain| over the row + {TOL_K6_ROW_ABS}",
+        "max_err_over_row_tolerance": share,
+        "ms": ms,
+        "plain_ms": statistics.median([plain_a, plain_b]),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+        "library": "scaled_dot_product_attention, boolean (B, 1, S, S) segment mask",
+        "library_max_abs_err_vs_plain": lib_err,
+        "bound_bytes": n_bytes,
+        "bound_operations": n_ops,
+        "tflops_counted": n_ops / (ms * 1e-3) / 1e12,
+        **multiplied_work(seg, flash_ops.tile_shape(dtype, hd), 4, nh, hd, n_ops, ms),
+        "dense_operations": 4 * b * nh * s * s * hd,
+        "dense_tflops": 4 * b * nh * s * s * hd / (ms * 1e-3) / 1e12,
+        "shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths_min": min(lengths),
+                  "lengths_mean": float(np.mean(lengths))},
+        f"ptxas_hd{hd}": ptxas_of(f"flash_{kind}_kernel", hd),
+    }
+    del case, q, k, v, seg, same
+    torch.cuda.empty_cache()
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2370,22 +2412,215 @@ def phase_pipeline_path(tmp: str, model, texts, path_launches: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# slots_path: the bundled trained slots, heads of 48 and 128, on K6 / K7 / K8
+# ---------------------------------------------------------------------------
+
+SLOTS = ("small", "large", "bgem3")
+SLOT_TRAIN = ("small", "large")  # train_builtin --slot runs
+SLOT_HEAD_DIMS = (48, 128)
+
+
+def slot_head_dim(kind: str) -> int:
+    cfg = model_configs.TRAINED_CONFIGS[kind]
+    return cfg.hidden // cfg.heads
+
+
+def slot_texts(words: list, seed: int) -> dict:
+    """32 seeded texts of the slot's own words for each sequence bucket:
+    150-220 words (S = 256) and 300-480 (S = 512, the first text 600 words,
+    cut at 512 tokens)."""
+    t512 = seeded_texts(words, 32, 300, 480, seed + 1)
+    t512[0] = " ".join(words[:600])
+    return {"S256": seeded_texts(words, 32, 150, 220, seed), "S512": t512}
+
+
+def drive_slot_embed(kind: str, compute_dtype, texts: dict) -> dict:
+    """EmbeddingModel(use_quantized_onnx_model=False, alternative_model=kind)
+    on the card: the bundled artifact, K6 of the call's type launched
+    cfg.layers times a call and nothing else; each bucket's embeddings held
+    against the same module with the plain attention and against the class
+    built on the CPU. Host-clock ms per call (median of 5)."""
+    tag = "f32" if compute_dtype is None else "bf16"
+    entry = f"flash_attention_{tag}"
+    cfg = model_configs.TRAINED_CONFIGS[kind]
+    args = dict(use_quantized_onnx_model=False, alternative_model=kind,
+                compute_dtype=compute_dtype)
+    flash_ops.reset_launches()
+    t0 = time.perf_counter()
+    model = EmbeddingModel(**args)
+    load_s = time.perf_counter() - t0
+    assert model.weights_source == "bundled-trained", (kind, model.weights_source)
+    assert model.model.cfg == cfg and model.device == DEV, (kind, model.model.cfg)
+    for name, want_s in (("S256", 256), ("S512", 512)):
+        shape = model.model._tokenize_padded(texts[name], 512)[0].shape
+        assert shape == (32, want_s), (kind, name, shape)
+    first, ms = {}, {}
+    for name, batch in texts.items():
+        before = dict(flash_ops.LAUNCHES)
+        first[name] = model.extract_embeddings_batch(batch)
+        got = {n: c - before[n] for n, c in flash_ops.LAUNCHES.items()}
+        assert got == flash_counts(**{entry: cfg.layers}), (kind, tag, name, got)
+    for name, batch in texts.items():
+        emb, ms[name] = timed_embeds(model, batch)
+        assert np.array_equal(emb, first[name]), (kind, tag, "an embed call must repeat itself")
+    launches = read_k6_launches({}, {entry: 12 * cfg.layers}, f"slot {kind} {tag}")
+    with plain_attention():
+        plain = {name: model.extract_embeddings_batch(batch) for name, batch in texts.items()}
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu = EmbeddingModel(**args, device="cpu")
+    on_cpu = {name: cpu.extract_embeddings_batch(batch) for name, batch in texts.items()}
+    cpu_s = time.perf_counter() - t0
+    assert cpu.weights_source == "bundled-trained"
+    del cpu
+    return {
+        "load_s": load_s,
+        "launches": launches,
+        "launches_per_call": cfg.layers,
+        **{f"{name}_ms_per_call_median": ms[name] for name in texts},
+        **{f"{name}_texts_per_s": 32 / (ms[name] * 1e-3) for name in texts},
+        **{f"{name}_vs_plain_attention": embed_error(
+            tag, first[name], plain[name], f"slot {kind} {tag} {name} plain")
+           for name in texts},
+        **{f"{name}_vs_cpu_class": embed_error(
+            tag, first[name], on_cpu[name], f"slot {kind} {tag} {name} cpu")
+           for name in texts},
+        "cpu_class_s": cpu_s,
+    }
+
+
+def drive_slot_training(tmp: str, kind: str) -> dict:
+    """models/train_builtin.py's main with --slot ``kind`` (4 steps, batch
+    64, S = 256, float32) into a directory under ``tmp``: K6-f32-lse, K7-f32
+    and K8-f32 launched 2 encodes x layers a step each, and no other entry
+    point; the artifact loads through EmbeddingModel from that directory.
+    Then step 1's loss and gradients at the slot's config against the
+    plain-attention module (compare_gradients) on a batch of 8 pairs of
+    hashed ids below the slot's vocabulary, ragged and padded to S = 256."""
+    cfg = model_configs.TRAINED_CONFIGS[kind]
+    res_dir = os.path.join(tmp, "slots")
+    steps = 4
+    argv = ["--slot", kind, "--steps", str(steps), "--batch", "64", "--seq", "256",
+            "--force", "--out", os.path.join(res_dir, f"trained_{kind}")]
+    printed = io.StringIO()
+    flash_ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = train_builtin.main(argv)
+    main_s = time.perf_counter() - t0
+    assert rc == 0, printed.getvalue()[-2000:]
+    per_step = 2 * cfg.layers  # two encodes a step, one launch a layer each
+    launches = read_k6_launches(
+        {}, {name: steps * per_step for name in TRAIN_ENTRY_POINTS}, f"train_builtin {kind}")
+    os.environ["MINIVECTORDB_TORCH_RESOURCES"] = res_dir
+    try:
+        served = EmbeddingModel(use_quantized_onnx_model=False, alternative_model=kind)
+    finally:
+        del os.environ["MINIVECTORDB_TORCH_RESOURCES"]
+    assert served.weights_source == "bundled-trained" and served.model.cfg.hidden == cfg.hidden
+    emb = served.extract_embeddings_batch(["i like dogs", "the stock market fell"])
+    assert np.isfinite(emb).all() and np.abs(np.linalg.norm(emb, axis=1) - 1).max() <= 1e-3
+    del served
+    batch = train_batches(1, 8, SEED + 120 + slot_head_dim(kind), cfg, 256)[0]
+    assert int(batch["q_ids"].max()) < cfg.vocab_size and batch["q_ids"].shape == (8, 256)
+    t0 = time.perf_counter()
+    grads = compare_gradients(cfg, batch, SEED + 130 + slot_head_dim(kind))
+    grads["s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return {"argv": argv, "main_s": main_s, "launches": launches,
+            "launches_per_step": per_step, "steps_run": steps,
+            "log_tail": printed.getvalue().splitlines()[-2:],
+            "step1_vs_plain_attention": grads}
+
+
+def phase_slots_path(tmp: str) -> dict:
+    """The bundled trained slots (TRAINED_SMALL: 8 heads of 48;
+    TRAINED_LARGE, TRAINED_BGEM3: 8 heads of 128) through the public class in
+    float32 and bfloat16, then train_builtin --slot small and large. A
+    converted checkpoint under MINIVECTORDB_TORCH_WEIGHTS would take the
+    slot's place (encoder_path set it), so the variable is unset for the
+    phase and restored after. Returns each run's K6 / K7 / K8 launches,
+    {"embed": {slot: {entry: n}}, "train": {slot: {entry: n}}}."""
+    t_phase = time.perf_counter()
+    saved = os.environ.pop("MINIVECTORDB_TORCH_WEIGHTS", None)
+    out = {"phase": "slots_path", "embed": {}, "train": {}}
+    launches = {"embed": {}, "train": {}}
+    try:
+        for i, kind in enumerate(SLOTS):
+            cfg = model_configs.TRAINED_CONFIGS[kind]
+            with open(os.path.join(embedding_model._bundled_dir(kind), "vocab.json")) as f:
+                words = json.load(f)["words"]
+            texts = slot_texts(words, SEED + 100 + 2 * i)
+            runs = {tag: drive_slot_embed(kind, dtype, texts)
+                    for tag, dtype in (("f32", None), ("bf16", "bfloat16"))}
+            out["embed"][kind] = {"config": {"layers": cfg.layers, "hidden": cfg.hidden,
+                                             "heads": cfg.heads, "head_dim": slot_head_dim(kind)},
+                                  **runs}
+            launches["embed"][kind] = {n: sum(r["launches"][n] for r in runs.values())
+                                       for n in flash_ops.LAUNCHES}
+        for kind in SLOT_TRAIN:
+            out["train"][kind] = drive_slot_training(tmp, kind)
+            launches["train"][kind] = out["train"][kind]["launches"]
+    finally:
+        if saved is not None:
+            os.environ["MINIVECTORDB_TORCH_WEIGHTS"] = saved
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    return launches
+
+
+def slot_launches_at(slot_launches: dict, hd: int) -> dict:
+    """Each entry point's launches by the slots of head width ``hd``."""
+    total = {}
+    for runs in slot_launches.values():
+        for kind, counts in runs.items():
+            if slot_head_dim(kind) == hd:
+                for name, n in counts.items():
+                    total[name] = total.get(name, 0) + n
+    return total
+
+
+def slot_kernel_rows(slot_launches: dict) -> list:
+    """K6, K6-lse, K7 and K8 of both types at the slots' head widths, report
+    only (their agreement with the plain versions is asserted): K6 at the
+    embed calls' B = 32, nh = 8, S = 512 (lengths 200-512), the training
+    kernels at train_builtin's B = 64, nh = 8, S = 256 (ragged lengths of
+    100-256). Rows are named "<kernel> hd<hd>"; their launches are the
+    slots_path runs' at that width (0 where the path runs no such kernel:
+    train_builtin trains in float32)."""
+    rows = []
+    for hd in SLOT_HEAD_DIMS:
+        counts = slot_launches_at(slot_launches, hd)
+        lengths = seeded_lengths(32, 512, 200, SEED + 500 + hd)
+        for kind in ("f32", "bf16"):
+            rows.append(k6_row(kind, (32, 8, 512, hd), lengths, SEED + 501 + hd,
+                               counts.get(f"flash_attention_{kind}", 0), f"K6-{kind} hd{hd}"))
+        lengths = seeded_lengths(64, 256, 100, SEED + 510 + hd)
+        rows += train_rows_at((64, 8, 256, hd), lengths, SEED + 511 + hd, counts, f" hd{hd}")
+        rows += train_bf16_rows_at((64, 8, 256, hd), lengths, SEED + 513 + hd, counts, f" hd{hd}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # train_path: contrastive training of the encoder (K6 with lse, K7, K8)
 # ---------------------------------------------------------------------------
 
 
-def train_batches(steps: int, pairs: int, seed: int) -> list:
-    """``steps`` batches of ``pairs`` (query, passage) texts of 200-505 seeded
-    words through the e5-large slot's hashing tokenizer, padded to S = 512
-    with ragged lengths: every encode takes the flash route."""
-    cfg = model_configs.E5_LARGE
+def train_batches(steps: int, pairs: int, seed: int, cfg=model_configs.E5_LARGE,
+                  seq: int = 512) -> list:
+    """``steps`` batches of ``pairs`` (query, passage) texts of seeded words
+    (200-505 for S = 512, 100-250 for S = 256) through a hashing tokenizer
+    over ``cfg``'s vocabulary, padded to S = ``seq`` with ragged lengths:
+    every encode takes the flash route."""
     tok = HashTokenizer(cfg.vocab_size)
     vocab = [f"w{i}" for i in range(50_000)]
+    lo, hi = (200, 505) if seq == 512 else (100, 250)
 
     def tokenize(texts):
-        enc = tok(texts, max_length=512)
-        ids = np.full((len(texts), 512), cfg.pad_id, np.int32)
-        mask = np.zeros((len(texts), 512), np.int32)
+        enc = tok(texts, max_length=seq)
+        ids = np.full((len(texts), seq), cfg.pad_id, np.int32)
+        mask = np.zeros((len(texts), seq), np.int32)
         for row, (e, m) in enumerate(zip(enc["input_ids"], enc["attention_mask"])):
             ids[row, :len(e)] = e
             mask[row, :len(m)] = m
@@ -2393,8 +2628,8 @@ def train_batches(steps: int, pairs: int, seed: int) -> list:
 
     out = []
     for step in range(steps):
-        q_ids, q_mask = tokenize(seeded_texts(vocab, pairs, 200, 505, seed + 2 * step))
-        p_ids, p_mask = tokenize(seeded_texts(vocab, pairs, 200, 505, seed + 2 * step + 1))
+        q_ids, q_mask = tokenize(seeded_texts(vocab, pairs, lo, hi, seed + 2 * step))
+        p_ids, p_mask = tokenize(seeded_texts(vocab, pairs, lo, hi, seed + 2 * step + 1))
         out.append({"q_ids": q_ids, "q_mask": q_mask, "p_ids": p_ids, "p_mask": p_mask})
     return out
 
@@ -3283,12 +3518,28 @@ def train_kernel_rows(launches: dict) -> list:
 
     b, nh, s, hd = 16, 16, 512, 64
     lengths = seeded_lengths(b, s, 200, SEED + 87)
-    case = attention_case(b, nh, s, hd, torch.float32, lengths, SEED + 88)
+    rows = train_rows_at((b, nh, s, hd), lengths, SEED + 88, launches, "")
+    for row in rows:
+        row["small_max_abs_err"] = small[row["name"]]
+    rows[0]["bf16_lse_max_abs_err"] = max(small["K6-bf16-lse_lse_only"],
+                                          rows[0].pop("bf16_lse_max_abs_err"))
+    return rows
+
+
+def train_rows_at(shape, lengths, seed, launches: dict, suffix: str) -> list:
+    """K6-f32 with lse, K7 and K8 at ``shape`` = (B, nh, S, hd) with the given
+    lengths (the case from ``seed``, dO from ``seed + 1``), held against their
+    plain versions (compare_backward), timed beside them, beside SDPA's
+    forward and autograd backward and beside the bound; with each kernel's
+    registers and spills at that hd. Rows are named "<kernel><suffix>".
+    ``launches`` maps entry points to the path's counts."""
+    b, nh, s, hd = shape
+    case = attention_case(b, nh, s, hd, torch.float32, lengths, seed)
     q, k, v, seg = case
-    errs = compare_backward(case, "training shape")
+    errs = compare_backward(case, f"training rows{suffix}")
     scale = 1.0 / float(np.sqrt(hd))
     gen = torch.Generator(device=DEV)
-    gen.manual_seed(SEED + 89)
+    gen.manual_seed(seed + 1)
     dout = torch.randn(q.shape, device=DEV, generator=gen)
     out, lse = flash_ops.flash_attention_lse(q, k, v, seg, scale)
     ops = flash_ops._bwd_operands(q, k, v, seg, out, dout, lse)
@@ -3334,6 +3585,8 @@ def train_kernel_rows(launches: dict) -> list:
     tiles = {"K6-f32-lse": flash_ops.tile_shape(torch.float32, hd),
              "K7-f32": bwd_tiles["dkv"], "K8-f32": bwd_tiles["dq"]}
     per_pair = {"K6-f32-lse": 4, "K7-f32": 8, "K8-f32": 6}
+    ptxas = {"K6-f32-lse": "flash_f32_kernel", "K7-f32": "bwd_dkv_kernel",
+             "K8-f32": "bwd_dq_kernel"}
     rows = []
     for name, (run, plain, library, n_bytes, n_ops, replaces, source, entry,
                lib_what) in kinds.items():
@@ -3347,11 +3600,11 @@ def train_kernel_rows(launches: dict) -> list:
         t_ops = n_ops / PEAK_OPS_S["f32"] * 1e3
         ms = statistics.median([ms_a, ms_b])
         rows.append({
-            "name": name,
+            "name": name + suffix,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[entry],
+            "launches": launches.get(entry, 0),
             "max_abs_err": errs[name],
             "tolerance": TOL_LSE if name == "K6-f32-lse" else TOL_BWD,
             "ms": ms,
@@ -3369,10 +3622,9 @@ def train_kernel_rows(launches: dict) -> list:
             **multiplied_work(seg, tiles[name], per_pair[name], nh, hd, n_ops, ms),
             "shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths_min": min(lengths),
                       "lengths_mean": float(np.mean(lengths))},
-            "small_max_abs_err": small[name],
+            f"ptxas_hd{hd}": ptxas_of(ptxas[name], hd),
         })
-    rows[0]["bf16_lse_max_abs_err"] = max(small["K6-bf16-lse_lse_only"],
-                                          errs["K6-bf16-lse_lse_only"])
+    rows[0]["bf16_lse_max_abs_err"] = errs["K6-bf16-lse_lse_only"]
     del case, q, k, v, seg, ops, lib_out, ql, kl, vl, same
     torch.cuda.empty_cache()
     return rows
@@ -3452,15 +3704,29 @@ def train_bf16_kernel_rows(launches: dict) -> list:
             small[name] = max(small.get(name, 0.0), err)
         del case
 
-    bf16 = torch.bfloat16
     b, nh, s, hd = 16, 16, 512, 64
     lengths = seeded_lengths(b, s, 200, SEED + 87)
-    case = attention_case(b, nh, s, hd, bf16, lengths, SEED + 88)
+    rows = train_bf16_rows_at((b, nh, s, hd), lengths, SEED + 88, launches, "")
+    for row in rows:
+        row["launches_per_step"] = row["launches"] // 4
+        row["small_max_abs_err"] = small[row["name"]]
+        row["small_max_share_of_tolerance"] = small[row["name"] + "_share"]
+    return rows
+
+
+def train_bf16_rows_at(shape, lengths, seed, launches: dict, suffix: str) -> list:
+    """K6-bf16 with lse and the bfloat16 K7 and K8 at ``shape`` = (B, nh, S,
+    hd), as train_rows_at does for float32 (compare_backward_bf16); with each
+    kernel's registers and spills, and the backward kernels' blocks an SM, at
+    that hd."""
+    bf16 = torch.bfloat16
+    b, nh, s, hd = shape
+    case = attention_case(b, nh, s, hd, bf16, lengths, seed)
     q, k, v, seg = case
-    errs = compare_backward_bf16(case, "bf16 training shape")
+    errs = compare_backward_bf16(case, f"bf16 training rows{suffix}")
     scale = 1.0 / float(np.sqrt(hd))
     gen = torch.Generator(device=DEV)
-    gen.manual_seed(SEED + 89)
+    gen.manual_seed(seed + 1)
     dout = torch.randn(q.shape, device=DEV, generator=gen).to(bf16)
     out, lse = flash_ops.flash_attention_lse(q, k, v, seg, scale)
     ops = flash_ops._bwd_operands(q, k, v, seg, out, dout, lse)
@@ -3521,13 +3787,12 @@ def train_bf16_kernel_rows(launches: dict) -> list:
         t_ops = n_ops / PEAK_OPS_S["bf16"] * 1e3
         ms = statistics.median([ms_a, ms_b])
         rows.append({
-            "name": name,
+            "name": name + suffix,
             "route": "cuda",
             "source": ("minivectordb_tpu_torch/csrc/flash_attention.cu" if fwd else
                        "minivectordb_tpu_torch/csrc/flash_attention_bwd_bf16.cu"),
             "replaces": replaces,
-            "launches": launches[entry],
-            "launches_per_step": launches[entry] // 4,
+            "launches": launches.get(entry, 0),
             "max_abs_err": errs[name],
             "max_share_of_tolerance": errs[name + "_share"],
             "tolerance": (f"output {TOL_K6_ROW_REL} * max|plain| over the row + "
@@ -3549,12 +3814,11 @@ def train_bf16_kernel_rows(launches: dict) -> list:
             **multiplied_work(seg, tiles[name], per_pair[name], nh, hd, n_ops, ms),
             "shape": {"B": b, "nh": nh, "S": s, "hd": hd, "lengths_min": min(lengths),
                       "lengths_mean": float(np.mean(lengths))},
-            "small_max_abs_err": small[name],
-            "small_max_share_of_tolerance": small[name + "_share"],
+            f"ptxas_hd{hd}": ptxas_of(
+                "flash_bf16_kernel" if fwd else
+                "bwd_dkv_bf16_kernel" if name == "K7-bf16" else "bwd_dq_bf16_kernel", hd),
             **({} if fwd else {
-                "ptxas_hd64": ptxas_of(
-                    "bwd_dkv_bf16_kernel" if name == "K7-bf16" else "bwd_dq_bf16_kernel", hd),
-                "blocks_per_sm_hd64": flash_ops.bwd_bf16_blocks_per_sm(
+                f"blocks_per_sm_hd{hd}": flash_ops.bwd_bf16_blocks_per_sm(
                     hd, "dkv" if name == "K7-bf16" else "dq")}),
         })
     del case, q, k, v, seg, ops, lib_out, ql, kl, vl, same
@@ -3584,13 +3848,16 @@ def main() -> None:
         phase_pipeline_path(tmp, model, texts, k6_launches)
         del model
         torch.cuda.empty_cache()
+        slot_launches = phase_slots_path(tmp)
+        torch.cuda.empty_cache()
         train_launches = phase_train_path(tmp)
         train_bf16_launches = phase_train_path_bf16(tmp)
         train_mesh_launches = phase_train_mesh_path(tmp)
     emit({"phase": "launches", "flat_path": launches, "flat_path_narrow": narrow,
           "ivf_path": ivf_launches, "sharded_path": sharded_launches,
           "mesh_path": mesh_launches,
-          "text_path": k6_launches, "train_path": train_launches,
+          "text_path": k6_launches, "slots_path": slot_launches,
+          "train_path": train_launches,
           "train_path_bf16": train_bf16_launches,
           "train_mesh_path": train_mesh_launches})
     path_counts = {**launches, **ivf_launches,
@@ -3608,8 +3875,11 @@ def main() -> None:
                if not train_mesh_launches.get(n)]
     assert not missing, f"the training mesh path never launched: {missing}"
     torch.cuda.empty_cache()
+    missing = [(hd, n) for hd in SLOT_HEAD_DIMS for n in TEXT_ENTRY_POINTS + TRAIN_ENTRY_POINTS
+               if not slot_launches_at(slot_launches, hd).get(n)]
+    assert not missing, f"the slots path never launched: {missing}"
     kernels = phase_kernels(launches, ivf_shapes, ivf_launches, k6_launches,
-                            train_launches["e5_large"], train_bf16_launches)
+                            train_launches["e5_large"], train_bf16_launches, slot_launches)
     for row in kernels["kernels"]:
         row["mesh_launches"] = mesh_launches.get(MESH_ROW_ENTRY.get(row["name"]), 0)
         row["train_mesh_launches"] = train_mesh_launches.get(TRAIN_ROW_ENTRY.get(row["name"]), 0)

@@ -589,7 +589,12 @@ class SearchEngine:
             # before this delete would reattach WITHOUT the tombstones
             # after a crash; drop it (the next build/calibrate rewrites it)
             self._drop_ivf_sidecar()
-            built = self._ivf_built_count
+            # a layout awaiting reattach indexes its own count of rows (the
+            # built count is set only when it attaches); the JAX engine reads
+            # the built count here, 0 before the attach, so its deletes never
+            # reach a pending layout and the attached index serves them
+            built = (self._ivf_built_count if self._ivf is not None
+                     else int(self._ivf_pending_state["count"]))
             below = [r for r in rows if r < built]
             if self._ivf is not None:
                 self._ivf_dead_slots += self._ivf.tombstone_rows(below)

@@ -420,14 +420,17 @@ class IVFIndex:
                      list_ids, valid) -> None:
         """Device scatter into the padded cluster-major tensor; normalize +
         dtype cast happen on the scatter operand (rows store normalized so
-        IP == cosine)."""
-        dest = np.empty(n, dtype=np.int64)
+        IP == cosine). A row without a valid slot (tombstoned in a layout
+        that was reattached before its compaction) goes to one spare slot
+        past the lists, which is cut off."""
+        slots = nlist * pad
+        dest = np.full(n, slots, dtype=np.int64)
         dest[order] = slot
         dev = data.device
         lists_flat = _scatter_lists(
-            data, inv, scan_ops.to_device(dest, dev), n, nlist * pad,
+            data, inv, scan_ops.to_device(dest, dev), n, slots + 1,
             self._lists_dtype(),
-        )
+        )[:slots]
         if self._lists_dtype() != torch.float32:
             # quantized lists: keep refs to the corpus (already resident —
             # the store's buffer) so snapshots can rescore exactly

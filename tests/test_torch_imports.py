@@ -42,6 +42,7 @@ def test_import_in_fresh_process_loads_no_jax():
         "import minivectordb_tpu_torch.models.train_builtin\n"
         "import minivectordb_tpu_torch.models.builtin_data\n"
         "import minivectordb_tpu_torch.models.quality_probes\n"
+        "import minivectordb_tpu_torch.models.fetch_weights\n"
         "import minivectordb_tpu_torch.core.wal, minivectordb_tpu_torch.core.sharding\n"
         "import minivectordb_tpu_torch.rerank.device\n"
         "import minivectordb_tpu_torch.parallel.mesh, minivectordb_tpu_torch.parallel.dist_scan\n"
@@ -86,6 +87,34 @@ def test_no_jax_import_by_ast(path):
                 arg = node.args[0]
                 assert not (isinstance(arg, ast.Constant)
                             and _forbidden(str(arg.value))), (path, node.lineno)
+
+
+def test_fetch_weights_imports_without_transformers():
+    """transformers is read inside fetch_one only: without it (as on a card
+    that has none) the module imports and fetch_one alone raises."""
+    code = (
+        "import sys\n"
+        "sys.modules['transformers'] = None\n"
+        "import minivectordb_tpu_torch\n"
+        "from minivectordb_tpu_torch.models import fetch_weights\n"
+        "assert callable(fetch_weights.main)\n"
+        "try:\n"
+        "    fetch_weights.fetch_one('small', 'unused')\n"
+        "except ImportError:\n"
+        "    print('fetch_one raised ImportError')\n"
+        "else:\n"
+        "    raise SystemExit('fetch_one ran without transformers')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'minivectordb_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "fetch_one raised ImportError"
 
 
 def test_kernel_modules_import_without_nvcc_or_triton():

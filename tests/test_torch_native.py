@@ -117,25 +117,36 @@ def test_a_failing_native_append_reaches_the_caller(tmp_path):
 
 def test_the_library_is_built_once_into_the_build_directory(tmp_path):
     """Four processes build into a fresh directory at once: one library, no
-    temporary file left; importing the hooked modules builds nothing."""
-    env = {**os.environ, "MINIVECTORDB_TORCH_BUILD_DIR": str(tmp_path)}
+    temporary file left; importing the hooked modules builds nothing. Each
+    process waits until all four have imported (a marker file each) before
+    its first use, so a slow import never sees another process's build."""
+    out, ready = tmp_path / "build", tmp_path / "ready"
+    out.mkdir()
+    ready.mkdir()
+    env = {**os.environ, "MINIVECTORDB_TORCH_BUILD_DIR": str(out)}
     code = ("import sys; sys.path.insert(0, {root!r})\n"
-            "import os\n"
+            "import os, time\n"
             "from minivectordb_tpu_torch.rerank import hybrid, hashing\n"
             "from minivectordb_tpu_torch.core import wal\n"
             "assert not os.listdir({out!r}), os.listdir({out!r})\n"
+            "open(os.path.join({ready!r}, str(os.getpid())), 'w').close()\n"
+            "t0 = time.time()\n"
+            "while len(os.listdir({ready!r})) < 4 and time.time() - t0 < 200:\n"
+            "    time.sleep(0.01)\n"
             "from minivectordb_tpu_torch.native import fastops\n"
             "v = hashing.hash_text_features('first use builds')\n"
             "assert fastops.available() and fastops.CALLS['hash_ngrams'] == 1\n"
-            "print(fastops.available().detail)\n").format(root=ROOT, out=str(tmp_path))
+            "print(fastops.available().detail)\n").format(
+                root=ROOT, out=str(out), ready=str(ready))
     procs = [subprocess.Popen([sys.executable, "-c", code], env=env, text=True,
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
              for _ in range(4)]
     outs = [p.communicate(timeout=240)[0] for p in procs]
     assert all(p.returncode == 0 for p in procs), outs
-    paths = {out.strip().splitlines()[-1] for out in outs}
-    assert len(paths) == 1 and os.path.dirname(paths.pop()) == str(tmp_path)
-    (name,) = os.listdir(tmp_path)
+    assert len(os.listdir(ready)) == 4
+    paths = {o.strip().splitlines()[-1] for o in outs}
+    assert len(paths) == 1 and os.path.dirname(paths.pop()) == str(out)
+    (name,) = os.listdir(out)
     assert name.startswith("libfastops_") and name.endswith(".so")
     assert build.CXX_FLAGS[-1] == "-ffp-contract=off"
 

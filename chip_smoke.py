@@ -9,7 +9,8 @@ nothing of the JAX package. Every phase must pass; any failure raises.
 
 Phases (one JSON object per output line):
   env        card, versions, seconds the kernel build took; the next line is
-             nvidia-smi's "name, power.limit" as it prints them
+             nvidia-smi's "name, power.limit" as it prints them. Fails if
+             ptxas spilled in K6-bf16 at hd = 128 or ignored its setmaxnreg
   main_path  VectorDatabase(device_dtype="float32") with 1,000,000 x 384
              seeded vectors: batch, filtered, single, async and
              after-delete searches, held against an oracle computed here
@@ -463,6 +464,13 @@ def phase_env() -> str:
         list(pool.map(build.load_library, SOURCES))
     build_wall_s = time.perf_counter() - t0
     resources = kernel_resources()
+    # K6-bf16 at the large slots' hd = 128 holds o, S and P in registers: its
+    # consumer warpgroups take the producer warpgroup's registers
+    # (setmaxnreg), which ptxas must not have ignored (C7508), and nothing spills
+    k6_hd128 = ptxas_of("flash_bf16_kernel", 128)
+    assert k6_hd128["spill_store_bytes"] == 0 and k6_hd128["spill_load_bytes"] == 0, (
+        "K6-bf16 spills at hd = 128", k6_hd128)
+    assert "C7508" not in build.build_info["flash_attention"]["log"], "ptxas ignored setmaxnreg"
     emit({
         "phase": "env",
         "nvidia_smi": smi,
@@ -474,6 +482,7 @@ def phase_env() -> str:
         "kernel_libraries": [os.path.relpath(build.build_info[n]["path"])
                              for n in SOURCES],
         "kernel_resources": resources,
+        "k6_bf16_hd128_ptxas": k6_hd128,
     })
     print(smi, flush=True)
     return smi

@@ -27,8 +27,9 @@
 // (one block per item, synchronous loads, a block barrier per tile) spent
 // most of its time there. So the blocks are persistent (one per SM, walking
 // items blockIdx.x, + gridDim.x, ...) and warp-specialised:
-//   - one producer warp walks the block's items and, per item, the key tiles
-//     to visit, and fills a ring of ST stages in shared memory running ahead
+//   - one producer warp (in bf16, one warp of a producer warpgroup) walks
+//     the block's items and, per item, the key tiles to visit, and fills a
+//     ring of ST stages in shared memory running ahead
 //     of the consumers across item boundaries: lane 0 has TMA copy the K and
 //     V tiles (and Q, into one of NQ slots, with an item's first tile), the
 //     lanes copy the segment ids with cp.async. A stage's "full" mbarrier
@@ -36,7 +37,7 @@
 //     (expect_tx, cp.async.mbarrier.arrive.noinc); its "empty" one when every
 //     consumer warp is done with it; each query slot has an "empty" barrier
 //     too. No block-wide barrier is left in the loop, and the tensor maps let
-//     one instruction fetch a tile in whole 128-byte rows.
+//     one instruction fetch a tile.
 //   - consumer warps take the stages in order, keep the running max m, the
 //     running sum l and the output accumulator in float32 registers and
 //     rescale them tile by tile (online softmax, in the exp2 domain with the
@@ -62,16 +63,18 @@
 // accumulator fragments are scaled, masked and exponentiated in registers,
 // packed to bf16 and become wgmma's register A operand of O += P V, whose B
 // operand is the V tile read transposed from shared memory (N = HD, any
-// multiple of 16 up to 128, so no padded width). In practice the softmax
-// (one ex2 per logit on the special-function unit) and the latency between
-// the two products bound it, so each warpgroup software-pipelines its tiles
-// (P V of one tile runs on the tensor cores while the next tile's softmax
-// runs on the CUDA cores) and the two warpgroups take turns to issue their
-// products (named barriers), so one's softmax overlaps the other's products.
-// Tiles are stored in wgmma's no-swizzle layout, column-major in 16-byte
-// columns (8 rows of a column are one 128-byte core matrix), which takes
-// every HD that is a multiple of 8 and is what a TMA box of (16 bytes x rows
-// x columns) writes.
+// multiple of 16 up to 128, so no padded width). Each warpgroup
+// software-pipelines its tiles (P V of one tile runs on the tensor cores
+// while the next tile's softmax runs on the CUDA cores) and the two
+// warpgroups take turns to issue their products (named barriers), so one's
+// softmax overlaps the other's products. That keeps o, the newest S and the
+// previous P live at once: the producer is a whole warpgroup that hands its
+// registers to the consumers (setmaxnreg, BfCfg). Tiles land by one TMA box
+// each as slabs of 32-, 64- or 128-byte rows in TMA's swizzle, which wgmma
+// reads as it is (box rows of 16 bytes made the loads the limit). What bounds
+// it now is the loads and the epilogue: at hd = 128 a timing-only copy that
+// multiplies nothing and skips the softmax keeps about 60% of the time
+// (PERF.md section 6).
 // f32 (flash_f32_kernel): IEEE FMAs on the CUDA cores, never TF32; the FMAs
 // and the shared-memory reads that feed them bound it. A thread owns an RI x 4
 // tile of S (rows ty + 16i, keys tx + 16j; RI = 8, 128 query rows an item, or
@@ -602,11 +605,10 @@ flash_f32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
 constexpr int BF_BM = 128;  // query rows per item: one consumer warpgroup per 64
 
-// A tile of R rows x HD is kept in wgmma's no-swizzle layout, column-major in
-// 16-byte columns: element (r, c) lies at element (c / 8) * R * 8 + r * 8 +
-// c % 8, one TMA box per column; every 8 rows of a column are one core
-// matrix (128 contiguous bytes). Both query slots and four stages fit at
-// every HD.
+// A tile of R rows x HD lands by one TMA box as slabs of rows of SPAN bytes
+// (BfCfg), slab after slab, in TMA's swizzle of that span, which is also a
+// wgmma operand layout: element (r, c) lies in slab c / (SPAN / 2), row r,
+// column c % (SPAN / 2), before the swizzle.
 constexpr int BF_KT = 128;  // keys per tile
 
 template <int HD, int ST>
@@ -616,13 +618,49 @@ template <int HD>
 using BfLayout = BfLayoutST<HD, BfLayoutST<HD, 4>::BYTES <= SMEM_LIMIT ? 4
                                 : BfLayoutST<HD, 3>::BYTES <= SMEM_LIMIT ? 3 : 2>;
 
-// wgmma matrix descriptor, no swizzle: start address, leading byte offset
-// (between core matrices along K) and stride byte offset (between core
-// matrices along M or N), all in 16-byte units
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// Registers. A consumer thread keeps o (HD / 2 floats), the newest tile's S
+// (64) and the tile before's P (32 words) live across the pipeline; under the
+// 168 registers a thread that a block of 288 threads leaves (it is charged as
+// 384, whole warpgroups) that spilled (308 bytes at HD = 128, where ptxas
+// also serialized the wgmma pipeline, C7512). So the producer is a whole
+// warpgroup (384 threads): its warps give registers back with
+// setmaxnreg.dec and the two consumer warpgroups take them with
+// setmaxnreg.inc, 128 * 56 + 256 * 224 = 384 * 168 (at 40 the producer's own
+// loop spilled); one of its warps loads, the other three leave.
+// Tiles: slabs of the widest TMA swizzle whose row (SPAN bytes, SPAN / 2
+// columns) divides HD.
+template <int HD>
+struct BfCfg {
+    static constexpr int THREADS = CONSUMERS + 128;
+    static constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+    static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= 384 * 168,
+                  "the register split exceeds what the block holds");
+    static constexpr int SPAN = HD % 64 == 0 ? 128 : HD % 32 == 0 ? 64 : 32;
+    static_assert(BF_BM * HD * 2 % 1024 == 0 && BF_KT * HD * 2 % 1024 == 0,
+                  "tiles off the swizzle's 1024 bytes");
+};
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// wgmma matrix descriptor in the swizzle of SPAN = 32, 64 or 128 bytes that
+// TMA writes (slabs of rows of SPAN bytes), in 16-byte units: the start
+// address; K-major, 8-row groups 8 SPAN bytes apart (stride byte offset),
+// the leading byte offset unused, the start 32 bytes a k-step into a row;
+// MN-major, 8-row groups along K 8 SPAN bytes apart, slabs along MN lbo
+// apart (leading byte offset)
+template <int SPAN>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+    constexpr uint64_t mode = SPAN == 128 ? 1 : SPAN == 64 ? 2 : 3;
     return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
          | (static_cast<uint64_t>(lbo >> 4) << 16)
-         | (static_cast<uint64_t>(sbo >> 4) << 32);
+         | (static_cast<uint64_t>(8 * SPAN >> 4) << 32) | (mode << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -819,32 +857,41 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a
 }
 
 template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(BfCfg<HD>::THREADS, 1)
 flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv, bool hb_swap, const int* __restrict__ seg,
                   uint16_t* __restrict__ out, float* __restrict__ lse, int NH, int S, Strides os,
                   float scale_log2,
                   int mtiles, int items)
 {
+    using Cfg = BfCfg<HD>;
     using L = BfLayout<HD>;
     constexpr int QB = BF_BM * HD * 2;   // bytes of a query slot
     constexpr int TB = BF_KT * HD * 2;   // bytes of a K or V tile
     constexpr int NT_O = HD / 8;         // 8-column chunks of the output
-    // descriptors (leading byte offset: to the next core matrix along K;
-    // stride byte offset: along M or N). Q and K are K-major: the next 8
-    // columns lie a column (rows x 16 bytes) on, the next 8 rows 128 bytes on.
-    // V is MN-major: the next 8 keys lie 128 bytes on, the next 8 columns
-    // BF_KT x 16 bytes on.
-    constexpr uint32_t Q_LBO = BF_BM * 16, K_LBO = BF_KT * 16, KV_SBO = 128;
-    constexpr uint32_t V_LBO = 128, V_SBO = BF_KT * 16;
-    extern __shared__ __align__(128) unsigned char smem[];
+    constexpr int SPAN = Cfg::SPAN, KPS = SPAN / 32;  // k-steps of 16 columns a slab row
+    // descriptors: Q and K K-major, k-step ks of an R-row tile; V MN-major,
+    // the tile's keys 16 kk ..
+    auto kdesc = [](uint32_t base, int R, int ks) {
+        return smem_desc<SPAN>(base + (ks / KPS) * R * SPAN + (ks % KPS) * 32, 16);
+    };
+    auto vdesc = [](uint32_t base, int kk) {
+        return smem_desc<SPAN>(base + kk * 16 * SPAN, BF_KT * SPAN);
+    };
+    extern __shared__ __align__(1024) unsigned char smem_1k[];  // the swizzles repeat every 1024 bytes
+    unsigned char* smem = smem_1k;
     const uint32_t sbase = smem_u32(smem);
+    if (sbase % 1024 != 0) __trap();
     Meta* meta = reinterpret_cast<Meta*>(smem + L::META);
     init_barriers<L>(sbase, CONSUMERS / 32);
     const int tid = threadIdx.x;
     const int lane = tid & 31;
 
+    // One branch a role, never joined again: ptxas then knows each side's
+    // register count from its setmaxnreg.
     if (tid >= CONSUMERS) {
+        setmaxnreg_dec<Cfg::PRODUCER_REGS>();
+        if (tid >= CONSUMERS + 32) return;
         auto load_q = [&](int slot, int b, int h, int m0, uint32_t bar) {
             tma_load(sbase + L::Q + slot * QB, &tq, m0, h, b, true, hb_swap, bar);
         };
@@ -855,6 +902,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
         produce<L>(seg, S, NH, mtiles, items, sbase, meta, load_q, load_kv);
         return;
     }
+    setmaxnreg_inc<Cfg::CONSUMER_REGS>();
 
     const int warp = tid >> 5;
     const int wg = warp >> 2;  // consumer warpgroup: query rows 64 wg .. 64 wg + 63
@@ -870,7 +918,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
         const int b = bh / NH;
         const int h = bh - b * NH;
         const int slot = j % L::NQ;
-        const uint32_t q_sm = sbase + L::Q + slot * QB + wg * 64 * 16;
+        const uint32_t q_sm = sbase + L::Q + slot * QB + wg * 64 * SPAN;  // this warpgroup's rows
         const int* segq_s = reinterpret_cast<const int*>(smem + L::SEGQ) + slot * BF_BM;
 
         int segq0 = 0, segq1 = 0;
@@ -904,8 +952,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
             const uint32_t k_sm = sbase + L::K + st * TB;
 #pragma unroll
             for (int ks = 0; ks < HD / 16; ++ks)
-                wgmma_ss<BF_KT>(c, smem_desc(q_sm + ks * 2 * Q_LBO, Q_LBO, KV_SBO),
-                                smem_desc(k_sm + ks * 2 * K_LBO, K_LBO, KV_SBO));
+                wgmma_ss<BF_KT>(c, kdesc(q_sm, BF_BM, ks), kdesc(k_sm, BF_KT, ks));
             wgmma_commit();
         };
         // O += P V of the tile in stage st, issued (not waited for)
@@ -915,7 +962,7 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
             const uint32_t v_sm = sbase + L::V + st * TB;
 #pragma unroll
             for (int kk = 0; kk < BF_KT / 16; ++kk)
-                wgmma_rs<HD>(o, pa[kk], smem_desc(v_sm + kk * 256, V_LBO, V_SBO));
+                wgmma_rs<HD>(o, pa[kk], vdesc(v_sm, kk));
             wgmma_commit();
         };
         // S (in c, its product complete) of the keys n0 .. in stage st:
@@ -1040,9 +1087,11 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
         fence_regs(o);
         release(sbase + L::EMPTY + 8 * st);
 
-        // Epilogue: the rows, normalised and rounded once, are staged in this
-        // warpgroup's own rows of the query slot (no longer read), then leave
-        // as whole 16-byte pieces, a warp writing whole rows.
+        // Epilogue: the rows, normalised and rounded once, are staged in the
+        // bytes of the query slot that hold this warpgroup's own rows (64
+        // rows of each slab; the other warpgroup may still be reading its
+        // own), as 16-byte columns of those 64 rows, then leave as whole
+        // 16-byte pieces, a warp writing whole rows.
         const float inv[2] = {1.f / lrow[0], 1.f / lrow[1]};
         if (lse != nullptr && t4 == 0) {  // the rows' log-sum-exp, for the backward
 #pragma unroll
@@ -1051,22 +1100,25 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
                 if (r < S) lse[(size_t)bh * S + r] = mrow[hh] * LN2 + logf(lrow[hh]);
             }
         }
-        unsigned char* stage = smem + L::Q + slot * QB;
+        constexpr int CPS = SPAN / 16;  // 16-byte columns a slab row
+        unsigned char* stage = smem + L::Q + slot * QB + wg * 64 * SPAN;
+        auto piece = [&](int ch, int r) {  // column ch (8 outputs) of the warpgroup's row r
+            return stage + (ch / CPS) * BF_BM * SPAN + (ch % CPS) * 64 * 16 + r * 16;
+        };
 #pragma unroll
         for (int nt = 0; nt < NT_O; ++nt)
 #pragma unroll
             for (int hh = 0; hh < 2; ++hh)
-                *reinterpret_cast<uint32_t*>(stage + nt * BF_BM * 16 + (row0 + 8 * hh) * 16 +
-                                             t4 * 4) =
+                *reinterpret_cast<uint32_t*>(piece(nt, row0 - wg * 64 + 8 * hh) + t4 * 4) =
                     pack_bf16(o[4 * nt + 2 * hh] * inv[hh], o[4 * nt + 2 * hh + 1] * inv[hh]);
         asm volatile("bar.sync %0, 128;\n" :: "r"(3 + wg) : "memory");  // this warpgroup
         uint16_t* ob = out + (size_t)b * os.b + (size_t)h * os.h;
         for (int idx = tid & 127; idx < 64 * NT_O; idx += 128) {
-            const int r = wg * 64 + idx / NT_O;  // row of the item
+            const int r = idx / NT_O;  // the warpgroup's row
             const int ch = idx % NT_O;
-            if (m0 + r < S)
-                *reinterpret_cast<uint4*>(ob + (size_t)(m0 + r) * os.s + ch * 8) =
-                    *reinterpret_cast<const uint4*>(stage + ch * BF_BM * 16 + r * 16);
+            if (m0 + wg * 64 + r < S)
+                *reinterpret_cast<uint4*>(ob + (size_t)(m0 + wg * 64 + r) * os.s + ch * 8) =
+                    *reinterpret_cast<const uint4*>(piece(ch, r));
         }
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // before TMA reuses it
         release(sbase + L::QEMPTY + 8 * slot);
@@ -1113,23 +1165,24 @@ constexpr int ERR_NO_ENCODER = 10001;  // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = 10002;      // a tensor map was refused
 
 // A 5-d tensor map over q, k or v, whose boxes are rows rows of the sequence
-// from row on, every element of them. Dim 0 is a 16-byte column of a row
-// (chunk elements); dims 1 and 2 are the sequence (stride in.s) and the
-// row's columns (stride 16 bytes), in that order when rows_inner (the box
-// lands column by column) or the other way round (row by row); dims 3 and 4
-// are head and batch, the smaller stride first (hb_swap: batch first).
-// Rows past S read as zeros.
+// from row on, every element of them. Dim 0 is a slab's part of a row (chunk
+// elements: 16 bytes, or span bytes in the swizzle of that span); dims 1 and
+// 2 are the sequence (stride in.s) and the row's slabs, in that order when
+// rows_inner (the box lands slab by slab) or the other way round (row by
+// row); dims 3 and 4 are head and batch, the smaller stride first (hb_swap:
+// batch first). Rows past S read as zeros.
 int make_map(CUtensorMap* map, const void* ptr, bool bf16, const Problem& p, int HD, int rows,
-             bool rows_inner, bool& hb_swap) {
+             bool rows_inner, bool& hb_swap, int span = 0) {
     EncodeTiled encode = encoder();
     if (encode == nullptr) return ERR_NO_ENCODER;
     const int esize = bf16 ? 2 : 4;
-    const int chunk = 16 / esize;
+    const int chunk = (span ? span : 16) / esize;
     hb_swap = p.in.b < p.in.h;
     const long long hs = hb_swap ? p.in.b : p.in.h, bs = hb_swap ? p.in.h : p.in.b;
     const int hn = hb_swap ? p.B : p.NH, bn = hb_swap ? p.NH : p.B;
     const cuuint64_t seq[2] = {static_cast<cuuint64_t>(p.S), static_cast<cuuint64_t>(p.in.s) * esize};
-    const cuuint64_t col[2] = {static_cast<cuuint64_t>(HD / chunk), 16};
+    const cuuint64_t col[2] = {static_cast<cuuint64_t>(HD / chunk),
+                               static_cast<cuuint64_t>(chunk) * esize};
     const cuuint64_t* d1 = rows_inner ? seq : col;
     const cuuint64_t* d2 = rows_inner ? col : seq;
     const cuuint64_t dims[5] = {static_cast<cuuint64_t>(chunk), d1[0], d2[0],
@@ -1143,21 +1196,25 @@ int make_map(CUtensorMap* map, const void* ptr, bool bf16, const Problem& p, int
     const CUresult res = encode(
         map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5,
         const_cast<void*>(ptr), dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
-        CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+        span == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : span == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+        : span == 32 ? CU_TENSOR_MAP_SWIZZLE_32B : CU_TENSOR_MAP_SWIZZLE_NONE,
+        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
     return res == CUDA_SUCCESS ? 0 : ERR_ENCODE;
 }
 
 // Items (B * NH * ceil(S / bm)) and persistent blocks (as many as the SMs
-// hold, at most one per item) for a kernel with smem bytes of shared memory.
-// The shared-memory attribute and the blocks the card holds are set up once
-// per device and kernel (the host calls cost more than a launch): resident is
-// the kernel's own table, by device.
+// hold, at most one per item) for a kernel of threads threads with smem bytes
+// of shared memory. The shared-memory attribute and the blocks the card holds
+// are set up once per device and kernel (the host calls cost more than a
+// launch): resident is the kernel's own table, by device. A kernel whose
+// warpgroups trade registers (setmaxnreg) needs regs of them in all: a block
+// that starts with fewer would wait forever, so it is refused.
 constexpr int MAX_DEVICES = 64;
 
 template <typename Kernel>
-int plan(const Problem& p, Kernel* kernel, int smem, int bm, int (&resident)[MAX_DEVICES],
-         int& mtiles, int& items, int& blocks) {
+int plan(const Problem& p, Kernel* kernel, int smem, int bm, int threads, int regs,
+         int (&resident)[MAX_DEVICES], int& mtiles, int& items, int& blocks) {
     if (p.B <= 0 || p.NH <= 0 || p.S <= 0) return static_cast<int>(cudaErrorInvalidValue);
     mtiles = (p.S + bm - 1) / bm;
     const long long n = (long long)p.B * p.NH * mtiles;
@@ -1172,11 +1229,14 @@ int plan(const Problem& p, Kernel* kernel, int smem, int bm, int (&resident)[MAX
                     kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
                 return static_cast<int>(e);
         }
+        cudaFuncAttributes attr;
+        if (cudaError_t e = cudaFuncGetAttributes(&attr, kernel)) return static_cast<int>(e);
+        if (attr.numRegs * threads < regs) return static_cast<int>(cudaErrorInvalidConfiguration);
         int sms, per_sm;
         if (cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
             return static_cast<int>(e);
         if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                                          THREADS, smem))
+                                                                          threads, smem))
             return static_cast<int>(e);
         if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
         resident[dev] = sms * per_sm;
@@ -1192,7 +1252,8 @@ int launch_f32(const Problem& p) {
     int mtiles, items, blocks;
     bool hb_swap;
     static int resident[MAX_DEVICES];  // blocks the card holds at once; 0 = not set up
-    if (int e = plan(p, flash_f32_kernel<HD>, smem, C::BM, resident, mtiles, items, blocks))
+    if (int e = plan(p, flash_f32_kernel<HD>, smem, C::BM, THREADS, 0, resident, mtiles, items,
+                     blocks))
         return e;
     CUtensorMap tq, tk, tv;
     if (int e = make_map(&tq, p.q, false, p, HD, C::BM, true, hb_swap)) return e;
@@ -1211,13 +1272,16 @@ int launch_bf16(const Problem& p) {
     int mtiles, items, blocks;
     bool hb_swap;
     static int resident[MAX_DEVICES];  // blocks the card holds at once; 0 = not set up
-    if (int e = plan(p, flash_bf16_kernel<HD>, smem, BF_BM, resident, mtiles, items, blocks))
+    using Cfg = BfCfg<HD>;
+    constexpr int regs = 128 * Cfg::PRODUCER_REGS + CONSUMERS * Cfg::CONSUMER_REGS;
+    if (int e = plan(p, flash_bf16_kernel<HD>, smem, BF_BM, Cfg::THREADS, regs, resident, mtiles,
+                     items, blocks))
         return e;
     CUtensorMap tq, tk, tv;
-    if (int e = make_map(&tq, p.q, true, p, HD, BF_BM, true, hb_swap)) return e;
-    if (int e = make_map(&tk, p.k, true, p, HD, BF_KT, true, hb_swap)) return e;
-    if (int e = make_map(&tv, p.v, true, p, HD, BF_KT, true, hb_swap)) return e;
-    flash_bf16_kernel<HD><<<blocks, THREADS, smem, p.stream>>>(
+    if (int e = make_map(&tq, p.q, true, p, HD, BF_BM, true, hb_swap, Cfg::SPAN)) return e;
+    if (int e = make_map(&tk, p.k, true, p, HD, BF_KT, true, hb_swap, Cfg::SPAN)) return e;
+    if (int e = make_map(&tv, p.v, true, p, HD, BF_KT, true, hb_swap, Cfg::SPAN)) return e;
+    flash_bf16_kernel<HD><<<blocks, Cfg::THREADS, smem, p.stream>>>(
         tq, tk, tv, hb_swap, p.seg, static_cast<uint16_t*>(p.out), p.lse, p.NH, p.S, p.os,
         p.sm_scale * LOG2E, mtiles, items);
     return static_cast<int>(cudaGetLastError());

@@ -7,7 +7,7 @@
     python -m minivectordb_tpu_torch.profile_search --embed [--batch 32]
         [--seq 512] [--compute-dtypes float32,bfloat16]
     python -m minivectordb_tpu_torch.profile_search --attention
-        [--against OTHER/flash_attention.cu]
+        [--hd 64] [--heads 16] [--seq 512] [--batch 32] [--against OTHER/flash_attention.cu]
     python -m minivectordb_tpu_torch.profile_search --phase1
         [--against OTHER/phase1.cu]
     python -m minivectordb_tpu_torch.profile_search --backward
@@ -52,13 +52,20 @@ output projection, the residual layer norms, the two FFN products with GELU,
 and the pooling; then the whole ``embed_program`` by events.
 
 With ``--attention`` it times the attention kernel K6 alone, float32 and
-bfloat16, at the embed call's shape (B = 32, 16 heads of 64, S = 512, in the
-encoder's (B, S, nh, hd) memory, ragged lengths seeded as chip_smoke.py seeds
-them): the median of single launches and the mean of 20 back-to-back launches,
-by CUDA events; and float32 K6 writing its row log-sum-exp (the training
-forward) in turns with the inference launch. ``--against`` builds another source with the same C interface
-(an earlier version of ``csrc/flash_attention.cu``) and times it in turns with
-this one (other, this, this, other), with the largest difference between them.
+bfloat16, each without and with its row log-sum-exp (the training forward),
+at the embed call's shape (B = 32, 16 heads of 64, S = 512, in the encoder's
+(B, S, nh, hd) memory, ragged lengths seeded as chip_smoke.py seeds them;
+``--heads``, ``--hd``, ``--seq`` and ``--batch`` change it, e.g. ``--hd 128
+--heads 8`` for the bundled ``large`` and ``bgem3`` slots' embed call, and
+``--seq 256 --batch 64`` for their training shape): the median of single launches
+and the mean of 20 back-to-back launches, by CUDA events, each entry point
+called straight through its C function, with its largest difference from the
+plain version and what ptxas said of the kernel at that width. ``--against``
+builds another source with the same C interface (an earlier version of
+``csrc/flash_attention.cu``, e.g. the parent commit's) and times each of its
+four entry points in turns with this one's (other, this, this, other), both
+called the same way; without it, K6 with lse is timed in turns with the
+inference launch.
 
 With ``--phase1`` it times the phase-1 kernels K1-bf16 and K2-int8 alone at
 the flat search's shape (C = 1,048,576, d = 384, B = 256, count = 1,000,000;
@@ -128,6 +135,7 @@ import json
 import os
 import statistics
 import subprocess
+import threading
 import time
 
 import numpy as np
@@ -826,15 +834,23 @@ def profile_train_mesh(tp: int, dtype: str, batch: int, seq: int, seed: int, rep
 
 def _load_other(src: str, name: str, argtypes: dict):
     """Builds another csrc/<name>.cu (same C interface) with the package's
-    flags into the build directory and loads it."""
+    flags into the build directory, the compiler's report beside it, and
+    loads it (a library built earlier, by another process too, is reused
+    with its report)."""
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
     path = os.path.join(build.build_dir(), f"lib{name}_other_{digest}.so")
     os.makedirs(build.build_dir(), exist_ok=True)
     if not os.path.exists(path):
-        proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", path, src],
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        proc = subprocess.run([build.find_nvcc(), *build.NVCC_FLAGS, "-o", tmp, src],
                               check=True, capture_output=True, text=True)
-        _OTHER_LOGS[src] = proc.stdout + proc.stderr
+        with open(tmp + ".log", "w", encoding="utf-8") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp + ".log", path + ".log")
+        os.replace(tmp, path)
+    with open(path + ".log", encoding="utf-8") as f:
+        _OTHER_LOGS[src] = f.read()
     lib = ctypes.CDLL(path)
     for fn, types in argtypes.items():
         getattr(lib, fn).argtypes = types
@@ -883,16 +899,17 @@ def _in_turns(row: dict, this, that, reps: int) -> None:
     row["other_ms_back_to_back"] = [first[1], last[1]]
 
 
-def profile_attention(against: str | None, seed: int, reps: int) -> list:
+def profile_attention(against: str | None, seed: int, reps: int, heads: int = 16,
+                      seq: int = 512, hd: int = 64, batch: int = 32) -> list:
     dev = torch.device("cuda", torch.cuda.current_device())
-    b, nh, s, hd = 32, 16, 512, 64
+    b, nh, s = batch, heads, seq
     rng = np.random.default_rng(seed + 42)  # chip_smoke.py's lengths
-    lengths = rng.integers(200, s + 1, size=b)
+    lengths = rng.integers(min(200, s), s + 1, size=b)
     lengths[0] = s
     seg = torch.as_tensor((np.arange(s)[None, :] < lengths[:, None]).astype(np.int32),
                           device=dev)
     scale = 1.0 / float(np.sqrt(hd))
-    entries = {n: flash_ops._ARGTYPES[n] for n in ("flash_attention_f32", "flash_attention_bf16")}
+    entries = {n: flash_ops._ARGTYPES[n] for n in flash_ops.LAUNCHES if "_bwd_" not in n}
     other = _load_other(against, "flash_attention", entries) if against else None
     rows = []
     for kind, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -900,38 +917,54 @@ def profile_attention(against: str | None, seed: int, reps: int) -> list:
         gen.manual_seed(seed + 43)
         q, k, v = (torch.randn((b, s, nh * hd), device=dev, generator=gen).to(dtype)
                    .view(b, s, nh, hd).transpose(1, 2) for _ in range(3))
-        name = f"flash_attention_{kind}"
+        mangled = f"flash_{kind}_kernelILi{hd}E"
 
-        def this():
-            return flash_ops.flash_attention(q, k, v, seg, scale)
+        def bare(fns, name, source):
+            """Entry point ``name`` of one source, straight through its C
+            function (both sides the same way; the wrapper's host work is
+            left out)."""
+            def call():
+                out = torch.empty_like(q)
+                lse = torch.empty((b, nh, s), device=dev)
+                ptrs = [out.data_ptr()] + ([lse.data_ptr()] if "_lse_" in name else [])
+                err = fns(name)(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), *ptrs,
+                    b, nh, s, hd, *q.stride()[:3], *out.stride()[:3], scale,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"{name} of {source}: cudaError {err}")
+                return out, lse
+            return call
 
-        def that():
-            out = torch.empty_like(q)
-            err = getattr(other, name)(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), out.data_ptr(),
-                b, nh, s, hd, *q.stride()[:3], *out.stride()[:3], scale,
-                torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"{name} of {against}: cudaError {err}")
+        want, want_lse = flash_ops.flash_attention_lse_plain(q, k, v, seg, scale)
+        want = want.float()
+
+        def errs(got, lse):
+            out = {"max_abs_err_vs_plain": float((got[0].float() - want).abs().max())}
+            if lse:
+                out["lse_max_abs_err_vs_plain"] = float((got[1] - want_lse).abs().max())
             return out
 
-        want = flash_ops.flash_attention_plain(q, k, v, seg, scale).float()
-        row = {"kernel": f"K6-{kind}", "shape": [b, nh, s, hd],
-               "max_abs_err_vs_plain": float((this().float() - want).abs().max())}
-        if other is not None:
-            row["other"] = against
-            row["other_max_abs_err_vs_plain"] = float((that().float() - want).abs().max())
-        _in_turns(row, this, that if other is not None else None, reps)
-        rows.append(row)
-        if kind == "f32":
-            # the training forward: the same kernel writing its row log-sum-exp,
-            # in turns with the inference launch
-            lse = {"kernel": "K6-f32-lse", "shape": [b, nh, s, hd]}
-            _in_turns(lse, lambda: flash_ops.flash_attention_lse(q, k, v, seg, scale),
-                      this, reps)
-            lse["other"] = "K6-f32 without lse (flash_attention_f32)"
-            rows.append(lse)
-        del q, k, v, want
+        for lse in (False, True):
+            name = f"flash_attention_{'lse_' if lse else ''}{kind}"
+            this = bare(flash_ops._kernel_fn, name, "this source")
+            row = {"kernel": f"K6-{kind}{'-lse' if lse else ''}", "shape": [b, nh, s, hd],
+                   **errs(this(), lse),
+                   "ptxas": _ptxas(build.build_info["flash_attention"]["log"], mangled)}
+            that = None
+            if other is not None:
+                that = bare(lambda n: getattr(other, n), name, against)
+                row["other"] = against
+                row.update({"other_" + key: x for key, x in errs(that(), lse).items()})
+                row["other_ptxas"] = _ptxas(_OTHER_LOGS.get(against, ""), mangled)
+            elif lse:
+                # without another source, the training forward in turns with
+                # the inference launch of this one
+                that = bare(flash_ops._kernel_fn, f"flash_attention_{kind}", "this source")
+                row["other"] = f"K6-{kind} without lse (flash_attention_{kind})"
+            _in_turns(row, this, that, reps)
+            rows.append(row)
+        del q, k, v, want, want_lse
         torch.cuda.empty_cache()
     return rows
 
@@ -1106,13 +1139,15 @@ def clustered_corpus(rows: int, batch: int, dim: int, centres: int, seed: int,
     return draw(rows).cpu().numpy(), draw(batch).cpu().numpy()
 
 
-def main() -> None:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line, checked before any CUDA call: a head width the
+    attention kernels are not built for is refused here."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--dim", type=int, default=384)
     ap.add_argument("--batch", type=int, default=None,
                     help="queries per search (default 256) or texts per embed call "
-                         "with --embed (default 32)")
+                         "with --embed / sequences with --attention (default 32)")
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
@@ -1130,6 +1165,9 @@ def main() -> None:
     ap.add_argument("--compute-dtypes", default="float32,bfloat16")
     ap.add_argument("--attention", action="store_true",
                     help="time the attention kernel K6 alone at the embed call's shape")
+    ap.add_argument("--hd", type=int, default=64,
+                    help=f"with --attention: the head width, one of {flash_ops.HEAD_DIMS}")
+    ap.add_argument("--heads", type=int, default=16, help="with --attention: the heads")
     ap.add_argument("--phase1", action="store_true",
                     help="time the phase-1 kernels K1-bf16 and K2 alone at the search's shape")
     ap.add_argument("--backward", action="store_true",
@@ -1149,7 +1187,16 @@ def main() -> None:
                     help="with --attention / --phase1 / --backward / --train: another "
                          "flash_attention.cu / phase1.cu / flash_attention_bwd[_bf16].cu "
                          "to time in turns")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    if args.hd not in flash_ops.HEAD_DIMS:
+        ap.error(f"--hd {args.hd}: the kernels are built for {flash_ops.HEAD_DIMS}")
+    if args.heads < 1 or args.seq < 1:
+        ap.error("--heads and --seq must be at least 1")
+    return args
+
+
+def main() -> None:
+    args = parse_args()
     batch_given = args.batch is not None
     if args.batch is None:
         args.batch = 32 if args.embed else 8 if args.train or args.train_mesh else 256
@@ -1160,7 +1207,8 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     if args.attention:
-        for res in profile_attention(args.against, args.seed, args.reps):
+        for res in profile_attention(args.against, args.seed, args.reps, args.heads,
+                                     args.seq, args.hd, args.batch if batch_given else 32):
             res["card"] = smi
             print(json.dumps(res), flush=True)
         return

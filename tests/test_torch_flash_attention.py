@@ -194,6 +194,10 @@ def test_tile_shape_matches_the_kernels():
     assert fa.tile_shape(torch.bfloat16, 64) == (consts["BF_BM"], consts["BF_KT"]) == (128, 128)
     assert fa.tile_shape(torch.float32, 64) == (128, consts["BN"]) == (128, 64)
     assert fa.tile_shape(torch.float32, 128) == (64, 64)
+    # bfloat16 keeps its 128 x 128 tile at every width: above hd = 64 the
+    # register split, not a narrower key tile, makes room for o, S and P
+    for hd in fa.HEAD_DIMS:
+        assert fa.tile_shape(torch.bfloat16, hd) == (128, 128)
 
 
 def test_pad_queries_attend_to_pads_of_their_own_row():
@@ -256,6 +260,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
 
 def test_kernel_has_a_source_counts_launches_and_builds_nothing_at_import():
     import os
+    import re
 
     from minivectordb_tpu_torch.kernels import build
 
@@ -274,6 +279,79 @@ def test_kernel_has_a_source_counts_launches_and_builds_nothing_at_import():
     for hd in (32, 48, 64, 128):
         assert hd in fa.HEAD_DIMS and f"FLASH_CASE({hd})" in src
     assert f"{np.float32(fa.MASK_VALUE):.7e}".replace("e+", "e") + "f" in src
+    # bfloat16: a producer warpgroup (384 threads a block) gives registers to
+    # the two consumer warpgroups. The split must fit the 168 registers a
+    # thread that __launch_bounds__(384, 1) leaves (65,536 / 384, rounded
+    # down to a multiple of 8), or the consumers would wait forever.
+    for ptx in ("setmaxnreg.dec.sync.aligned.u32", "setmaxnreg.inc.sync.aligned.u32"):
+        assert ptx in src
+    assert "static constexpr int THREADS = CONSUMERS + 128;" in src
+    assert "__launch_bounds__(BfCfg<HD>::THREADS, 1)" in src
+    assert "flash_bf16_kernel<HD><<<blocks, Cfg::THREADS, smem, p.stream>>>" in src
+    assert "constexpr int CONSUMERS = 256;" in src
+    regs = re.search(r"PRODUCER_REGS = (\d+), CONSUMER_REGS = (\d+);", src)
+    producer, consumer = int(regs.group(1)), int(regs.group(2))
+    assert all(r % 8 == 0 and 24 <= r <= 256 for r in (producer, consumer))
+    assert 128 * producer + 256 * consumer <= 384 * (65536 // 384 // 8 * 8)
+    assert "attr.numRegs * threads < regs" in src  # a block that could not split is refused
+    # its tiles land as slabs in the widest TMA swizzle whose row divides hd,
+    # every width the kernel is built for has one
+    assert "SPAN = HD % 64 == 0 ? 128 : HD % 32 == 0 ? 64 : 32;" in src
+    for mode in ("SWIZZLE_128B", "SWIZZLE_64B", "SWIZZLE_32B"):
+        assert f"CU_TENSOR_MAP_{mode}" in src
+    for hd in fa.HEAD_DIMS:
+        span = 128 if hd % 64 == 0 else 64 if hd % 32 == 0 else 32
+        assert hd % (span // 2) == 0 and 128 * hd * 2 % 1024 == 0
+
+
+@pytest.mark.parametrize("hd", [48, 64, 128])
+def test_profile_search_attention_takes_the_slots_widths(hd):
+    """``profile_search --attention --hd --heads`` parses at every head width
+    the slots and the e5 encoders use, keeps today's shape by default, and
+    stops without a CUDA device: it has no CPU fallback."""
+    import os
+    import subprocess
+    import sys
+
+    from minivectordb_tpu_torch import profile_search
+
+    args = profile_search.parse_args(["--attention", "--hd", str(hd), "--heads", "8",
+                                      "--seq", "256", "--batch", "64",
+                                      "--against", "OTHER/flash_attention.cu"])
+    assert (args.hd, args.heads, args.seq, args.batch, args.attention) == (hd, 8, 256, 64, True)
+    default = profile_search.parse_args(["--attention"])
+    assert (default.hd, default.heads, default.seq, default.batch) == (64, 16, 512, None)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-m", "minivectordb_tpu_torch.profile_search", "--attention",
+         "--hd", str(hd), "--heads", "8", "--seq", "256"],
+        cwd=root, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, capture_output=True,
+        text=True, timeout=120)
+    assert res.returncode != 0 and "needs a CUDA device" in res.stderr, res.stderr
+
+
+@pytest.mark.parametrize("argv", [["--hd", "100"], ["--hd", "256"], ["--hd", "8"],
+                                  ["--heads", "0"]])
+def test_profile_search_attention_refuses_a_width_the_kernel_is_not_built_for(argv):
+    """A head width outside HEAD_DIMS (or no heads) is refused while the
+    command line is read, before any CUDA call, with the widths it takes."""
+    import os
+    import subprocess
+    import sys
+
+    from minivectordb_tpu_torch import profile_search
+
+    with pytest.raises(SystemExit) as exc:
+        profile_search.parse_args(["--attention", *argv])
+    assert exc.value.code == 2
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-m", "minivectordb_tpu_torch.profile_search", "--attention", *argv],
+        cwd=root, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, capture_output=True,
+        text=True, timeout=120)
+    assert res.returncode == 2 and "needs a CUDA device" not in res.stderr, res.stderr
+    assert ("the kernels are built for" in res.stderr if "--hd" in argv
+            else "must be at least 1" in res.stderr), res.stderr
 
 
 @pytest.mark.cuda

@@ -10,7 +10,10 @@ nothing of the JAX package. Every phase must pass; any failure raises.
 Phases (one JSON object per output line):
   env        card, versions, seconds the kernel build took; the next line is
              nvidia-smi's "name, power.limit" as it prints them. Fails if
-             ptxas spilled in K6-bf16 at hd = 128 or ignored its setmaxnreg
+             ptxas spilled in K6-bf16 at hd = 128 or ignored its setmaxnreg,
+             or spilled in K6-f32 at any width, or reported a K6-f32 wgmma
+             pipeline serialized or a setmaxnreg ignored (C7508 / C7512 /
+             C7515)
   main_path  VectorDatabase(device_dtype="float32") with 1,000,000 x 384
              seeded vectors: batch, filtered, single, async and
              after-delete searches, held against an oracle computed here
@@ -286,7 +289,14 @@ gradient's scale), so the plain module is no yardstick there.
 
 bound_ms is the larger of (bytes that must move) / 3.35 TB/s and
 (operations) / peak, with the H100 SXM data-sheet peaks: 67 TFLOP/s float32
-on the CUDA cores, 989 TFLOP/s bf16, 1979 TOP/s int8. Only the `count` live
+on the CUDA cores, 989 TFLOP/s bf16, 1979 TOP/s int8, 495 TFLOP/s TF32. K6-f32
+(with lse or not) forms its products on the tensor cores in 3xTF32, three TF32
+products a float32 product: its bound_ms counts 3x its operations at the TF32
+peak, and bound_ms_ieee beside it the operations at the float32 peak. Its rows
+also give max_abs_err_vs_float64 of the kernel, of the IEEE plain version and
+of SDPA against a float64 attention of the same inputs, and the kernel's
+distance to flash_attention_3xtf32_plain (its arithmetic in plain PyTorch).
+Only the `count` live
 rows need reading or multiplying, so both terms count those rows, not the
 padded capacity; every output value is written. For the grouped probe the
 work depends on the data: bytes are the DISTINCT touched list blocks read
@@ -355,6 +365,8 @@ SEED = 0
 D = 384
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"f32": 67e12, "bf16": 989e12, "i8": 1979e12}
+# tensor cores, dense TF32: K6-f32 issues three TF32 products a product (3xTF32)
+PEAK_TF32_S = 495e12
 TOL = {"f32": 2e-5, "bf16": 2e-5, "i8": 0.0}
 SHARDED_IVF_ROWS = 131_072  # the sharded phase's index="ivf" corpus
 MESH_SHARDS = 4  # mesh_path's logical shards on the one card
@@ -471,6 +483,17 @@ def phase_env() -> str:
     assert k6_hd128["spill_store_bytes"] == 0 and k6_hd128["spill_load_bytes"] == 0, (
         "K6-bf16 spills at hd = 128", k6_hd128)
     assert "C7508" not in build.build_info["flash_attention"]["log"], "ptxas ignored setmaxnreg"
+    # K6-f32 (3xTF32 on wgmma, the same register split) spills nothing at any
+    # width, and ptxas neither serialized its wgmma pipeline nor ignored its
+    # setmaxnreg
+    k6_f32 = {hd: ptxas_of("flash_f32_kernel", hd) for hd in flash_ops.HEAD_DIMS}
+    spilled = {hd: r for hd, r in k6_f32.items()
+               if r["spill_store_bytes"] or r["spill_load_bytes"]}
+    assert not spilled, ("K6-f32 spills", spilled)
+    pipeline = [line for line in build.build_info["flash_attention"]["log"].splitlines()
+                if any(code in line for code in ("C7508", "C7512", "C7515"))
+                and ("flash_f32_kernel" in line or "'" not in line)]
+    assert not pipeline, ("ptxas serialized K6-f32's wgmma or ignored its setmaxnreg", pipeline)
     emit({
         "phase": "env",
         "nvidia_smi": smi,
@@ -483,6 +506,7 @@ def phase_env() -> str:
                              for n in SOURCES],
         "kernel_resources": resources,
         "k6_bf16_hd128_ptxas": k6_hd128,
+        "k6_f32_ptxas": k6_f32,
     })
     print(smi, flush=True)
     return smi
@@ -2082,6 +2106,45 @@ def encoder_kernel_rows(launches: dict) -> list:
     return rows
 
 
+def float64_attention(q, k, v, seg, scale):
+    """(out, lse) of attention within segments in float64, a batch row at a
+    time: the yardstick of the float32 rows' max_abs_err_vs_float64."""
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float64, device=q.device)
+    mask = torch.tensor(flash_ops.MASK_VALUE, dtype=torch.float64, device=q.device)
+    for i in range(q.shape[0]):
+        qd, kd, vd = (t[i:i + 1].double() for t in (q, k, v))
+        same = seg[i:i + 1, None, :, None] == seg[i:i + 1, None, None, :]
+        logits = torch.where(same, (qd @ kd.transpose(-1, -2)) * scale, mask)
+        lse[i:i + 1] = torch.logsumexp(logits, dim=-1)
+        out[i:i + 1] = torch.softmax(logits, dim=-1) @ vd
+    return out, lse
+
+
+def f32_accuracy(q, k, v, seg, scale, out, lse=None) -> dict:
+    """K6-f32's output (and row log-sum-exp) beside the IEEE plain version's
+    and SDPA's, each against float64_attention, and the kernel's distance to
+    its own arithmetic in plain PyTorch (flash_attention_lse_3xtf32_plain)."""
+    o64, l64 = float64_attention(q, k, v, seg, scale)
+    pout, plse = flash_ops.flash_attention_lse_plain(q, k, v, seg, scale)
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    lib = F.scaled_dot_product_attention(q, k, v, attn_mask=same, scale=scale)
+    eout, else_ = flash_ops.flash_attention_lse_3xtf32_plain(q, k, v, seg, scale)
+
+    def dist(a, b):
+        return float((a.to(torch.float64) - b).abs().max())
+
+    res = {"max_abs_err_vs_float64": {"kernel": dist(out, o64), "plain": dist(pout, o64),
+                                      "library": dist(lib, o64)},
+           "max_abs_err_vs_3xtf32_plain": float((out - eout).abs().max())}
+    if lse is not None:
+        res["lse_max_abs_err_vs_float64"] = {"kernel": dist(lse, l64), "plain": dist(plse, l64)}
+        res["lse_max_abs_err_vs_3xtf32_plain"] = float((lse - else_).abs().max())
+    del o64, l64, pout, plse, same, lib, eout, else_
+    torch.cuda.empty_cache()
+    return res
+
+
 def k6_row(kind, shape, lengths, seed, launches: int, name: str) -> dict:
     """K6 of ``kind`` at ``shape`` = (B, nh, S, hd) with the given lengths,
     held against its plain version (compare_attention), timed beside it,
@@ -2119,6 +2182,11 @@ def k6_row(kind, shape, lengths, seed, launches: int, name: str) -> dict:
     n_ops = 4 * nh * hd * pairs
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
     t_ops = n_ops / PEAK_OPS_S[kind] * 1e3
+    extra = {}
+    if kind == "f32":  # 3xTF32: three TF32 products a product, at the TF32 peak
+        extra = {"bound_ms_ieee": max(t_bytes, t_ops),
+                 **f32_accuracy(q, k, v, seg, scale, run())}
+        t_ops = 3 * n_ops / PEAK_TF32_S * 1e3
     ms = statistics.median([ms_a, ms_b])
     row = {
         "name": name,
@@ -2135,6 +2203,7 @@ def k6_row(kind, shape, lengths, seed, launches: int, name: str) -> dict:
         "plain_ms": statistics.median([plain_a, plain_b]),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        **extra,
         "library_ms": lib_ms,
         "library": "scaled_dot_product_attention, boolean (B, 1, S, S) segment mask",
         "library_max_abs_err_vs_plain": lib_err,
@@ -3607,6 +3676,11 @@ def train_rows_at(shape, lengths, seed, launches: dict, suffix: str) -> list:
         lib_ms = event_ms(library, 10)
         t_bytes = n_bytes / PEAK_BYTES_S * 1e3
         t_ops = n_ops / PEAK_OPS_S["f32"] * 1e3
+        extra = {}
+        if name == "K6-f32-lse":  # 3xTF32: three TF32 products a product, at the TF32 peak
+            extra = {"bound_ms_ieee": max(t_bytes, t_ops),
+                     **f32_accuracy(q, k, v, seg, scale, out, lse)}
+            t_ops = 3 * n_ops / PEAK_TF32_S * 1e3
         ms = statistics.median([ms_a, ms_b])
         rows.append({
             "name": name + suffix,
@@ -3622,6 +3696,7 @@ def train_rows_at(shape, lengths, seed, launches: dict, suffix: str) -> list:
                       "flash_attention_bwd_plain (dq, dk and dv together)"),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **extra,
             "library_ms": lib_ms,
             "library": lib_what,
             "library_max_abs_err_vs_plain": lib_err if name != "K6-f32-lse" else None,

@@ -19,15 +19,15 @@
 // csrc/flash_attention_bwd.cu recompute the probabilities from. The inference
 // entry points pass a null pointer and write nothing more.
 //
-// What both kernels share. An item is one (batch, head) and a tile of BM
-// query rows; the keys are cut into tiles (BF_KT = 128 for bf16, BN = 64 for
-// f32). At the encoder's shapes an item visits only a few key tiles, so what
+// What both kernels share. An item is one (batch, head) and a tile of 128
+// query rows; the keys are cut into tiles (BF_KT = 128 for bf16, F32Cfg::KT =
+// 64 or 32 for f32). At the encoder's shapes an item visits only a few key tiles, so what
 // a block does once per item (find the tiles, load Q, wait for the first
 // loads, write the output) weighs as much as the products: the first design
 // (one block per item, synchronous loads, a block barrier per tile) spent
 // most of its time there. So the blocks are persistent (one per SM, walking
 // items blockIdx.x, + gridDim.x, ...) and warp-specialised:
-//   - one producer warp (in bf16, one warp of a producer warpgroup) walks
+//   - one producer warp (one warp of a producer warpgroup) walks
 //     the block's items and, per item, the key tiles to visit, and fills a
 //     ring of ST stages in shared memory running ahead
 //     of the consumers across item boundaries: lane 0 has TMA copy the K and
@@ -75,15 +75,28 @@
 // it now is the loads and the epilogue: at hd = 128 a timing-only copy that
 // multiplies nothing and skips the softmax keeps about 60% of the time
 // (PERF.md section 6).
-// f32 (flash_f32_kernel): IEEE FMAs on the CUDA cores, never TF32; the FMAs
-// and the shared-memory reads that feed them bound it. A thread owns an RI x 4
-// tile of S (rows ty + 16i, keys tx + 16j; RI = 8, 128 query rows an item, or
-// 4 for HD = 128, whose operands would not fit shared memory at 8): 16 FMAs
-// per 128-bit read of Q K^T at RI = 8 where the first kernel had 8. Q and K
-// are column-major in 16-byte columns, so the rows a warp reads at once are
-// adjacent; V is row-major. A row's keys are spread over the 16 lanes of a
-// half-warp, so P goes through shared memory for P V, written and read by that
-// half-warp alone.
+// f32 (flash_f32_kernel): the same skeleton, its products on the tensor cores
+// in 3xTF32, since IEEE FMAs on the CUDA cores peak at 67 TFLOP/s. wgmma
+// takes float32 only as TF32 (10 stored significand bits), so every operand
+// x is cut into hi = tf32(x) and lo = tf32(x - hi) (cvt.rna, round to
+// nearest, ties away) and a product a b is a_lo b_hi + a_hi b_lo + a_hi b_hi,
+// the small terms first, summed in the float32 accumulator (a_lo b_lo, below
+// 2^-22 |a| |b|, is dropped). The
+// outputs land 3-5e-6 from a float64 attention at the encoder's shapes, where
+// the IEEE plain version lands 1-2e-6 and the tests hold 2e-5. Three TF32
+// products at 495 TFLOP/s bound it at 2.4x the CUDA cores' rate. The
+// operands shape the rest of the design (F32Cfg): wgmma reads TF32 operands
+// from shared memory K-major only, so V (keys x hd) must become V^T, and
+// every operand needs its hi and lo. Three warps of the producer warpgroup
+// (idle in bf16) write V^T's hi and lo, K's hi in place and its lo, per
+// stage, before the consumers take it (a second barrier per stage); the
+// consumers split Q once per item, its lo (and up to hd = 64 its hi) into
+// registers (wgmma's register A operand); P goes from the S accumulator straight to the register A operand
+// in hi and lo, V^T's keys stored in the order the fragments hold them.
+// Shared memory decides the depth: four tiles of words a stage. What bounds
+// it now is that pipeline, not the tensor cores: with no product and no
+// softmax, the loads, the helpers' splitting and the hand-offs alone take
+// half of its time at hd = 64 (PERF.md section 6).
 //
 // Layout: q, k, v share one set of element strides (batch, head, sequence;
 // the last axis is contiguous), the output has its own, so (B, NH, S, HD) and
@@ -103,7 +116,6 @@
 
 namespace {
 
-constexpr int BN = 64;  // keys per tile of the float32 kernel
 constexpr int SMEM_LIMIT = 232448;  // dynamic shared memory a block may have
 constexpr float MASK_VALUE = -2.3819763e38f;  // float32(-0.7 * float32 max)
 constexpr float LOG2E = 1.4426950408889634f;
@@ -124,7 +136,7 @@ struct Meta {
 
 // Shared memory of one block, in bytes: NQ query slots of QB bytes, ST
 // stages of K (KB bytes) and V (VB bytes) for tiles of KT keys, PB bytes of
-// scratch (float32's P), the segment ids of a slot's BM queries and of a
+// scratch (float32's per-stage "ready" barriers), the segment ids of a slot's BM queries and of a
 // stage's KT keys, the
 // stages' Meta and the mbarriers (full[ST], empty[ST], qempty[NQ]).
 template <int QB, int NQ_, int ST_, int KB, int VB, int PB, int BM_, int KT_>
@@ -277,7 +289,7 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
 // first tile (load_q). A stage's full barrier completes when lane 0 has
 // arrived with the bytes to expect and all 32 lanes' cp.async copies of the
 // keys' segment ids have landed (33 arrivals).
-template <class L, class LoadQ, class LoadKV>
+template <class L, int TX = (L::P - L::K) / L::ST, class LoadQ, class LoadKV>
 __device__ void produce(const int* __restrict__ seg, int S, int NH, int mtiles, int items,
                         uint32_t sbase, Meta* meta, LoadQ load_q, LoadKV load_kv) {
     const int lane = threadIdx.x & 31;
@@ -325,7 +337,7 @@ __device__ void produce(const int* __restrict__ seg, int S, int NH, int mtiles, 
             const uint32_t full = sbase + L::FULL + 8 * st;
             if (lane == 0) {
                 meta[st] = Meta{n0, flags};
-                mbar_expect_tx(full, (L::P - L::K) / L::ST + (flags & FIRST ? (L::K - L::Q) / L::NQ : 0));
+                mbar_expect_tx(full, TX + (flags & FIRST ? (L::K - L::Q) / L::NQ : 0));
                 if (flags & FIRST) load_q(slot, b, h, m0, full);
                 load_kv(st, b, h, n0, full);
             }
@@ -364,240 +376,6 @@ __device__ __forceinline__ void release(uint32_t bar) {
 }
 
 constexpr int CONSUMERS = 256;            // consumer threads: 8 warps
-constexpr int THREADS = CONSUMERS + 32;   // and the producer warp
-
-// ---------------------------------------------------------------------------
-// float32: IEEE FMAs on the CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int PST = BN + 16;  // shared stride of a P row: rows ty, ty+1 lie 16 banks apart
-
-// Q and K are stored column-major in 16-byte columns (element (r, c) of an
-// R-row tile at (c / 4) * R * 4 + r * 4 + c % 4), so the rows a warp reads at
-// once are adjacent; V is stored row-major. One TMA box each.
-template <int HD>
-struct F32Cfg {
-    static constexpr int RI = HD == 128 ? 4 : 8;  // S rows per thread
-    static constexpr int BM = 16 * RI;            // query rows per item
-    static constexpr int QB = BM * HD * 4, KB = BN * HD * 4, VB = BN * HD * 4;
-    static constexpr int PB = BM * PST * 4;
-    template <int NQ_, int ST_>
-    using L = Layout<QB, NQ_, ST_, KB, VB, PB, BM, BN>;
-    // two query slots where they fit (Q of the next item loads during this
-    // one), then three stages where they fit
-    static constexpr int NQ = L<2, 2>::BYTES <= SMEM_LIMIT ? 2 : 1;
-    static constexpr int ST = L<NQ, 3>::BYTES <= SMEM_LIMIT ? 3 : 2;
-    using Lay = L<NQ, ST>;
-    static_assert(Lay::BYTES <= SMEM_LIMIT, "f32 shared memory above the block limit");
-};
-
-template <int HD>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_f32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                 const __grid_constant__ CUtensorMap tv, bool hb_swap, const int* __restrict__ seg,
-                 float* __restrict__ out, float* __restrict__ lse, int NH, int S, Strides os,
-                 float scale_log2,
-                 int mtiles, int items)
-{
-    using C = F32Cfg<HD>;
-    using L = typename C::Lay;
-    constexpr int RI = C::RI;
-    constexpr int BM = C::BM;
-    constexpr int CW = HD / 16;         // output columns per thread
-    constexpr bool VEC = HD % 64 == 0;  // columns as float4 groups, else one by one
-    extern __shared__ __align__(128) unsigned char smem[];
-    const uint32_t sbase = smem_u32(smem);
-    Meta* meta = reinterpret_cast<Meta*>(smem + L::META);
-    init_barriers<L>(sbase, CONSUMERS / 32);
-    const int tid = threadIdx.x;
-
-    if (tid >= CONSUMERS) {
-        auto load_q = [&](int slot, int b, int h, int m0, uint32_t bar) {
-            tma_load(sbase + L::Q + slot * C::QB, &tq, m0, h, b, true, hb_swap, bar);
-        };
-        auto load_kv = [&](int st, int b, int h, int n0, uint32_t bar) {
-            tma_load(sbase + L::K + st * C::KB, &tk, n0, h, b, true, hb_swap, bar);
-            tma_load(sbase + L::V + st * C::VB, &tv, n0, h, b, false, hb_swap, bar);
-        };
-        produce<L>(seg, S, NH, mtiles, items, sbase, meta, load_q, load_kv);
-        return;
-    }
-
-    const int tx = tid & 15;  // key column / output column group
-    const int ty = tid >> 4;  // query row group; a half-warp shares one ty
-    float* Ps = reinterpret_cast<float*>(smem + L::P);
-    int p = 0;  // tiles taken
-    int j = 0;  // items taken
-    for (int item = blockIdx.x; item < items; item += gridDim.x, ++j) {
-        const int bh = item / mtiles;
-        const int m0 = (item - bh * mtiles) * BM;
-        const int b = bh / NH;
-        const int h = bh - b * NH;
-        const int slot = j % L::NQ;
-        const float* Qs = reinterpret_cast<const float*>(smem + L::Q + slot * C::QB);
-        const int* segq_s = reinterpret_cast<const int*>(smem + L::SEGQ) + slot * BM;
-
-        int segq[RI];
-        float m[RI], l[RI], acc[RI][CW];
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-            m[i] = -INFINITY;
-            l[i] = 0.f;
-#pragma unroll
-            for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
-        }
-
-        int flags;
-        do {
-            const int st = p % L::ST;
-            mbar_wait(sbase + L::FULL + 8 * st, (p / L::ST) & 1);
-            const Meta tile = meta[st];
-            flags = tile.flags;
-            if (flags & FIRST) {  // Q and the queries' ids landed with this tile
-#pragma unroll
-                for (int i = 0; i < RI; ++i) segq[i] = segq_s[ty + 16 * i];
-            }
-            const int n0 = tile.n0;
-            const float* Ks = reinterpret_cast<const float*>(smem + L::K + st * C::KB);
-            const float* Vs = reinterpret_cast<const float*>(smem + L::V + st * C::VB);
-            const int* segk = reinterpret_cast<const int*>(smem + L::SEGK) + st * BN;
-
-            // S = Q K^T for rows ty + 16i, keys tx + 16j
-            float s[RI][4];
-#pragma unroll
-            for (int i = 0; i < RI; ++i)
-#pragma unroll
-                for (int jj = 0; jj < 4; ++jj) s[i][jj] = 0.f;
-#pragma unroll 4
-            for (int kk = 0; kk < HD; kk += 4) {
-                float4 kv[4];
-#pragma unroll
-                for (int jj = 0; jj < 4; ++jj)
-                    kv[jj] = *reinterpret_cast<const float4*>(&Ks[kk * BN + (tx + 16 * jj) * 4]);
-#pragma unroll
-                for (int i = 0; i < RI; ++i) {
-                    const float4 qv =
-                        *reinterpret_cast<const float4*>(&Qs[kk * BM + (ty + 16 * i) * 4]);
-#pragma unroll
-                    for (int jj = 0; jj < 4; ++jj) {
-                        s[i][jj] = fmaf(qv.x, kv[jj].x, s[i][jj]);
-                        s[i][jj] = fmaf(qv.y, kv[jj].y, s[i][jj]);
-                        s[i][jj] = fmaf(qv.z, kv[jj].z, s[i][jj]);
-                        s[i][jj] = fmaf(qv.w, kv[jj].w, s[i][jj]);
-                    }
-                }
-            }
-
-            // scale (into the exp2 domain), mask, online softmax; the 16 lanes
-            // of a half-warp hold one row
-            if (flags & UNIFORM) {  // every key below S, one id: a row sees all or none
-                const int id = segk[0];
-#pragma unroll
-                for (int i = 0; i < RI; ++i)
-#pragma unroll
-                    for (int jj = 0; jj < 4; ++jj)
-                        s[i][jj] = id == segq[i] ? s[i][jj] * scale_log2 : MASK_VALUE;
-            } else {
-                bool seen[4];
-                int sk[4];
-#pragma unroll
-                for (int jj = 0; jj < 4; ++jj) {
-                    seen[jj] = n0 + tx + 16 * jj < S;
-                    sk[jj] = segk[tx + 16 * jj];
-                }
-#pragma unroll
-                for (int i = 0; i < RI; ++i)
-#pragma unroll
-                    for (int jj = 0; jj < 4; ++jj)
-                        s[i][jj] = (seen[jj] && sk[jj] == segq[i]) ? s[i][jj] * scale_log2
-                                                                   : MASK_VALUE;
-            }
-#pragma unroll
-            for (int i = 0; i < RI; ++i) {
-                float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-                for (int off = 8; off > 0; off >>= 1)
-                    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-                const float mnew = fmaxf(m[i], mx);         // finite: every s is
-                const float alpha = fast_exp2(m[i] - mnew);  // 0 while m is still -inf
-                float pj[4];
-#pragma unroll
-                for (int jj = 0; jj < 4; ++jj) {
-                    pj[jj] = fast_exp2(s[i][jj] - mnew);
-                    Ps[(ty + 16 * i) * PST + tx + 16 * jj] = pj[jj];
-                }
-                float sum = (pj[0] + pj[1]) + (pj[2] + pj[3]);
-#pragma unroll
-                for (int off = 8; off > 0; off >>= 1)
-                    sum += __shfl_xor_sync(0xffffffffu, sum, off);
-                l[i] = l[i] * alpha + sum;
-                m[i] = mnew;
-#pragma unroll
-                for (int c = 0; c < CW; ++c) acc[i][c] *= alpha;
-            }
-            __syncwarp();  // a row of P is written and read by one half-warp
-
-            // O += P V for rows ty + 16i and this thread's CW columns
-#pragma unroll 2
-            for (int j0 = 0; j0 < BN; j0 += 4) {
-                float4 pv[RI];
-#pragma unroll
-                for (int i = 0; i < RI; ++i)
-                    pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty + 16 * i) * PST + j0]);
-#pragma unroll
-                for (int jj = 0; jj < 4; ++jj) {
-                    const float* vrow = &Vs[(j0 + jj) * HD];
-                    float vv[CW];
-                    if constexpr (VEC) {
-#pragma unroll
-                        for (int c4 = 0; c4 < CW / 4; ++c4) {
-                            const float4 t =
-                                *reinterpret_cast<const float4*>(&vrow[c4 * 64 + tx * 4]);
-                            vv[c4 * 4 + 0] = t.x;
-                            vv[c4 * 4 + 1] = t.y;
-                            vv[c4 * 4 + 2] = t.z;
-                            vv[c4 * 4 + 3] = t.w;
-                        }
-                    } else {
-#pragma unroll
-                        for (int c = 0; c < CW; ++c) vv[c] = vrow[tx + 16 * c];
-                    }
-#pragma unroll
-                    for (int i = 0; i < RI; ++i) {
-                        const float pj = jj == 0 ? pv[i].x : jj == 1 ? pv[i].y
-                                       : jj == 2 ? pv[i].z : pv[i].w;
-#pragma unroll
-                        for (int c = 0; c < CW; ++c) acc[i][c] = fmaf(pj, vv[c], acc[i][c]);
-                    }
-                }
-            }
-            release(sbase + L::EMPTY + 8 * st);  // also orders P's reads before the next writes
-            ++p;
-        } while (!(flags & LAST));
-
-        float* ob = out + (size_t)b * os.b + (size_t)h * os.h;
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-            const int r = m0 + ty + 16 * i;
-            if (r >= S) continue;
-            float* orow = ob + (size_t)r * os.s;
-            const float inv = 1.f / l[i];
-            // the row's log-sum-exp of the natural-domain logits, for the backward
-            if (lse != nullptr && tx == 0) lse[(size_t)bh * S + r] = m[i] * LN2 + logf(l[i]);
-            if constexpr (VEC) {
-#pragma unroll
-                for (int c4 = 0; c4 < CW / 4; ++c4)
-                    *reinterpret_cast<float4*>(&orow[c4 * 64 + tx * 4]) = make_float4(
-                        acc[i][c4 * 4 + 0] * inv, acc[i][c4 * 4 + 1] * inv,
-                        acc[i][c4 * 4 + 2] * inv, acc[i][c4 * 4 + 3] * inv);
-            } else {
-#pragma unroll
-                for (int c = 0; c < CW; ++c) orow[tx + 16 * c] = acc[i][c] * inv;
-            }
-        }
-        release(sbase + L::QEMPTY + 8 * slot);
-    }
-}
 
 // ---------------------------------------------------------------------------
 // bfloat16: wgmma on the tensor cores
@@ -1126,6 +904,514 @@ flash_bf16_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 }
 
 // ---------------------------------------------------------------------------
+// float32: 3xTF32 wgmma on the tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int F32_BM = 128;  // query rows per item: one consumer warpgroup per 64
+
+// The float32 kernel's skeleton is the bf16 kernel's (a producer warpgroup
+// handing registers to two consumer warpgroups, the products taken in
+// turns); what differs is the operands. wgmma reads TF32 operands from shared
+// memory K-major only, as hi and lo TF32 words: Q and K land K-major (hd
+// contiguous) by TMA, V lands the same way and is transposed. A stage holds
+// K (rounded to hi in place), K's lo (whose bytes V lands in first), V^T's hi
+// and V^T's lo; three warps of the producer warpgroup, idle in the bf16
+// kernel, write them and arrive on the stage's "ready" barrier (in the
+// Layout's scratch bytes), which the consumers wait on. The consumers split Q
+// once per item: its lo stays in registers (wgmma's register A operand) and,
+// up to hd = 64, its hi too, so every product of S reads only K from shared
+// memory and the query slot is free again at once; above, Q's hi is rounded
+// in place in its slot. Shared memory is the budget: four words of a tile a
+// stage. Tiles of KT keys, 64 up to hd = 64 and 32 above; as many stages as
+// fit with one query slot (at most four; more stages were the largest gain,
+// PERF.md section 6), then a second slot if it fits.
+// Slabs: rows of SPAN bytes, the widest TMA swizzle dividing a row's 4 HD
+// bytes (twice bf16's span, at most 128); V^T's rows are KT keys, 128-byte slabs.
+template <int HD>
+struct F32Cfg {
+    static constexpr int THREADS = CONSUMERS + 128;
+    // above hd = 64, o and Q's lo take 64 registers each: the consumers need
+    // 232 (at 224 ptxas spilled 36 bytes at hd = 128) and the helpers do with
+    // 40; up to hd = 64 the helpers need 56 (at 40 they spilled 12 bytes)
+    static constexpr int PRODUCER_REGS = HD > 64 ? 40 : 56;
+    static constexpr int CONSUMER_REGS = HD > 64 ? 232 : 224;
+    static_assert(128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS <= 384 * 168,
+                  "the register split exceeds what the block holds");
+    static constexpr int KT = HD <= 64 ? 64 : 32;          // keys per tile
+    static constexpr int SPAN = HD % 32 == 0 ? 128 : 64;   // bytes of a Q / K / V slab row
+    static constexpr int QB = F32_BM * HD * 4;             // a query slot
+    static constexpr int TB = KT * HD * 4;                 // a tile of K, V or one of their words
+    static constexpr int TX = 2 * TB;                      // bytes TMA lands in a stage: K and V
+    static constexpr int HELPERS = 96;                     // the producer warpgroup's other warps
+    static constexpr bool Q_IN_REGS = HD <= 64;            // Q's hi in registers too
+    // per stage: K (hi after the helpers), K lo (V lands there first) | V^T
+    // hi, V^T lo; 64 scratch bytes hold the stages' ready barriers
+    template <int NQ_, int ST_>
+    using L = Layout<QB, NQ_, ST_, 2 * TB, 2 * TB, 64, F32_BM, KT>;
+    static constexpr int ST = L<1, 4>::BYTES <= SMEM_LIMIT ? 4 : L<1, 3>::BYTES <= SMEM_LIMIT ? 3 : 2;
+    static constexpr int NQ = L<2, ST>::BYTES <= SMEM_LIMIT ? 2 : 1;
+    using Lay = L<NQ, ST>;
+    static_assert(Lay::BYTES <= SMEM_LIMIT, "f32 shared memory above the block limit");
+    static_assert(ST * 8 <= 64, "the ready barriers overflow their scratch bytes");
+    static_assert(QB % 1024 == 0 && TB % 1024 == 0 && HD * 128 % 1024 == 0,
+                  "tiles off the swizzle's 1024 bytes");
+};
+
+// x rounded to the nearest TF32 value, ties away from zero (its 13 low bits 0)
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+    uint32_t y;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+    return y;
+}
+// hi = tf32(x) and lo = tf32(x - hi): x - hi is exact, hi + lo keeps about 21 bits
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
+    uint32_t u, w;
+    tf32_split(x.x, u, w); hi.x = __uint_as_float(u); lo.x = __uint_as_float(w);
+    tf32_split(x.y, u, w); hi.y = __uint_as_float(u); lo.y = __uint_as_float(w);
+    tf32_split(x.z, u, w); hi.z = __uint_as_float(u); lo.z = __uint_as_float(w);
+    tf32_split(x.w, u, w); hi.w = __uint_as_float(u); lo.w = __uint_as_float(w);
+}
+
+// byte offset, within a 1024-byte-aligned region, of offset off in the TMA /
+// wgmma swizzle of SPAN-byte rows (16-byte chunks XOR the 128-byte line's index)
+template <int SPAN>
+__device__ __forceinline__ uint32_t swz(uint32_t off) {
+    return off ^ (((off >> 7) & (SPAN / 16 - 1)) << 4);
+}
+
+// d (64 x N, float32) += A (64 x 8 TF32) * B (8 x N TF32), B K-major in shared
+// memory; A K-major in shared memory (ss) or wgmma's register fragment (rs)
+template <int N>
+struct Tf32Mma;
+
+#define TF32_MMA(N, R, DLIST, A0, A1, A2, A3, A4, A5, ...)                                      \
+    template <>                                                                                 \
+    struct Tf32Mma<N> {                                                                         \
+        static __device__ __forceinline__ void ss(float (&d)[R], uint64_t da, uint64_t db) {   \
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" A2 ", 0;\n"                       \
+                         "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" DLIST     \
+                         "}, %" A0 ", %" A1 ", p, 1, 1;\n}\n"                                   \
+                         : __VA_ARGS__ : "l"(da), "l"(db), "r"(1));                             \
+        }                                                                                       \
+        static __device__ __forceinline__ void rs(float (&d)[R], const uint32_t (&a)[4],       \
+                                                  uint64_t db) {                                \
+            asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" A5 ", 0;\n"                       \
+                         "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" DLIST     \
+                         "}, {%" A0 ", %" A1 ", %" A2 ", %" A3 "}, %" A4 ", p, 1, 1;\n}\n"      \
+                         : __VA_ARGS__                                                          \
+                         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));        \
+        }                                                                                       \
+    };
+
+#define TF32_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
+                   "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define TF32_L8 "%0, %1, %2, %3, %4, %5, %6, %7"
+#define TF32_L16 TF32_L8 ", %8, %9, %10, %11, %12, %13, %14, %15"
+#define TF32_L24 TF32_L16 ", %16, %17, %18, %19, %20, %21, %22, %23"
+#define TF32_L32 TF32_L24 ", %24, %25, %26, %27, %28, %29, %30, %31"
+#define TF32_L40 TF32_L32 ", %32, %33, %34, %35, %36, %37, %38, %39"
+#define TF32_L48 TF32_L40 ", %40, %41, %42, %43, %44, %45, %46, %47"
+#define TF32_L56 TF32_L48 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define TF32_L64 TF32_L56 ", %56, %57, %58, %59, %60, %61, %62, %63"
+
+TF32_MMA(16, 8, TF32_L8, "8", "9", "10", "11", "12", "13", TF32_D8(0))
+TF32_MMA(32, 16, TF32_L16, "16", "17", "18", "19", "20", "21", TF32_D8(0), TF32_D8(8))
+TF32_MMA(48, 24, TF32_L24, "24", "25", "26", "27", "28", "29", TF32_D8(0), TF32_D8(8),
+         TF32_D8(16))
+TF32_MMA(64, 32, TF32_L32, "32", "33", "34", "35", "36", "37", TF32_D8(0), TF32_D8(8),
+         TF32_D8(16), TF32_D8(24))
+TF32_MMA(80, 40, TF32_L40, "40", "41", "42", "43", "44", "45", TF32_D8(0), TF32_D8(8),
+         TF32_D8(16), TF32_D8(24), TF32_D8(32))
+TF32_MMA(96, 48, TF32_L48, "48", "49", "50", "51", "52", "53", TF32_D8(0), TF32_D8(8),
+         TF32_D8(16), TF32_D8(24), TF32_D8(32), TF32_D8(40))
+TF32_MMA(112, 56, TF32_L56, "56", "57", "58", "59", "60", "61", TF32_D8(0), TF32_D8(8),
+         TF32_D8(16), TF32_D8(24), TF32_D8(32), TF32_D8(40), TF32_D8(48))
+TF32_MMA(128, 64, TF32_L64, "64", "65", "66", "67", "68", "69", TF32_D8(0), TF32_D8(8),
+         TF32_D8(16), TF32_D8(24), TF32_D8(32), TF32_D8(40), TF32_D8(48), TF32_D8(56))
+
+#undef TF32_MMA
+#undef TF32_D8
+
+// The helpers' work on stage st once its K and V have landed (helper h of
+// HELPERS): V (keys x HD, landed in K lo's bytes) becomes V^T (HD rows of KT
+// keys, 128-byte slabs) in hi and lo; then K is rounded to hi in place and
+// its lo written over V. Within every 8 keys V^T holds keys 0, 2, 4, 6, 1, 3,
+// 5, 7: a consumer lane's S accumulator holds keys (2t, 2t + 1) of each 8,
+// and wgmma's TF32 register fragment of P takes key columns (t, t + 4), so P
+// goes to wgmma as it lies and V^T's key order follows it. A unit of V is 8
+// keys x 4 columns: even keys, then odd ones.
+template <int HD>
+__device__ __forceinline__ void split_stage(unsigned char* stage_k, unsigned char* stage_vt,
+                                            int h) {
+    using C = F32Cfg<HD>;
+    constexpr int TB = C::TB, KT = C::KT, SPAN = C::SPAN, CPS = SPAN / 16;
+    const unsigned char* v = stage_k + TB;
+    for (int u = h; u < (KT / 8) * (HD / 4); u += C::HELPERS) {
+        const int kg = u / (HD / 4);  // keys 8 kg ..
+        const int cj = u % (HD / 4);  // columns 4 cj ..
+        const uint32_t vcol = (cj / CPS) * (KT * SPAN) + (cj % CPS) * 16;
+#pragma unroll
+        for (int odd = 0; odd < 2; ++odd) {
+            float4 x[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                x[e] = *reinterpret_cast<const float4*>(
+                    v + swz<SPAN>(vcol + (8 * kg + 2 * e + odd) * SPAN));
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc) {
+                const int c = 4 * cj + cc;
+                const uint32_t off = swz<128>((kg / 4) * (HD * 128) + c * 128 +
+                                              (2 * (kg % 4) + odd) * 16);
+                const float* col = &x[0].x + cc;  // x[e] component cc
+                float4 hi, lo;
+                split4(make_float4(col[0], col[4], col[8], col[12]), hi, lo);
+                *reinterpret_cast<float4*>(stage_vt + off) = hi;
+                *reinterpret_cast<float4*>(stage_vt + TB + off) = lo;
+            }
+        }
+    }
+    asm volatile("bar.sync 5, %0;\n" :: "n"(C::HELPERS) : "memory");  // V is read: K lo may land on it
+    for (int i = h; i < TB / 16; i += 2 * C::HELPERS) {  // two loads in flight a helper
+        const int j = i + C::HELPERS < TB / 16 ? i + C::HELPERS : i;
+        float4* k = reinterpret_cast<float4*>(stage_k);
+        const float4 x0 = k[i], x1 = k[j];
+        float4 hi0, lo0, hi1, lo1;
+        split4(x0, hi0, lo0);
+        split4(x1, hi1, lo1);
+        k[i] = hi0;
+        reinterpret_cast<float4*>(stage_k + TB)[i] = lo0;
+        k[j] = hi1;
+        reinterpret_cast<float4*>(stage_k + TB)[j] = lo1;
+    }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(F32Cfg<HD>::THREADS, 1)
+flash_f32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, bool hb_swap, const int* __restrict__ seg,
+                 float* __restrict__ out, float* __restrict__ lse, int NH, int S, Strides os,
+                 float scale_log2,
+                 int mtiles, int items)
+{
+    using C = F32Cfg<HD>;
+    using L = typename C::Lay;
+    constexpr int KT = C::KT, TB = C::TB, QB = C::QB;
+    constexpr int NT_O = HD / 8;                      // 8-column chunks of the output
+    constexpr int SPAN = C::SPAN, KPS = SPAN / 32;    // k-steps of 8 floats a slab row
+    // descriptors: a K-major tile of R rows in SPAN slabs, k-step ks; V^T
+    // (HD rows of KT keys in 128-byte slabs), k-step kk
+    auto kdesc = [](uint32_t base, int R, int ks) {
+        return smem_desc<SPAN>(base + (ks / KPS) * R * SPAN + (ks % KPS) * 32, 16);
+    };
+    auto vdesc = [](uint32_t base, int kk) {
+        return smem_desc<128>(base + (kk / 4) * HD * 128 + (kk % 4) * 32, 16);
+    };
+    extern __shared__ __align__(1024) unsigned char smem_1k[];  // the swizzles repeat every 1024 bytes
+    unsigned char* smem = smem_1k;
+    const uint32_t sbase = smem_u32(smem);
+    if (sbase % 1024 != 0) __trap();
+    Meta* meta = reinterpret_cast<Meta*>(smem + L::META);
+    const uint32_t ready = sbase + L::P;  // the stages' ready barriers: one arrival a helper warp
+    if (threadIdx.x == 0)
+        for (int i = 0; i < L::ST; ++i) mbar_init(ready + 8 * i, C::HELPERS / 32);
+    init_barriers<L>(sbase, CONSUMERS / 32);
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+
+    // One branch a role, never joined again: ptxas then knows each side's
+    // register count from its setmaxnreg.
+    if (tid >= CONSUMERS) {
+        setmaxnreg_dec<C::PRODUCER_REGS>();
+        if (tid < CONSUMERS + 32) {
+            auto load_q = [&](int slot, int b, int h, int m0, uint32_t bar) {
+                tma_load(sbase + L::Q + slot * QB, &tq, m0, h, b, true, hb_swap, bar);
+            };
+            auto load_kv = [&](int st, int b, int h, int n0, uint32_t bar) {
+                tma_load(sbase + L::K + st * 2 * TB, &tk, n0, h, b, true, hb_swap, bar);
+                tma_load(sbase + L::K + st * 2 * TB + TB, &tv, n0, h, b, true, hb_swap, bar);
+            };
+            produce<L, C::TX>(seg, S, NH, mtiles, items, sbase, meta, load_q, load_kv);
+            return;
+        }
+        // the helpers take the stages in the consumers' order
+        int p = 0;
+        for (int item = blockIdx.x; item < items; item += gridDim.x) {
+            int flags;
+            do {
+                const int st = p % L::ST;
+                mbar_wait(sbase + L::FULL + 8 * st, (p / L::ST) & 1);
+                flags = meta[st].flags;
+                split_stage<HD>(smem + L::K + st * 2 * TB, smem + L::V + st * 2 * TB,
+                                tid - CONSUMERS - 32);
+                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // before wgmma reads
+                release(ready + 8 * st);
+                ++p;
+            } while (!(flags & LAST));
+        }
+        return;
+    }
+    setmaxnreg_inc<C::CONSUMER_REGS>();
+
+    const int warp = tid >> 5;
+    const int wg = warp >> 2;  // consumer warpgroup: query rows 64 wg .. 64 wg + 63
+    const int g = lane >> 2;   // fragment row
+    const int t4 = lane & 3;
+    const int row0 = wg * 64 + (warp & 3) * 16 + g;  // this thread's rows: row0, row0 + 8
+    if (wg == 1) pass_turn(1);  // warpgroup 0 issues first
+    int p = 0;  // tiles taken
+    int j = 0;  // items taken
+    for (int item = blockIdx.x; item < items; item += gridDim.x, ++j) {
+        const int slot = j % L::NQ;
+        unsigned char* q_slot = smem + L::Q + slot * QB;
+        const uint32_t q_sm = sbase + L::Q + slot * QB + wg * 64 * SPAN;  // this warpgroup's rows
+        const int* segq_s = reinterpret_cast<const int*>(smem + L::SEGQ) + slot * F32_BM;
+
+        int segq0 = 0, segq1 = 0;
+        float mrow[2] = {-INFINITY, -INFINITY};
+        float lrow[2] = {0.f, 0.f};
+        float o[HD / 2];
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+        float c[KT / 2];                 // S of the newest tile
+        constexpr bool QR = C::Q_IN_REGS;
+        uint32_t qlo[HD / 8][4];         // Q's lo words: wgmma's A fragments, k-step by k-step
+        uint32_t qhi[HD / 8][4];         // and its hi words, up to hd = 64
+        uint32_t phi[KT / 8][4], plo[KT / 8][4];  // P of the tile before, hi and lo
+
+        // Q's lo into qlo and its hi into qhi, or in place above hd = 64:
+        // element (row, 8 ks + t4 + 4 (e >> 1)) of row = row0 + 8 (e & 1), as
+        // wgmma's TF32 fragment holds it
+        auto split_q = [&]() {
+#pragma unroll
+            for (int ks = 0; ks < HD / 8; ++ks)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int r = row0 + 8 * (e & 1);
+                    const int col = 8 * ks + t4 + 4 * (e >> 1);
+                    float* x = reinterpret_cast<float*>(
+                        q_slot + swz<SPAN>((col / (SPAN / 4)) * (F32_BM * SPAN) + r * SPAN +
+                                           (col % (SPAN / 4)) * 4));
+                    uint32_t hi;
+                    tf32_split(*x, hi, qlo[ks][e]);
+                    if constexpr (QR) qhi[ks][e] = hi;
+                    else *x = __uint_as_float(hi);
+                }
+            if constexpr (QR) {
+                release(sbase + L::QEMPTY + 8 * slot);  // all of Q is in registers
+            } else {
+                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // before wgmma reads
+                asm volatile("bar.sync %0, 128;\n" :: "r"(3 + wg) : "memory");  // this warpgroup
+            }
+        };
+        // waits for the next stage and reads what the producer says of it
+        auto next_tile = [&](int& st, int& n0, int& flags) {
+            st = p % L::ST;
+            mbar_wait(sbase + L::FULL + 8 * st, (p / L::ST) & 1);
+            mbar_wait(ready + 8 * st, (p / L::ST) & 1);
+            ++p;
+            const Meta tile = meta[st];
+            flags = tile.flags;
+            n0 = tile.n0;
+            if (flags & FIRST) {  // Q and the queries' ids landed with this tile
+                segq0 = segq_s[row0];
+                segq1 = segq_s[row0 + 8];
+                split_q();
+            }
+        };
+        // S = Q K^T of the tile in stage st, issued (not waited for): the
+        // small products first, Q_lo K_hi + Q_hi K_lo, then Q_hi K_hi
+        auto issue_qk = [&](int st) {
+#pragma unroll
+            for (int i = 0; i < KT / 2; ++i) c[i] = 0.f;
+            fence_regs(c);
+            wgmma_fence();
+            const uint32_t k_hi = sbase + L::K + st * 2 * TB;
+#pragma unroll
+            for (int ks = 0; ks < HD / 8; ++ks)
+                Tf32Mma<KT>::rs(c, qlo[ks], kdesc(k_hi, KT, ks));
+            if constexpr (QR) {
+#pragma unroll
+                for (int ks = 0; ks < HD / 8; ++ks)
+                    Tf32Mma<KT>::rs(c, qhi[ks], kdesc(k_hi + TB, KT, ks));
+#pragma unroll
+                for (int ks = 0; ks < HD / 8; ++ks)
+                    Tf32Mma<KT>::rs(c, qhi[ks], kdesc(k_hi, KT, ks));
+            } else {
+#pragma unroll
+                for (int ks = 0; ks < HD / 8; ++ks)
+                    Tf32Mma<KT>::ss(c, kdesc(q_sm, F32_BM, ks), kdesc(k_hi + TB, KT, ks));
+#pragma unroll
+                for (int ks = 0; ks < HD / 8; ++ks)
+                    Tf32Mma<KT>::ss(c, kdesc(q_sm, F32_BM, ks), kdesc(k_hi, KT, ks));
+            }
+            wgmma_commit();
+        };
+        // O += P V of the tile in stage st, issued (not waited for): P_lo V_hi
+        // + P_hi V_lo, then P_hi V_hi
+        auto issue_pv = [&](int st) {
+            fence_regs(o);
+            wgmma_fence();
+            const uint32_t vt_hi = sbase + L::V + st * 2 * TB;
+#pragma unroll
+            for (int kk = 0; kk < KT / 8; ++kk) Tf32Mma<HD>::rs(o, plo[kk], vdesc(vt_hi, kk));
+#pragma unroll
+            for (int kk = 0; kk < KT / 8; ++kk) Tf32Mma<HD>::rs(o, phi[kk], vdesc(vt_hi + TB, kk));
+#pragma unroll
+            for (int kk = 0; kk < KT / 8; ++kk) Tf32Mma<HD>::rs(o, phi[kk], vdesc(vt_hi, kk));
+            wgmma_commit();
+        };
+        // S (in c, its product complete) of the keys n0 .. in stage st:
+        // scale into the exp2 domain, mask, online softmax; c[4j + e] is
+        // (row g, key 8j + 2 t4 + e), c[4j + 2 + e] row g + 8, and a row
+        // lives in the 4 lanes of a quad. Returns the factors O must take.
+        auto softmax = [&](int st, int n0, int flags, float (&alpha)[2]) {
+            fence_regs(c);
+            const int* segk = reinterpret_cast<const int*>(smem + L::SEGK) + st * KT;
+            float mx[2];
+            if (flags & UNIFORM) {  // every key below S, one id: a row sees all or none
+                const int id = segk[0];
+                const bool vis[2] = {id == segq0, id == segq1};
+#pragma unroll
+                for (int i = 0; i < KT / 2; ++i)
+                    c[i] = vis[(i >> 1) & 1] ? c[i] * scale_log2 : MASK_VALUE;
+            } else {
+#pragma unroll
+                for (int nt = 0; nt < KT / 8; ++nt)
+#pragma unroll
+                    for (int e = 0; e < 2; ++e) {
+                        const int col = nt * 8 + 2 * t4 + e;
+                        const bool seen = n0 + col < S;
+                        const int sk = segk[col];
+                        float& c0 = c[4 * nt + e];
+                        float& c1 = c[4 * nt + 2 + e];
+                        c0 = (seen && sk == segq0) ? c0 * scale_log2 : MASK_VALUE;
+                        c1 = (seen && sk == segq1) ? c1 * scale_log2 : MASK_VALUE;
+                    }
+            }
+            // row maxima and sums in four partial chains each (c[i] belongs
+            // to row (i >> 1) & 1)
+            float part[2][4];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                for (int u = 0; u < 4; ++u) part[hh][u] = -INFINITY;
+#pragma unroll
+            for (int i = 0; i < KT / 2; ++i)
+                part[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(part[(i >> 1) & 1][(i >> 2) & 3], c[i]);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+                mx[hh] = fmaxf(fmaxf(part[hh][0], part[hh][1]), fmaxf(part[hh][2], part[hh][3]));
+            float sum[2];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+                mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+                mx[hh] = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 2));
+                const float mnew = fmaxf(mrow[hh], mx[hh]);  // finite: every s is
+                alpha[hh] = fast_exp2(mrow[hh] - mnew);      // 0 while m is still -inf
+                mrow[hh] = mnew;
+            }
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                for (int u = 0; u < 4; ++u) part[hh][u] = 0.f;
+#pragma unroll
+            for (int i = 0; i < KT / 2; ++i) {
+                c[i] = fast_exp2(c[i] - mrow[(i >> 1) & 1]);
+                part[(i >> 1) & 1][(i >> 2) & 3] += c[i];
+            }
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+                sum[hh] = (part[hh][0] + part[hh][1]) + (part[hh][2] + part[hh][3]);
+                sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 1);
+                sum[hh] += __shfl_xor_sync(0xffffffffu, sum[hh], 2);
+                lrow[hh] = lrow[hh] * alpha[hh] + sum[hh];
+            }
+        };
+        // rescale O, then split P: the register fragment of keys 8 kk .. takes
+        // (row g, key 2 t4), (g + 8, 2 t4), (g, 2 t4 + 1), (g + 8, 2 t4 + 1)
+        // as its (t4, t4, t4 + 4, t4 + 4) columns, the order V^T is stored in
+        auto rescale_split = [&](const float (&alpha)[2]) {
+            fence_regs(o);
+#pragma unroll
+            for (int nt = 0; nt < NT_O; ++nt) {
+                o[4 * nt + 0] *= alpha[0];
+                o[4 * nt + 1] *= alpha[0];
+                o[4 * nt + 2] *= alpha[1];
+                o[4 * nt + 3] *= alpha[1];
+            }
+#pragma unroll
+            for (int kk = 0; kk < KT / 8; ++kk) {
+                tf32_split(c[4 * kk + 0], phi[kk][0], plo[kk][0]);
+                tf32_split(c[4 * kk + 2], phi[kk][1], plo[kk][1]);
+                tf32_split(c[4 * kk + 1], phi[kk][2], plo[kk][2]);
+                tf32_split(c[4 * kk + 3], phi[kk][3], plo[kk][3]);
+            }
+        };
+
+        // Software pipeline over the item's tiles, as in the bf16 kernel:
+        // while the softmax of tile i runs on the CUDA cores, the tensor cores
+        // do P V of tile i - 1, and the two warpgroups take turns to issue.
+        int st, n0, flags;
+        float alpha[2];
+        next_tile(st, n0, flags);
+        take_turn(wg);
+        issue_qk(st);
+        pass_turn(wg);
+        wgmma_wait<0>();
+        softmax(st, n0, flags, alpha);
+        rescale_split(alpha);
+        while (!(flags & LAST)) {
+            const int prev = st;
+            next_tile(st, n0, flags);
+            take_turn(wg);
+            issue_qk(st);
+            issue_pv(prev);
+            pass_turn(wg);
+            wgmma_wait<1>();  // S of tile st; P V of prev may still run
+            softmax(st, n0, flags, alpha);
+            wgmma_wait<0>();
+            release(sbase + L::EMPTY + 8 * prev);
+            rescale_split(alpha);
+        }
+        take_turn(wg);
+        issue_pv(st);
+        const bool last_item = item + gridDim.x >= items;
+        if (!(last_item && wg == 1)) pass_turn(wg);  // the very last turn is not passed on
+        wgmma_wait<0>();
+        fence_regs(o);
+        release(sbase + L::EMPTY + 8 * st);
+
+        // Epilogue (the item's coordinates found again here, not kept in
+        // registers through the loop): a quad writes 32 bytes of each of its
+        // two rows per 8-column chunk, so a warp's store fills whole 32-byte
+        // sectors
+        const int bh = item / mtiles;
+        const int m0 = (item - bh * mtiles) * F32_BM;
+        const int b = bh / NH;
+        const int h = bh - b * NH;
+        const float inv[2] = {1.f / lrow[0], 1.f / lrow[1]};
+        float* ob = out + (size_t)b * os.b + (size_t)h * os.h;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int r = m0 + row0 + 8 * hh;
+            if (r >= S) continue;
+            // the row's log-sum-exp of the natural-domain logits, for the backward
+            if (lse != nullptr && t4 == 0) lse[(size_t)bh * S + r] = mrow[hh] * LN2 + logf(lrow[hh]);
+            float* orow = ob + (size_t)r * os.s + 2 * t4;
+#pragma unroll
+            for (int nt = 0; nt < NT_O; ++nt)
+                *reinterpret_cast<float2*>(orow + 8 * nt) =
+                    make_float2(o[4 * nt + 2 * hh] * inv[hh], o[4 * nt + 2 * hh + 1] * inv[hh]);
+        }
+        if constexpr (!QR) release(sbase + L::QEMPTY + 8 * slot);  // fenced in split_q
+    }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1252,14 +1538,15 @@ int launch_f32(const Problem& p) {
     int mtiles, items, blocks;
     bool hb_swap;
     static int resident[MAX_DEVICES];  // blocks the card holds at once; 0 = not set up
-    if (int e = plan(p, flash_f32_kernel<HD>, smem, C::BM, THREADS, 0, resident, mtiles, items,
-                     blocks))
+    constexpr int regs = 128 * C::PRODUCER_REGS + CONSUMERS * C::CONSUMER_REGS;
+    if (int e = plan(p, flash_f32_kernel<HD>, smem, F32_BM, C::THREADS, regs, resident, mtiles,
+                     items, blocks))
         return e;
     CUtensorMap tq, tk, tv;
-    if (int e = make_map(&tq, p.q, false, p, HD, C::BM, true, hb_swap)) return e;
-    if (int e = make_map(&tk, p.k, false, p, HD, BN, true, hb_swap)) return e;
-    if (int e = make_map(&tv, p.v, false, p, HD, BN, false, hb_swap)) return e;
-    flash_f32_kernel<HD><<<blocks, THREADS, smem, p.stream>>>(
+    if (int e = make_map(&tq, p.q, false, p, HD, F32_BM, true, hb_swap, C::SPAN)) return e;
+    if (int e = make_map(&tk, p.k, false, p, HD, C::KT, true, hb_swap, C::SPAN)) return e;
+    if (int e = make_map(&tv, p.v, false, p, HD, C::KT, true, hb_swap, C::SPAN)) return e;
+    flash_f32_kernel<HD><<<blocks, C::THREADS, smem, p.stream>>>(
         tq, tk, tv, hb_swap, p.seg, static_cast<float*>(p.out), p.lse, p.NH, p.S, p.os,
         p.sm_scale * LOG2E, mtiles, items);
     return static_cast<int>(cudaGetLastError());

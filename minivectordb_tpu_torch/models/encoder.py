@@ -18,8 +18,11 @@ way ``torch.nn.functional.linear`` wants them, (out, in): the JAX pytree's
 
 Numerics follow the JAX module: a dense layer accumulates in float32 and
 rounds once to the activations' type; layer norm, softmax and pooling compute
-in float32 whatever the parameters' type; GELU is the exact erf form; float32
-products are IEEE float32 (TF32 stays off, ops/scan.py). Attention takes one
+in float32 whatever the parameters' type; GELU is the exact erf form; the
+dense layers' float32 products are IEEE float32 (TF32 stays off, ops/scan.py),
+while the flash-attention kernel forms its float32 products on the tensor
+cores in 3xTF32 (three TF32 products each, within the same 2e-5 of IEEE
+float32; csrc/flash_attention.cu). Attention takes one
 of two routes, chosen as the JAX module chooses: sequences of 256 and more
 (a multiple of 128, head width >= 32) on a CUDA device go through the
 hand-written flash-attention kernel (ops/flash_attention.py, segment ids =

@@ -35,7 +35,11 @@ JAX module is functional:
   exp_avg_sq), updated in place by each step; checkpoints carry it in the
   JAX layout (models/checkpoint.py, convert.adamw_state_to_numpy).
 
-Float32 products are IEEE float32: TF32 stays off (ops/scan.py).
+Float32 products of the dense layers, and of the backward kernels K7 and K8,
+are IEEE float32: TF32 stays off (ops/scan.py). The attention forward (K6,
+with the row log-sum-exp the backward reads) forms its two products on the
+tensor cores in 3xTF32, three TF32 products each, within the same 2e-5 of
+IEEE float32 (csrc/flash_attention.cu).
 
 ``mesh=`` (a (dp, tp) mesh from ``parallel.mesh.train_mesh``) trains with
 data and tensor parallelism, as the JAX package's ``make_train_step(mesh=)``

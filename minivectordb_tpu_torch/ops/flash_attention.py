@@ -34,6 +34,14 @@ serves tensors that lie on the CPU, and only those. ``LAUNCHES`` counts kernel
 launches per C entry point. The kernel takes any S >= 1; which sequences the
 encoder sends here is the encoder's gate (models/encoder.py).
 
+Arithmetic. The float32 kernel forms Q K^T and P V on the tensor cores in
+3xTF32: each operand x is cut into TF32 words hi = tf32(x) and
+lo = tf32(x - hi), and a product a b is a_lo b_hi + a_hi b_lo + a_hi b_hi,
+summed in float32 (``tf32_round``, ``tf32_split``). Its plain version stays
+the IEEE float32 ``flash_attention_plain``, and both are held to the same
+2e-5; ``flash_attention_3xtf32_plain`` repeats the kernel's arithmetic in
+plain PyTorch, for the tests and chip_smoke.py.
+
 Training. When grad mode is on and an input requires grad, ``flash_attention``
 goes through ``FlashAttention`` (a ``torch.autograd.Function``), as JAX's
 kernel goes through its custom VJP. Its forward is K6 with the row statistic
@@ -166,10 +174,10 @@ def _plain_pieces(q, segment_ids):
         yield slice(lo, min(lo + rows, b))
 
 
-def _plain_logits(q, k, segment_ids, sm_scale: float):
+def _plain_logits(q, k, segment_ids, sm_scale: float, matmul=torch.matmul):
     """float32 logits of one piece with ``MASK_VALUE`` where the segments
     differ."""
-    logits = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
+    logits = matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
     logits = logits * sm_scale
     same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
     return torch.where(same, logits, MASK_VALUE)
@@ -203,6 +211,72 @@ def _plain_forward(q, k, v, segment_ids, sm_scale: float, with_lse: bool):
             lse[sl] = torch.logsumexp(logits, dim=-1)
         probs = torch.softmax(logits, dim=-1)
         out[sl] = torch.matmul(probs, v[sl].to(torch.float32)).to(q.dtype)
+    return out, lse
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded to the nearest TF32 value (10 stored significand
+    bits, float32's exponent), ties away from zero: what ``cvt.rna.tf32.f32``
+    gives the float32 kernel, computed on the float32 bits (half a TF32 step
+    added to the magnitude, the 13 low bits cleared). Subnormals round on the
+    same grid, signed zeros keep their sign, inf stays inf, NaN stays NaN, and
+    a value past the largest TF32 value's half step rounds to inf."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_round takes float32, not {x.dtype}")
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    rounded = (bits - ((bits >> 31) << 32)).to(torch.int32).view(torch.float32)
+    return torch.where(torch.isnan(x), x, rounded.view(x.shape))
+
+
+def tf32_split(x):
+    """(hi, lo) with hi = tf32_round(x) and lo = tf32_round(x - hi): the two
+    TF32 operands a 3xTF32 product takes for float32 ``x`` (x - hi is exact in
+    float32; hi + lo keeps about 21 of x's 24 significand bits)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _matmul_3xtf32(a, b):
+    """a @ b as the float32 kernel forms it on the tensor cores: three
+    products of TF32 operands, a_lo b_hi + a_hi b_lo + a_hi b_hi, summed in
+    float32 in that order, the small terms first (each product of two TF32
+    values is exact in float32; the dropped a_lo b_lo is below 2^-22 of
+    |a| |b|)."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
+
+
+def flash_attention_3xtf32_plain(q, k, v, segment_ids, sm_scale: float):
+    """K6-f32's arithmetic in plain PyTorch, for tests and chip_smoke.py
+    only (the kernel's plain version stays ``flash_attention_plain``, in IEEE
+    float32): the logits Q K^T and the output P V each from three TF32
+    products (``_matmul_3xtf32``), P = exp(s - max) before the division by
+    its row sum, softmax and sums in float32. float32 inputs only."""
+    return _plain_3xtf32(q, k, v, segment_ids, sm_scale)[0]
+
+
+def flash_attention_lse_3xtf32_plain(q, k, v, segment_ids, sm_scale: float):
+    """``flash_attention_3xtf32_plain``'s result and the rows' log-sum-exp,
+    max + log(sum), (B, nh, S) float32: K6-f32 with its row statistic."""
+    return _plain_3xtf32(q, k, v, segment_ids, sm_scale)
+
+
+def _plain_3xtf32(q, k, v, segment_ids, sm_scale: float):
+    _check(q, k, v, segment_ids)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the 3xTF32 form is float32's, not {q.dtype}'s")
+    scan_ops._assert_ieee_f32(q)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    for sl in _plain_pieces(q, segment_ids):
+        logits = _plain_logits(q[sl], k[sl], segment_ids[sl], sm_scale, _matmul_3xtf32)
+        m = logits.amax(dim=-1, keepdim=True)
+        p = torch.exp(logits - m)
+        rowsum = p.sum(dim=-1, keepdim=True)
+        out[sl] = _matmul_3xtf32(p, v[sl]) / rowsum
+        lse[sl] = (m + torch.log(rowsum))[..., 0]
     return out, lse
 
 
@@ -261,11 +335,11 @@ def flash_attention_bwd_plain(q, k, v, segment_ids, out, dout, lse, sm_scale: fl
 
 def tile_shape(dtype, hd: int) -> tuple[int, int]:
     """(query rows, keys) of one tile of the kernel that serves (dtype, hd):
-    bfloat16 128 x 128; float32 128 x 64, or 64 x 64 at hd = 128
-    (csrc/flash_attention.cu: BF_BM, BF_KT; F32Cfg::BM, BN)."""
+    bfloat16 128 x 128; float32 128 x 64 up to hd = 64, 128 x 32 above
+    (csrc/flash_attention.cu: BF_BM, BF_KT; F32_BM, F32Cfg::KT)."""
     if dtype == torch.bfloat16:
         return 128, 128
-    return (64 if hd == 128 else 128), 64
+    return 128, (64 if hd <= 64 else 32)
 
 
 def bwd_tile_shapes(dtype, hd: int) -> dict:

@@ -190,10 +190,16 @@ def test_tile_shape_matches_the_kernels():
     with open(os.path.join(build.CSRC_DIR, "flash_attention.cu"), encoding="utf-8") as f:
         src = f.read()
     consts = {name: int(re.search(rf"(?:constexpr int|#define) {name}\b\D*(\d+)", src).group(1))
-              for name in ("BN", "BF_BM", "BF_KT")}
+              for name in ("F32_BM", "BF_BM", "BF_KT")}
     assert fa.tile_shape(torch.bfloat16, 64) == (consts["BF_BM"], consts["BF_KT"]) == (128, 128)
-    assert fa.tile_shape(torch.float32, 64) == (128, consts["BN"]) == (128, 64)
-    assert fa.tile_shape(torch.float32, 128) == (64, 64)
+    # float32: 128 query rows at every width (two consumer warpgroups of 64),
+    # 64 keys a tile up to hd = 64 and 32 above (F32Cfg::KT)
+    kt = re.search(r"static constexpr int KT = HD <= (\d+) \? (\d+) : (\d+);", src)
+    assert kt is not None and tuple(int(x) for x in kt.groups()) == (64, 64, 32)
+    assert fa.tile_shape(torch.float32, 64) == (consts["F32_BM"], 64) == (128, 64)
+    assert fa.tile_shape(torch.float32, 128) == (128, 32)
+    for hd in fa.HEAD_DIMS:
+        assert fa.tile_shape(torch.float32, hd) == (128, 64 if hd <= 64 else 32)
     # bfloat16 keeps its 128 x 128 tile at every width: above hd = 64 the
     # register split, not a narrower key tile, makes room for o, S and P
     for hd in fa.HEAD_DIMS:
@@ -302,6 +308,67 @@ def test_kernel_has_a_source_counts_launches_and_builds_nothing_at_import():
     for hd in fa.HEAD_DIMS:
         span = 128 if hd % 64 == 0 else 64 if hd % 32 == 0 else 32
         assert hd % (span // 2) == 0 and 128 * hd * 2 % 1024 == 0
+
+
+def test_f32_kernel_register_split_and_slab_span():
+    """float32 runs 3xTF32 on wgmma in the bfloat16 kernel's skeleton: a
+    producer warpgroup whose registers go to the two consumer warpgroups (the
+    split must fit the 384 x 168 registers the block is charged, or the
+    consumers would wait forever), three of its warps helping (K and V into
+    TF32 hi / lo words, V transposed), and tiles landing as slabs in the
+    widest TMA swizzle that divides a row's 4 * hd bytes. Every width's
+    query slot, two stages and the ids fit a block's shared memory."""
+    import os
+    import re
+
+    from minivectordb_tpu_torch.kernels import build
+
+    with open(os.path.join(build.CSRC_DIR, "flash_attention.cu"), encoding="utf-8") as f:
+        src = f.read()
+    f32 = src[src.index("struct F32Cfg {"):]
+    f32 = f32[:f32.index("};")]
+    # one split up to hd = 64 and one above (o and Q's lo grow with hd)
+    prod = re.search(r"PRODUCER_REGS = HD > 64 \? (\d+) : (\d+);", f32)
+    cons = re.search(r"CONSUMER_REGS = HD > 64 \? (\d+) : (\d+);", f32)
+    assert prod and cons
+    for producer, consumer in zip(map(int, prod.groups()), map(int, cons.groups())):
+        assert all(r % 8 == 0 and 24 <= r <= 256 for r in (producer, consumer))
+        assert 128 * producer + 256 * consumer <= 384 * (65536 // 384 // 8 * 8) == 384 * 168
+    assert "static constexpr int THREADS = CONSUMERS + 128;" in f32
+    assert "static constexpr int HELPERS = 96;" in f32  # the producer warpgroup's other warps
+    assert "__launch_bounds__(F32Cfg<HD>::THREADS, 1)" in src
+    assert "flash_f32_kernel<HD><<<blocks, C::THREADS, smem, p.stream>>>" in src
+    assert "constexpr int regs = 128 * C::PRODUCER_REGS + CONSUMERS * C::CONSUMER_REGS;" in src
+    for ptx in ("wgmma.mma_async.sync.aligned.m64n\" #N \"k8.f32.tf32.tf32", "cvt.rna.tf32.f32",
+                "fence.proxy.async.shared::cta"):
+        assert ptx in src
+    assert "static constexpr int SPAN = HD % 32 == 0 ? 128 : 64;" in f32
+    for hd in fa.HEAD_DIMS:
+        span = 128 if hd % 32 == 0 else 64
+        widest = max(w for w in (32, 64, 128) if 4 * hd % w == 0)
+        assert span == widest
+    # shared memory: a query slot of 128 x hd words, and per stage four tiles
+    # of KT x hd words (K, K lo where V lands first, V^T hi, V^T lo), the
+    # ids, the barriers and their scratch; as many stages as fit with one
+    # slot, at most four, then a second slot if it fits (csrc's Layout)
+    assert ("static constexpr int ST = L<1, 4>::BYTES <= SMEM_LIMIT ? 4 : "
+            "L<1, 3>::BYTES <= SMEM_LIMIT ? 3 : 2;") in f32
+    assert "static constexpr int NQ = L<2, ST>::BYTES <= SMEM_LIMIT ? 2 : 1;" in f32
+    assert "using L = Layout<QB, NQ_, ST_, 2 * TB, 2 * TB, 64, F32_BM, KT>;" in f32
+
+    def layout_bytes(hd, nq, st):
+        kt = fa.tile_shape(torch.float32, hd)[1]
+        ids = 64 + nq * 128 * 4 + st * kt * 4  # ready barriers' scratch, query and key ids
+        return nq * 128 * hd * 4 + st * 4 * kt * hd * 4 + ids + 3 * st * 8 + nq * 8
+
+    for hd in fa.HEAD_DIMS:
+        kt = fa.tile_shape(torch.float32, hd)[1]
+        assert 128 * hd * 4 % 1024 == 0 and kt * hd * 4 % 1024 == 0 and hd * 128 % 1024 == 0
+        st = next(n for n in (4, 3, 2) if layout_bytes(hd, 1, n) <= 232448)
+        nq = 2 if layout_bytes(hd, 2, st) <= 232448 else 1
+        assert layout_bytes(hd, nq, st) <= 232448
+        # three stages or more where Q stays in registers (hd <= 64), two above
+        assert st >= (3 if hd <= 64 else 2), hd
 
 
 @pytest.mark.parametrize("hd", [48, 64, 128])

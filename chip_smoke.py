@@ -13,7 +13,8 @@ Phases (one JSON object per output line):
              ptxas spilled in K6-bf16 at hd = 128 or ignored its setmaxnreg,
              or spilled in K6-f32 at any width, or reported a K6-f32 wgmma
              pipeline serialized or a setmaxnreg ignored (C7508 / C7512 /
-             C7515)
+             C7515); the same for K1-f32's 3xTF32 kernel
+             (phase1_tf32_kernel) in each of its three instantiations
   main_path  VectorDatabase(device_dtype="float32") with 1,000,000 x 384
              seeded vectors: batch, filtered, single, async and
              after-delete searches, held against an oracle computed here
@@ -173,11 +174,16 @@ Phases (one JSON object per output line):
              (float32, bfloat16, int8; with and without a mask) at
              C = 1,048,576, d = 384, B = 256, count = 1,000,000, after a
              ragged case (d = 24: int8 takes the narrow-row kernel, which the
-             library's phase1_route reports and its own counter shows) and
-             the bf16 / int8 Hopper kernel's tiling edges at C = 65,536
-             (TILING_CASES, emitted on a line of their own; at every case
-             each subtile past `count` must be the sentinel); the narrow-row
-             kernel must not have run on the flat paths or the 1M-row case;
+             library's phase1_route reports and its own counter shows; so
+             does float32 at d = 25, on the CUDA-core kernel) and
+             the float32 / bf16 / int8 Hopper kernels' tiling edges at
+             C = 65,536 (TILING_CASES, emitted on a line of their own; at
+             every case each subtile past `count` must be the sentinel); the
+             narrow-row kernels must not have run on the flat paths or the
+             1M-row case; the K1-f32 rows also give the kernel's, the IEEE
+             plain version's and the 3xTF32 emulation's distance to float64
+             subtile maxima, the kernel's distance to both plain forms, and
+             its registers and spills;
              and the IVF
              probe kernels (K3 f32/bf16, K4 f32/bf16, K5) at the shapes the
              1,000,000-row IVF path produced (its lists, its step table for
@@ -226,8 +232,9 @@ Phases (one JSON object per output line):
 The last line is {"ok": true, "device": {...}}.
 
 Tolerances. Kernel against plain version, scores of magnitude <= 1: float32
-and bfloat16-input 2e-5 (another summation order over 384 float32 terms;
-bf16 products are exact in float32), int8 exactly 0 (integer dots, the same
+and bfloat16-input 2e-5 (another summation order over 384 float32 terms; the
+float32 kernel's 3xTF32 products keep each word to 2^-20 of itself, at most
+3 * 2^-20 = 2.9e-6 of a cosine; bf16 products are exact in float32), int8 exactly 0 (integer dots, the same
 two float32 multiplies in the same order); masked and past-count subtiles
 must equal -3.0e38 exactly. Database against oracle: ids equal, scores 2e-5.
 K6 against its plain version, inputs standard normal, at every position, pads
@@ -296,6 +303,10 @@ peak, and bound_ms_ieee beside it the operations at the float32 peak. Its rows
 also give max_abs_err_vs_float64 of the kernel, of the IEEE plain version and
 of SDPA against a float64 attention of the same inputs, and the kernel's
 distance to flash_attention_3xtf32_plain (its arithmetic in plain PyTorch).
+K1-f32 and K1-f32-mask run 3xTF32 too (the words as they lie are their TF32
+hi, truncated): the same two bounds, and max_abs_err_vs_float64 of the
+kernel, the IEEE plain version and subtile_maxima_3xtf32_plain over the first
+65,536 rows.
 Only the `count` live
 rows need reading or multiplying, so both terms count those rows, not the
 padded capacity; every output value is written. For the grouped probe the
@@ -445,20 +456,38 @@ def kernel_resources() -> dict:
     return resources
 
 
+def ptxas_numbers(text: str) -> dict:
+    """Registers a thread and spilled bytes in one of kernel_resources()'s
+    texts."""
+    nums = {}
+    for key, pattern in (("registers", r"Used (\d+) registers"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads")):
+        m = re.search(pattern, text)
+        assert m, text
+        nums[key] = int(m.group(1))
+    return nums
+
+
 def ptxas_of(kernel: str, hd: int) -> dict:
     """Registers a thread and spilled bytes of template kernel ``kernel`` at
     head width ``hd`` (its mangled name holds "<kernel>ILi<hd>E")."""
     want = f"{kernel}ILi{hd}E"
     found = [text for mangled, text in kernel_resources().items() if want in mangled]
     assert len(found) == 1, (want, found)
-    nums = {}
-    for key, pattern in (("registers", r"Used (\d+) registers"),
-                         ("spill_store_bytes", r"(\d+) bytes spill stores"),
-                         ("spill_load_bytes", r"(\d+) bytes spill loads")):
-        m = re.search(pattern, found[0])
-        assert m, (want, found[0])
-        nums[key] = int(m.group(1))
-    return nums
+    return ptxas_numbers(found[0])
+
+
+def k1_f32_ptxas() -> dict:
+    """{"<WG>x<MT>": registers and spills} of each instantiation of K1-f32's
+    3xTF32 kernel, phase1_tf32_kernel<WG consumer warpgroups, MT m-tiles>
+    (2x2 serves B > 128, 2x1 B <= 128, 1x1 B <= 64)."""
+    out = {}
+    for mangled, text in kernel_resources().items():
+        m = re.search(r"phase1_tf32_kernelILi(\d+)ELi(\d+)E", mangled)
+        if m:
+            out[f"{m.group(1)}x{m.group(2)}"] = ptxas_numbers(text)
+    return out
 
 
 def phase_env() -> str:
@@ -494,6 +523,17 @@ def phase_env() -> str:
                 if any(code in line for code in ("C7508", "C7512", "C7515"))
                 and ("flash_f32_kernel" in line or "'" not in line)]
     assert not pipeline, ("ptxas serialized K6-f32's wgmma or ignored its setmaxnreg", pipeline)
+    # K1-f32 (3xTF32 on wgmma, the producer warpgroup's registers handed to
+    # the consumers) spills nothing in any instantiation, and ptxas neither
+    # serialized its wgmma pipeline nor ignored its setmaxnreg
+    k1_f32 = k1_f32_ptxas()
+    assert set(k1_f32) == {"1x1", "2x1", "2x2"}, k1_f32
+    spilled = {k: r for k, r in k1_f32.items() if r["spill_store_bytes"] or r["spill_load_bytes"]}
+    assert not spilled, ("K1-f32 spills", spilled)
+    pipeline = [line for line in build.build_info["phase1"]["log"].splitlines()
+                if any(code in line for code in ("C7508", "C7512", "C7515"))
+                and ("phase1_tf32_kernel" in line or "'" not in line)]
+    assert not pipeline, ("ptxas serialized K1-f32's wgmma or ignored its setmaxnreg", pipeline)
     emit({
         "phase": "env",
         "nvidia_smi": smi,
@@ -507,6 +547,7 @@ def phase_env() -> str:
         "kernel_resources": resources,
         "k6_bf16_hd128_ptxas": k6_hd128,
         "k6_f32_ptxas": k6_f32,
+        "k1_f32_ptxas": k1_f32,
     })
     print(smi, flush=True)
     return smi
@@ -749,12 +790,59 @@ def compare(kind, ops, count, mask, what):
     return err, int(dead.sum()), float(got[live].mean())
 
 
-# The Hopper kernel's edges (csrc/phase1.cu, phase1_wgmma_kernel), each held
-# against the plain version for bf16 and int8, with and without a mask, at a
-# small C: B below one warpgroup's 64, not a multiple of 64, and eight query
-# blocks (bf16) / four (int8); wide rows (queries per block shrink, 128-row
-# tiles; bf16 at 1,536 streams its queries); C not a multiple of the tile;
-# `count` inside the last live tile in every case.
+def k1_f32_accuracy(ops, count, mask, rows: int = 65_536) -> dict:
+    """K1-f32's subtile maxima beside the IEEE plain version's, each against
+    float64 dots of the same inputs over the first ``rows`` rows (every
+    query; the same float32 1/norm), and the kernel's distance, over the
+    whole output, to the IEEE plain version and to its own arithmetic in
+    plain PyTorch (fused_scan.subtile_maxima_3xtf32_plain); and, over a
+    copy of those rows whose first B are the queries themselves, the
+    kernel's distance to the IEEE plain version on their subtiles."""
+    buf, inv, q, _ = ops
+    got = run_kernel("f32", ops, count, mask)
+    plain = run_plain("f32", ops, count, mask)
+    emulated = fused_scan.subtile_maxima_3xtf32_plain(buf, inv, q, count, mask)
+    torch.cuda.synchronize()
+    live = plain != MASKED
+    s64 = (q.double() @ buf[:rows].double().T) * inv[:rows].double()[None, :]
+    valid = torch.arange(rows, device=DEV) < count
+    if mask is not None:
+        valid = valid & mask[:rows]
+    want = s64.masked_fill(~valid[None, :], MASKED).reshape(q.shape[0], -1, 32).amax(dim=-1)
+    near = want != MASKED
+    sub = rows // 32
+
+    def dist(a):
+        return float((a[:, :sub][near].double() - want[near]).abs().max())
+
+    res = {"max_abs_err_vs_float64": {"kernel": dist(got), "plain": dist(plain),
+                                      "3xtf32_plain": dist(emulated)},
+           "max_abs_err_vs_3xtf32_plain": float((got[live] - emulated[live]).abs().max()),
+           "max_abs_err_vs_ieee_plain": float((got[live] - plain[live]).abs().max())}
+    del got, plain, emulated, s64, want
+    # rows equal to the queries (cosine 1; each row keeps its norm): the
+    # largest dots, where the tensor cores' accumulation errs the most
+    own = buf[:rows].clone()
+    own[:q.shape[0]] = q * own[:q.shape[0]].norm(dim=1, keepdim=True)
+    own_ops = (own, scan_ops.row_inv_norms(own), q, None)
+    sub_own = -(-q.shape[0] // 32)
+    got = run_kernel("f32", own_ops, rows, None)[:, :sub_own]
+    plain = run_plain("f32", own_ops, rows, None)[:, :sub_own]
+    res["self_match_max_abs_err_vs_ieee_plain"] = float((got - plain).abs().max())
+    assert res["self_match_max_abs_err_vs_ieee_plain"] <= TOL["f32"], res
+    del own, own_ops, got, plain
+    torch.cuda.empty_cache()
+    return res
+
+
+# The Hopper kernels' edges (csrc/phase1.cu, phase1_wgmma_kernel for bf16 and
+# int8, phase1_tf32_kernel for float32), each held against the plain version,
+# with and without a mask, at a small C: B below one warpgroup's 64 (float32:
+# one warpgroup of one m-tile), not a multiple of 64 (float32: two warpgroups
+# of two m-tiles, 56 queries past B), and eight query blocks (bf16) / four
+# (int8, float32); wide rows (queries per block shrink, 128-row tiles; bf16 at
+# 1,536 streams its queries; float32 streams its queries at every width); C
+# not a multiple of the tile; `count` inside the last live tile in every case.
 TILING_CASES = [  # (C, d, B, count)
     (65_536, D, 16, 65_536 - 100),
     (65_536, D, 200, 60_000 + 17),
@@ -770,7 +858,7 @@ def tiling_cases() -> list:
     out = []
     for c, d, b, count in TILING_CASES:
         mask, cases = phase1_operands(c, d, b, SEED + 4 + d + b)
-        for kind in ("bf16", "i8"):
+        for kind in ("f32", "bf16", "i8"):
             for m in (None, mask):
                 what = f"tiling {kind} C={c} d={d} B={b} count={count}" + (
                     " mask" if m is not None else "")
@@ -797,6 +885,16 @@ def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
     narrow = dict(fused_scan.NARROW_LAUNCHES)
     assert narrow["phase1_i8"] > 0 and narrow["phase1_i8_mask"] > 0, narrow
     assert narrow["phase1_bf16"] == 0 and narrow["phase1_bf16_mask"] == 0, narrow
+    assert narrow["phase1_f32"] == 0 and narrow["phase1_f32_mask"] == 0, narrow
+    # float32 rows TMA cannot describe (d = 25, 100 bytes) take the CUDA-core
+    # kernel, which phase1_route reports and NARROW_LAUNCHES counts
+    mask_n, cases_n = phase1_operands(4096, 25, 8, SEED + 5)
+    for m in (None, mask_n):
+        err, _, _ = compare("f32", cases_n["f32"], 4000, m, "ragged f32 d=25")
+        ragged["f32_narrow" + ("_mask" if m is not None else "")] = err
+    del cases_n, mask_n
+    narrow = dict(fused_scan.NARROW_LAUNCHES)
+    assert narrow["phase1_f32"] == 1 and narrow["phase1_f32_mask"] == 1, narrow
     tiling = tiling_cases()
     assert fused_scan.NARROW_LAUNCHES == narrow, "a wide row reached the narrow kernel"
     emit({"phase": "phase1_tiling", "cases": tiling, "narrow_launches_ragged": narrow})
@@ -829,6 +927,13 @@ def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
                        + b * (c // 32) * 4)
             t_bytes = n_bytes / PEAK_BYTES_S * 1e3
             t_ops = 2 * b * count * D / PEAK_OPS_S[kind] * 1e3
+            extra = {}
+            if kind == "f32":  # 3xTF32: three TF32 products a product, at the TF32 peak
+                extra = {"bound_ms_ieee": max(t_bytes, t_ops),
+                         **k1_f32_accuracy(ops, count, m),
+                         "ptxas_2x2": k1_f32_ptxas()["2x2"],
+                         "ragged_narrow_max_abs_err": ragged["f32_narrow" + suffix]}
+                t_ops = 3 * 2 * b * count * D / PEAK_TF32_S * 1e3
             kernels.append({
                 "name": what,
                 "route": "cuda",
@@ -841,6 +946,7 @@ def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
                 "plain_ms": statistics.median([plain_a, plain_b]),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                **extra,
                 "library_ms": lib,
                 "shape": {"C": c, "d": D, "B": b, "count": count},
                 "masked_subtiles": n_dead,

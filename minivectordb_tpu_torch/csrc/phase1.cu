@@ -19,16 +19,62 @@
 // host sync is needed; any B >= 1 and any C that is a multiple of 32.
 //
 // What bounds it on an H100: the product is 2*B*C*d operations over C*d
-// elements read once. float32 is bound by arithmetic at B = 256: its
-// multiply-adds must be IEEE float32 FMAs on the CUDA cores (no TF32), about
-// 3 ms of them at the card's peak against 0.5 ms of memory traffic. bf16 and
+// elements read once. float32 is bound by arithmetic at B = 256: as IEEE
+// FMAs on the CUDA cores (67 TFLOP/s) about 2.9 ms of them at 1M x 384, as
+// three TF32 products on the tensor cores (3xTF32, 495 TFLOP/s) 1.2 ms,
+// against 0.5 ms of memory traffic. bf16 and
 // int8 sit on the ridge: at B = 256 a corpus byte feeds 256 bf16 operations
 // (the card does 295 per byte of memory bandwidth) or 512 int8 ones (590),
 // 0.24 / 0.12 ms of memory and 0.20 / 0.10 ms of tensor-core work. Only
 // wgmma reaches the tensor cores' rate, the corpus should cross from device
 // memory once, and the products must overlap the stream of corpus bytes.
 //
-// float32 (phase1_f32_kernel): a block owns 128 rows x 128 queries and walks
+// float32 rows TMA can describe (d a multiple of 4; phase1_tf32_kernel):
+// 3xTF32 on wgmma. wgmma reads a float32 word as TF32 and ignores its 13 low
+// significand bits, so a word as it lies is its own hi = trunc(x) (rounded
+// toward zero), lo = x - hi is exact in float32 and is read truncated in its
+// turn, and a product a b is a_lo b_hi + a_hi b_lo + a_hi b_hi summed in
+// float32, the small terms first within each k-slab (a_lo b_lo, below 2^-20
+// |a| |b|, is dropped). Truncating instead of rounding hi (cvt.rna, as K6-f32
+// does) costs about one bit (each word kept to 2^-20 of itself rather than
+// 2^-21) and saves rewriting every landed word: nothing but the corpus's lo
+// is ever written to shared memory. A subtile maximum lands about 1e-6 from
+// the IEEE one on random rows and up to 1e-5 where a row equals its query
+// (the tensor cores' float32 accumulation, not the split: it does not round
+// to nearest, on a sum of about |row|), inside the 2e-5 the kernel is held to;
+// phase 3 rescores the winners in IEEE float32, so the returned scores stay
+// IEEE.
+// fused_scan.subtile_maxima_3xtf32_plain repeats this arithmetic.
+//   - The skeleton is the bf16 kernel's below (persistent warp-specialised
+//     blocks, a TMA ring of 128-byte k-slabs, 32 floats = four k8 steps, in
+//     the 128-byte swizzle; mbarriers; the inv side ring; the epilogue), with
+//     queries as A (M = 64 a warpgroup's m-tile) and corpus rows as B (N =
+//     128 rows a tile), both K-major as TF32 wgmma requires.
+//   - Shared memory decides the shape. A query's hi and lo words take 3 KB
+//     at d = 384, so not even 64 queries' stay resident beside a ring: each
+//     stage carries the block's query slab beside the corpus slab, and all of
+//     B = 256 sit in one block (two consumer warpgroups of two m-tiles each,
+//     128 accumulators a thread), so each corpus tile leaves device memory and
+//     L2 once and is split once. A stage is the corpus slab (16 KB, its hi),
+//     its lo (16 KB) and the query slab (up to 32 KB): three stages at B =
+//     256. L2 reads a launch at 1M x 384, B = 256: the corpus once (1.5 GB)
+//     and the queries once per tile (7,813 x 393 KB = 3.1 GB), 4.6 GB (the
+//     CUDA-core kernel read the corpus once per 128-query block, 3.1 GB).
+//   - The corpus's lo words are made by three helper warps of the producer
+//     warpgroup into the stage (a "ready" mbarrier a stage), at the same
+//     swizzled offsets as the landed words. The queries' lo words never touch
+//     shared memory: each consumer thread reads its A fragments of the slab
+//     (16 words an m-tile), forms lo in registers and issues lo b_hi with A
+//     from registers; a_hi b_lo and a_hi b_hi read A from the slab itself.
+//   - Registers: 128 accumulators and 32 lo words a consumer thread. The
+//     producer warpgroup hands registers to the consumers with setmaxnreg
+//     (56 / 224 of the 168 a thread that 384 threads leave: 128 * 56 +
+//     256 * 224 = 384 * 168), so nothing spills.
+//   - Shapes: B <= 64 takes one consumer warpgroup of one m-tile (256
+//     threads, no register trade), B <= 128 two of one, more two of two;
+//     beyond 256 queries consecutive blocks take the query blocks of a tile.
+// float32 rows TMA cannot describe (d not a multiple of 4; phase1_f32_kernel):
+// IEEE FMAs on the CUDA cores. A block owns 128 rows x 128 queries and walks
 // d in chunks of 16 words through shared memory, stored k-major; a thread
 // keeps an 8 x 8 register tile, so every word it reads from shared memory
 // feeds 8 FMAs; the next chunk is loaded into registers during this one's
@@ -36,6 +82,7 @@
 // max never leaves the warp; a block walks up to 8 row tiles and stages its
 // maxima, so each query's output leaves as one 128-byte run; row tiles that
 // start at or past `count` are skipped; two 256-thread blocks fit on an SM.
+// The route is chosen by row width alone (phase1_route), as for bf16 / int8.
 //
 // bf16 / int8 whose rows TMA can describe (d * itemsize a multiple of 16
 // bytes; phase1_wgmma_kernel): persistent, warp-specialised blocks, one per
@@ -682,6 +729,28 @@ __device__ __forceinline__ void wgmma<256>(I8, int (&d)[128], uint64_t da, uint6
         : WG_ACC128("+r")
         : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)));
 }
+// d (64 x 128, float32) [+]= A (64 x 8) * B (8 x 128), each float32 word read
+// as TF32 (its 13 low significand bits ignored); B K-major in shared memory,
+// A K-major in shared memory (tf32_ss) or wgmma's register fragment (tf32_rs)
+__device__ __forceinline__ void tf32_ss(float (&d)[64], uint64_t da, uint64_t db,
+                                        bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_REGS64
+        ", %64, %65, p, 1, 1;\n}\n"
+        : WG_ACC64("+f")
+        : "l"(da), "l"(db), "r"(static_cast<int>(accumulate)));
+}
+__device__ __forceinline__ void tf32_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db,
+                                        bool accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WG_REGS64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : WG_ACC64("+f")
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(static_cast<int>(accumulate)));
+}
 #undef WG_ACC64
 #undef WG_REGS64
 #undef WG_ACC128
@@ -902,6 +971,295 @@ phase1_wgmma_kernel(const __grid_constant__ CUtensorMap tbuf,  // corpus (C, d)
 }
 
 // ---------------------------------------------------------------------------
+// float32 rows TMA can describe: 3xTF32 on wgmma fed by a TMA ring
+// ---------------------------------------------------------------------------
+
+constexpr int TF_TN = 128;      // corpus rows a tile (wgmma's N)
+constexpr int TF_HELPERS = 96;  // the producer warpgroup's other warps: the corpus's lo words
+// barriers: full, empty and ready a stage; ifull and iempty an info slot
+constexpr int TF_BAR_BYTES = (3 * MAX_STAGES + 2 * NINFO) * 8;
+
+// WG consumer warpgroups of MT m-tiles (64 queries) each, and a producer
+// warpgroup: one warp loads, the other three (helpers) write the corpus's lo
+// words. With two consumer warpgroups the producer warpgroup hands registers
+// to them (setmaxnreg); the split must fit the 168 registers a thread that
+// __launch_bounds__(384, 1) leaves, or the consumers would wait forever. One
+// warpgroup (256 threads) has 255 a thread and trades none.
+template <int WG, int MT>
+struct Tf32Cfg {
+    static constexpr int CONSUMERS = WG * 128;
+    static constexpr int THREADS = CONSUMERS + 128;
+    static constexpr int QB = WG * MT * 64;  // queries of a block
+    static constexpr bool TRADE = WG > 1;
+    static constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;
+    static constexpr int REGS = TRADE ? 128 * PRODUCER_REGS + CONSUMERS * CONSUMER_REGS : 0;
+    static_assert(REGS <= THREADS * (65536 / THREADS / 8 * 8),
+                  "the register split exceeds what the block holds");
+};
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// x less x read as TF32 (its 13 low significand bits cleared): exact in float32
+__device__ __forceinline__ float tf32_rest(float x) {
+    return x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u);
+}
+
+template <int WG, int MT>
+__global__ void __launch_bounds__(Tf32Cfg<WG, MT>::THREADS, 1)
+phase1_tf32_kernel(const __grid_constant__ CUtensorMap tbuf,  // corpus (C, d) float32
+                   const __grid_constant__ CUtensorMap tq,    // queries (B, d) float32
+                   const float* __restrict__ inv,             // (C,), 16-byte aligned
+                   const uint8_t* __restrict__ mask,          // (C,) bool or null
+                   float* __restrict__ out,                   // (B, C/32)
+                   const Plan p)
+{
+    using Cfg = Tf32Cfg<WG, MT>;
+    constexpr int CONSUMERS = Cfg::CONSUMERS, QB = Cfg::QB, TN = TF_TN;
+    constexpr int SLAB_BYTES = TN * SLAB;  // a corpus slab, as landed (hi) or its lo: 16 KB
+    constexpr int EPS = SLAB / 4;          // floats a slab row
+    constexpr int INFO_BYTES = TN * 4;     // one tile's inv
+    constexpr int SUBS = TN / SUBTILE;     // subtiles of a tile
+    static_assert(SUBS == 4, "the epilogue's quad reduction takes four subtiles a tile");
+    extern __shared__ __align__(1024) unsigned char shm[];
+    const uint32_t sbase = smem_u32(shm);
+    if (sbase % 1024 != 0) __trap();
+    const uint32_t ring = sbase + p.ring;
+    const uint32_t bars = sbase + p.bars;
+    // a stage: the corpus slab (hi), its lo, the block's query slab
+    const uint32_t full = bars, empty = bars + 8 * MAX_STAGES, ready = bars + 16 * MAX_STAGES;
+    const uint32_t ifull = bars + 24 * MAX_STAGES, iempty = ifull + 8 * NINFO;
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31;
+    const int j0 = blockIdx.x / p.qblocks;         // the block's first tile
+    const int q0 = (blockIdx.x % p.qblocks) * QB;  // and first query
+
+    if (tid == 0) {
+        for (int s = 0; s < p.stages; ++s) {
+            mbar_init(full + 8 * s, 1);                      // the producer's expect_tx
+            mbar_init(empty + 8 * s, CONSUMERS / 32);        // every consumer warp
+            mbar_init(ready + 8 * s, TF_HELPERS / 32);       // every helper warp
+        }
+        for (int i = 0; i < NINFO; ++i) {
+            mbar_init(ifull + 8 * i, 32);                    // the producer lanes' stores
+            mbar_init(iempty + 8 * i, CONSUMERS / 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+
+    // One branch a role, never joined again: ptxas then knows each side's
+    // register count from its setmaxnreg.
+    if (tid >= CONSUMERS) {
+        if constexpr (Cfg::TRADE) setmaxnreg_dec<Cfg::PRODUCER_REGS>();
+        if (tid < CONSUMERS + 32) {
+            // ------------------------------ the loading warp
+            const int lim = min(p.count, p.C);
+            // inv and mask bytes of rows 4 lane .. + 3 of the next tile,
+            // loaded a tile ahead
+            float4 nv;
+            uint32_t nm;
+            auto fetch = [&](int t) {
+                const int r = t * TN + 4 * lane;
+                nv = make_float4(0.f, 0.f, 0.f, 0.f);
+                nm = 0;
+                if (t < p.live_tiles && r < p.C) {
+                    nv = __ldg(reinterpret_cast<const float4*>(inv + r));
+                    nm = mask != nullptr ? __ldg(reinterpret_cast<const uint32_t*>(mask + r))
+                                         : 0x01010101u;
+                }
+            };
+            fetch(j0);
+            int n = 0, i = 0;
+            for (int t = j0; t < p.live_tiles; t += p.per_qblock, ++i) {
+                const int row0 = t * TN;
+                const int slot = i % NINFO;
+                mbar_wait(iempty + 8 * slot, ((i / NINFO) & 1) ^ 1);
+                {   // a row that is not live gets NaN, which fmaxf passes over
+                    const float nan = __int_as_float(0x7fffffff);
+                    const int r = row0 + 4 * lane;
+                    const float4 v = make_float4(
+                        r < lim && (nm & 0xFFu) ? nv.x : nan,
+                        r + 1 < lim && (nm & 0xFF00u) ? nv.y : nan,
+                        r + 2 < lim && (nm & 0xFF0000u) ? nv.z : nan,
+                        r + 3 < lim && (nm >> 24) ? nv.w : nan);
+                    *reinterpret_cast<float4*>(shm + p.info + slot * INFO_BYTES + 16 * lane) = v;
+                    mbar_arrive(ifull + 8 * slot);
+                    fetch(t + p.per_qblock);
+                }
+                for (int k = 0; k < p.ks; ++k, ++n) {
+                    const int s = n % p.stages;
+                    mbar_wait(empty + 8 * s, ((n / p.stages) & 1) ^ 1);
+                    if (lane == 0) {
+                        const uint32_t st = ring + s * p.stage_bytes;
+                        mbar_expect_tx(full + 8 * s, SLAB_BYTES + QB * SLAB);
+                        tma_load(st, &tbuf, k * EPS, row0, full + 8 * s);
+                        tma_load(st + 2 * SLAB_BYTES, &tq, k * EPS, q0, full + 8 * s);
+                    }
+                }
+            }
+            __syncwarp();
+            return;
+        }
+        // ------------------------------ helpers: each landed corpus slab's lo
+        // words, at the landed words' (swizzled) offsets
+        const int h = tid - CONSUMERS - 32;
+        int n = 0;
+        for (int t = j0; t < p.live_tiles; t += p.per_qblock)
+            for (int k = 0; k < p.ks; ++k, ++n) {
+                const int s = n % p.stages;
+                mbar_wait(full + 8 * s, (n / p.stages) & 1);
+                const float4* hi =
+                    reinterpret_cast<const float4*>(shm + p.ring + s * p.stage_bytes);
+                float4* lo = reinterpret_cast<float4*>(shm + p.ring + s * p.stage_bytes + SLAB_BYTES);
+#pragma unroll 4
+                for (int u = h; u < SLAB_BYTES / 16; u += TF_HELPERS) {
+                    const float4 x = hi[u];
+                    lo[u] = make_float4(tf32_rest(x.x), tf32_rest(x.y), tf32_rest(x.z),
+                                        tf32_rest(x.w));
+                }
+                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // before wgmma reads
+                __syncwarp();
+                if (lane == 0) mbar_arrive(ready + 8 * s);
+            }
+        return;
+    }
+    if constexpr (Cfg::TRADE) setmaxnreg_inc<Cfg::CONSUMER_REGS>();
+
+    // ------------------------------ consumer warpgroups
+    const int warp = tid >> 5;
+    const int wg = warp >> 2;
+    const int g = lane >> 2, t4 = lane & 3;
+    const int nsub = p.C / SUBTILE;
+    // a release: after this warp is done with what the barrier guards
+    auto release = [&](uint32_t bar) {
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar);
+    };
+    // this thread's queries in m-tile mt: row(mt), row(mt) + 8 of the block's
+    auto row = [&](int mt) { return (wg * MT + mt) * 64 + (warp & 3) * 16 + g; };
+
+    float acc[MT][TN / 2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < TN / 2; ++e) acc[mt][e] = 0.f;
+    uint32_t qlo[MT][KSTEPS][4];  // the queries' lo words: wgmma's A fragments
+    int n = 0, i = 0;
+    for (int t = j0; t < p.live_tiles; t += p.per_qblock, ++i) {
+        int prev = 0;
+        for (int k = 0; k < p.ks; ++k, ++n) {
+            const int s = n % p.stages;
+            mbar_wait(full + 8 * s, (n / p.stages) & 1);
+            mbar_wait(ready + 8 * s, (n / p.stages) & 1);
+            if (k > 0) {
+                wgmma_wait<0>();  // the slab before is done, and with it qlo
+                release(empty + 8 * prev);
+            }
+            const uint32_t st = ring + s * p.stage_bytes;
+            // A fragment word e of k-step kk: query row(mt) + 8 (e & 1), column
+            // 8 kk + t4 + 4 (e >> 1) of the slab, in the 128-byte swizzle (16-byte
+            // chunks XOR the row's index mod 8, here g)
+            const unsigned char* qslab = shm + p.ring + s * p.stage_bytes + 2 * SLAB_BYTES;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int kk = 0; kk < KSTEPS; ++kk)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e) {
+                        const int c = 8 * kk + t4 + 4 * (e >> 1);
+                        const int off = (row(mt) + 8 * (e & 1)) * SLAB + (((c >> 2) ^ g) << 4) +
+                                        ((c & 3) << 2);
+                        qlo[mt][kk][e] =
+                            __float_as_uint(tf32_rest(*reinterpret_cast<const float*>(qslab + off)));
+                    }
+            wgmma_fence();
+            // a_lo b_hi, a_hi b_lo, then a_hi b_hi: the small terms first
+            const uint64_t dhi = desc_sw128(st), dlo = desc_sw128(st + SLAB_BYTES);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+                for (int kk = 0; kk < KSTEPS; ++kk)  // 32 bytes a k-step: 2 in 16-byte units
+                    tf32_rs(acc[mt], qlo[mt][kk], dhi + 2 * kk, k > 0 || kk > 0);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+                const uint64_t dq = desc_sw128(st + 2 * SLAB_BYTES + (wg * MT + mt) * 64 * SLAB);
+#pragma unroll
+                for (int kk = 0; kk < KSTEPS; ++kk) tf32_ss(acc[mt], dq + 2 * kk, dlo + 2 * kk, true);
+            }
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+                const uint64_t dq = desc_sw128(st + 2 * SLAB_BYTES + (wg * MT + mt) * 64 * SLAB);
+#pragma unroll
+                for (int kk = 0; kk < KSTEPS; ++kk) tf32_ss(acc[mt], dq + 2 * kk, dhi + 2 * kk, true);
+            }
+            wgmma_commit();
+            prev = s;
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+        release(empty + 8 * prev);
+
+        // Epilogue, as the bf16 kernel's: acc[mt][4 nt + 2 h + e] is (query
+        // row(mt) + 8 h, row 8 nt + 2 t4 + e of the tile); subtile sb is n8
+        // groups 4 sb .. 4 sb + 3; rows that are not live have a NaN inv
+        const int slot = i % NINFO;
+        mbar_wait(ifull + 8 * slot, (i / NINFO) & 1);
+        const float* iv = reinterpret_cast<const float*>(shm + p.info + slot * INFO_BYTES);
+        float m[MT][2][SUBS];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int sb = 0; sb < SUBS; ++sb) {
+                m[mt][0][sb] = MASKED;
+                m[mt][1][sb] = MASKED;
+#pragma unroll
+                for (int nn = 0; nn < 4; ++nn) {
+                    const int nt = 4 * sb + nn;
+                    const float2 sc = *reinterpret_cast<const float2*>(iv + 8 * nt + 2 * t4);
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+                        m[mt][h][sb] = fmaxf(m[mt][h][sb],
+                                             fmaxf(acc[mt][4 * nt + 2 * h] * sc.x,
+                                                   acc[mt][4 * nt + 2 * h + 1] * sc.y));
+                }
+            }
+        release(iempty + 8 * slot);
+        // across the quad, transposed: lane t4 keeps subtile t4 of the four
+        const bool hi = (t4 & 2) != 0, lo = (t4 & 1) != 0;
+        const int sub = SUBS * t + t4;
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+                const float* v = m[mt][h];
+                const float a0 = fmaxf(hi ? v[2] : v[0],
+                                       __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 2));
+                const float a1 = fmaxf(hi ? v[3] : v[1],
+                                       __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 2));
+                const float r = fmaxf(lo ? a1 : a0, __shfl_xor_sync(0xffffffffu, lo ? a0 : a1, 1));
+                const int q = q0 + row(mt) + 8 * h;
+                if (q < p.B && sub < nsub) out[(size_t)q * nsub + sub] = r;
+            }
+    }
+
+    // tiles at or past count: the sentinel, shared out like the live ones
+    for (int t = p.live_tiles + j0; t < p.tiles; t += p.per_qblock)
+        for (int idx = tid; idx < QB * SUBS; idx += CONSUMERS) {
+            const int q = q0 + idx / SUBS, sub = SUBS * t + idx % SUBS;
+            if (q < p.B && sub < nsub) out[(size_t)q * nsub + sub] = MASKED;
+        }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -919,7 +1277,8 @@ int sm_count(int& sms) {
     return 0;
 }
 
-// K = void launches the float32 kernel, BF16 / I8 the narrow-row mma kernel.
+// The narrow-row kernels: K = void launches float32's CUDA-core kernel,
+// BF16 / I8 the mma.sync kernel.
 template <typename K>
 int launch_blocks(const void* buf, const void* q, const float* inv, const float* qinv,
                   const uint8_t* mask, float* out, int C, int dw, int B, int count,
@@ -988,7 +1347,7 @@ EncodeTiled encoder() {
 constexpr int ERR_NO_ENCODER = 10001;  // cuTensorMapEncodeTiled not found
 constexpr int ERR_ENCODE = 10002;      // a tensor map was refused
 
-// A 2-d tensor map over rows (rows, d) of 1-byte or 2-byte elements whose
+// A 2-d tensor map over rows (rows, d) of 1-, 2- or 4-byte elements whose
 // box is one 128-byte k-slab of box_rows rows, in the 128-byte swizzle.
 // Elements past d and rows past `rows` read as zeros.
 int make_map(CUtensorMap* map, const void* ptr, int esize, int d, int rows, int box_rows) {
@@ -1000,7 +1359,8 @@ int make_map(CUtensorMap* map, const void* ptr, int esize, int d, int rows, int 
                                static_cast<cuuint32_t>(box_rows)};
     const cuuint32_t one[2] = {1, 1};
     const CUresult res = encode(
-        map, esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
+        map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+             : esize == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
         const_cast<void*>(ptr), dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -1041,14 +1401,15 @@ void make_plan(Plan& p, int esize, int C, int d, int B, int count, int& wg, int&
     p.tiles = (C + tn - 1) / tn;
 }
 
-// Blocks the card holds at once for this kernel, once per device (the host
-// calls cost more than a launch); the shared-memory attribute is set on the
-// way. Every launch asks for SMEM_LIMIT bytes, so a block has its SM to
-// itself.
-template <typename K, int WG, int TN>
-int resident_blocks(int& blocks) {
-    static int cache[MAX_DEVICES];
-    auto* kernel = phase1_wgmma_kernel<K, WG, TN>;
+// Blocks the card holds at once for a kernel of the given threads, once per
+// device and kernel (cache is the kernel's own table; the host calls cost
+// more than a launch); the shared-memory attribute is set on the way. Every
+// launch asks for SMEM_LIMIT bytes, so a block has its SM to itself. A kernel
+// whose warpgroups trade registers (setmaxnreg) needs regs of them in all: a
+// block that starts with fewer would wait forever, so it is refused.
+template <typename Kernel>
+int resident_blocks(Kernel* kernel, int threads, int regs, int (&cache)[MAX_DEVICES],
+                    int& blocks) {
     int dev, sms, per_sm;
     if (int e = sm_count(sms)) return e;  // checks the device index too
     if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
@@ -1056,8 +1417,13 @@ int resident_blocks(int& blocks) {
         if (cudaError_t e = cudaFuncSetAttribute(
                 kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT))
             return static_cast<int>(e);
+        if (regs > 0) {
+            cudaFuncAttributes attr;
+            if (cudaError_t e = cudaFuncGetAttributes(&attr, kernel)) return static_cast<int>(e);
+            if (attr.numRegs * threads < regs) return static_cast<int>(cudaErrorInvalidConfiguration);
+        }
         if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, kernel, WG * 128 + 32, SMEM_LIMIT))
+                &per_sm, kernel, threads, SMEM_LIMIT))
             return static_cast<int>(e);
         if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
         cache[dev] = sms * per_sm;
@@ -1069,8 +1435,10 @@ int resident_blocks(int& blocks) {
 template <typename K, int WG, int TN>
 int launch_wgmma_as(Plan p, const CUtensorMap& tbuf, const CUtensorMap& tq, const float* inv,
                     const float* qinv, const uint8_t* mask, float* out, cudaStream_t stream) {
+    static int cache[MAX_DEVICES];
     int blocks;
-    if (int e = resident_blocks<K, WG, TN>(blocks)) return e;
+    if (int e = resident_blocks(phase1_wgmma_kernel<K, WG, TN>, WG * 128 + 32, 0, cache, blocks))
+        return e;
     // the blocks of one query block walk its tiles; the query blocks run side by side
     p.per_qblock = max(1, blocks / p.qblocks);
     phase1_wgmma_kernel<K, WG, TN><<<p.per_qblock * p.qblocks, WG * 128 + 32, SMEM_LIMIT,
@@ -1103,24 +1471,85 @@ int launch_wgmma(const void* buf, const void* q, const float* inv, const float* 
                      : launch_wgmma_as<K, 1, 128>(p, tbuf, tq, inv, qinv, mask, out, st);
 }
 
+// The float32 plan: one consumer warpgroup of one m-tile where B <= 64, two
+// of one where B <= 128, else two of two (256 queries); queries stream with
+// each stage (a stage: the corpus slab, its lo, the query slab); as many
+// stages as fit, at most MAX_STAGES.
+void make_plan_tf32(Plan& p, int C, int d, int B, int count, int& wg, int& mt) {
+    wg = B > 64 ? 2 : 1;
+    mt = B > 128 ? 2 : 1;
+    const int qb = 64 * wg * mt;
+    p.C = C;
+    p.B = B;
+    p.count = count;
+    p.ks = (d * 4 + SLAB - 1) / SLAB;
+    p.resident = 0;
+    p.stage_bytes = 2 * TF_TN * SLAB + qb * SLAB;
+    p.stages = min(MAX_STAGES, (SMEM_LIMIT - NINFO * TF_TN * 4 - TF_BAR_BYTES) / p.stage_bytes);
+    p.ring = 0;
+    p.info = p.stages * p.stage_bytes;
+    p.bars = p.info + NINFO * TF_TN * 4;
+    p.qblocks = (B + qb - 1) / qb;
+    const int live_rows = min(count, C);
+    p.live_tiles = live_rows > 0 ? (live_rows + TF_TN - 1) / TF_TN : 0;
+    p.tiles = (C + TF_TN - 1) / TF_TN;
+}
+
+template <int WG, int MT>
+int launch_tf32_as(Plan p, const CUtensorMap& tbuf, const CUtensorMap& tq, const float* inv,
+                   const uint8_t* mask, float* out, cudaStream_t stream) {
+    using Cfg = Tf32Cfg<WG, MT>;
+    static int cache[MAX_DEVICES];
+    int blocks;
+    if (int e = resident_blocks(phase1_tf32_kernel<WG, MT>, Cfg::THREADS, Cfg::REGS, cache, blocks))
+        return e;
+    // the blocks of one query block walk its tiles; the query blocks run side by side
+    p.per_qblock = max(1, blocks / p.qblocks);
+    phase1_tf32_kernel<WG, MT><<<p.per_qblock * p.qblocks, Cfg::THREADS, SMEM_LIMIT, stream>>>(
+        tbuf, tq, inv, mask, out, p);
+    return static_cast<int>(cudaGetLastError());
+}
+
+int launch_tf32(const void* buf, const void* q, const float* inv, const uint8_t* mask,
+                float* out, int C, int d, int B, int count, void* stream) {
+    if (C <= 0 || B <= 0 || d <= 0 || C % SUBTILE != 0 || d % 4 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (reinterpret_cast<uintptr_t>(buf) % 16 || reinterpret_cast<uintptr_t>(q) % 16 ||
+        reinterpret_cast<uintptr_t>(inv) % 16 || reinterpret_cast<uintptr_t>(mask) % 4)
+        return static_cast<int>(cudaErrorMisalignedAddress);
+    Plan p;
+    int wg, mt;
+    make_plan_tf32(p, C, d, B, count, wg, mt);
+    CUtensorMap tbuf, tq;
+    if (int e = make_map(&tbuf, buf, 4, d, C, TF_TN)) return e;
+    if (int e = make_map(&tq, q, 4, d, B, 64 * wg * mt)) return e;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (wg == 1) return launch_tf32_as<1, 1>(p, tbuf, tq, inv, mask, out, st);
+    return mt == 1 ? launch_tf32_as<2, 1>(p, tbuf, tq, inv, mask, out, st)
+                   : launch_tf32_as<2, 2>(p, tbuf, tq, inv, mask, out, st);
+}
+
 }  // namespace
 
-// Which kernel phase1_bf16 / phase1_i8 launch for rows of d elements of
-// esize bytes: 1 the wgmma kernel (rows of a whole number of 16 bytes, the
-// row stride TMA can describe), 0 the narrow mma.sync kernel. Row width
-// alone decides; the wrapper asks it to count a launch under its kernel.
+// Which kernel phase1_f32 / phase1_bf16 / phase1_i8 launch for rows of d
+// elements of esize bytes: 1 a wgmma kernel (rows of a whole number of 16
+// bytes, the row stride TMA can describe: phase1_tf32_kernel for float32,
+// phase1_wgmma_kernel for bf16 / int8), 0 the narrow kernel (float32's
+// CUDA-core phase1_f32_kernel, bf16 / int8's mma.sync one). Row width alone
+// decides; the wrapper asks it to count a launch under its kernel.
 extern "C" int phase1_route(int d, int esize) { return (d * esize) % 16 == 0 ? 1 : 0; }
 
 // buf (C, d) and q (B, d) contiguous, 4-byte aligned; mask may be null. `d`
 // is in elements: d*itemsize must be a multiple of 4 (the wrapper checks).
-// bf16 and int8 rows take the kernel phase1_route names; the wgmma kernel
-// also needs buf, q and inv 16-byte aligned (the wrapper sees to it). Each
+// Every type's rows take the kernel phase1_route names; the wgmma kernels
+// also need buf, q and inv 16-byte aligned (the wrapper sees to it). Each
 // returns cudaGetLastError() after the launch (0 = launched), or 10001 /
 // 10002 when the driver's tensor-map encoder is missing or refuses the layout.
 extern "C" int phase1_f32(const void* buf, const void* q, const float* inv,
                           const uint8_t* mask, float* out, int C, int d, int B,
                           int count, void* stream)
 {
+    if (phase1_route(d, 4)) return launch_tf32(buf, q, inv, mask, out, C, d, B, count, stream);
     return launch_blocks<void>(buf, q, inv, nullptr, mask, out, C, d, B, count, stream);
 }
 

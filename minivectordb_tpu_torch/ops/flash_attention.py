@@ -37,7 +37,7 @@ encoder sends here is the encoder's gate (models/encoder.py).
 Arithmetic. The float32 kernel forms Q K^T and P V on the tensor cores in
 3xTF32: each operand x is cut into TF32 words hi = tf32(x) and
 lo = tf32(x - hi), and a product a b is a_lo b_hi + a_hi b_lo + a_hi b_hi,
-summed in float32 (``tf32_round``, ``tf32_split``). Its plain version stays
+summed in float32 (``ops/tf32.py``). Its plain version stays
 the IEEE float32 ``flash_attention_plain``, and both are held to the same
 2e-5; ``flash_attention_3xtf32_plain`` repeats the kernel's arithmetic in
 plain PyTorch, for the tests and chip_smoke.py.
@@ -73,6 +73,7 @@ import torch
 
 from minivectordb_tpu_torch.kernels import build
 from minivectordb_tpu_torch.ops import scan as scan_ops
+from minivectordb_tpu_torch.ops.tf32 import matmul_3xtf32
 
 # float32(-0.7 * float32 max): what a query scores against a key of another
 # segment. Finite, so a row of masked logits has a softmax and no NaN.
@@ -214,45 +215,11 @@ def _plain_forward(q, k, v, segment_ids, sm_scale: float, with_lse: bool):
     return out, lse
 
 
-def tf32_round(x):
-    """float32 ``x`` rounded to the nearest TF32 value (10 stored significand
-    bits, float32's exponent), ties away from zero: what ``cvt.rna.tf32.f32``
-    gives the float32 kernel, computed on the float32 bits (half a TF32 step
-    added to the magnitude, the 13 low bits cleared). Subnormals round on the
-    same grid, signed zeros keep their sign, inf stays inf, NaN stays NaN, and
-    a value past the largest TF32 value's half step rounds to inf."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"tf32_round takes float32, not {x.dtype}")
-    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    bits = (bits + 0x1000) & 0xFFFFE000
-    rounded = (bits - ((bits >> 31) << 32)).to(torch.int32).view(torch.float32)
-    return torch.where(torch.isnan(x), x, rounded.view(x.shape))
-
-
-def tf32_split(x):
-    """(hi, lo) with hi = tf32_round(x) and lo = tf32_round(x - hi): the two
-    TF32 operands a 3xTF32 product takes for float32 ``x`` (x - hi is exact in
-    float32; hi + lo keeps about 21 of x's 24 significand bits)."""
-    hi = tf32_round(x)
-    return hi, tf32_round(x - hi)
-
-
-def _matmul_3xtf32(a, b):
-    """a @ b as the float32 kernel forms it on the tensor cores: three
-    products of TF32 operands, a_lo b_hi + a_hi b_lo + a_hi b_hi, summed in
-    float32 in that order, the small terms first (each product of two TF32
-    values is exact in float32; the dropped a_lo b_lo is below 2^-22 of
-    |a| |b|)."""
-    a_hi, a_lo = tf32_split(a)
-    b_hi, b_lo = tf32_split(b)
-    return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)
-
-
 def flash_attention_3xtf32_plain(q, k, v, segment_ids, sm_scale: float):
     """K6-f32's arithmetic in plain PyTorch, for tests and chip_smoke.py
     only (the kernel's plain version stays ``flash_attention_plain``, in IEEE
     float32): the logits Q K^T and the output P V each from three TF32
-    products (``_matmul_3xtf32``), P = exp(s - max) before the division by
+    products (``matmul_3xtf32``), P = exp(s - max) before the division by
     its row sum, softmax and sums in float32. float32 inputs only."""
     return _plain_3xtf32(q, k, v, segment_ids, sm_scale)[0]
 
@@ -271,11 +238,11 @@ def _plain_3xtf32(q, k, v, segment_ids, sm_scale: float):
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     for sl in _plain_pieces(q, segment_ids):
-        logits = _plain_logits(q[sl], k[sl], segment_ids[sl], sm_scale, _matmul_3xtf32)
+        logits = _plain_logits(q[sl], k[sl], segment_ids[sl], sm_scale, matmul_3xtf32)
         m = logits.amax(dim=-1, keepdim=True)
         p = torch.exp(logits - m)
         rowsum = p.sum(dim=-1, keepdim=True)
-        out[sl] = _matmul_3xtf32(p, v[sl]) / rowsum
+        out[sl] = matmul_3xtf32(p, v[sl]) / rowsum
         lse[sl] = (m + torch.log(rowsum))[..., 0]
     return out, lse
 

@@ -20,20 +20,35 @@ package leaves them to XLA):
 Exactness argument: if row r is among the true top-k, its subtile's max is
 >= score(r) >= (k-th best score); at most k-1 subtiles can have maxima
 strictly greater (each such max is itself a top-k row's score), so r's
-subtile always ranks within the top-k subtile maxima. The extra `margin`
-absorbs phase-1 rounding (phase-3 rescoring is authoritative).
+subtile always ranks within the top-k subtile maxima. Phase 1 need not be
+exact for that: phase 3 rescores the winners in IEEE float32 and is
+authoritative, so the returned scores are IEEE whatever phase 1's rounding.
+Let eps bound phase 1's error on a subtile maximum. A subtile holding a true
+top-k row can then be outranked only by subtiles whose maxima lie within
+2 eps of it, i.e. that hold a row scoring within 2 eps of the k-th best;
+the extra ``margin`` subtiles absorb those, and where more than ``margin``
+such rows crowd the k-th place, only rows whose exact scores lie within
+2 eps of each other can trade places (IEEE summation order alone already
+swaps such ties). float32's kernel forms its products in 3xTF32 (below):
+eps about 1e-6 on cosine scores of random rows, up to 1e-5 where a row
+equals the query (the tensor cores' accumulation); the bfloat16 shadow of
+``mixed`` mode rounds maxima by up to 2^-8 relative, at margin 8.
 
 Phase 1 on a CUDA tensor is the CUDA C++ kernel of ``csrc/phase1.cu`` (K1:
 float32 and bfloat16; K2: int8), compiled at first use
 (kernels/build.py). ``subtile_maxima`` and ``subtile_maxima_int8`` launch it
 for CUDA tensors and raise on what it does not take; they use the plain
 versions below ONLY for tensors that lie on the CPU. ``LAUNCHES`` counts
-kernel launches per instantiation. bfloat16 and int8 rows of a whole number
-of 16 bytes (what TMA can describe) take the Hopper kernel (``wgmma`` on
-resident queries, a TMA ring); narrower rows (int8 at d = 24, say) take the
-``mma.sync`` kernel, chosen by row width alone. The library's
-``phase1_route`` says which a launch took; the narrow kernel's launches are
-counted in ``NARROW_LAUNCHES`` instead.
+kernel launches per instantiation. Rows of a whole number of 16 bytes (what
+TMA can describe) take a Hopper kernel: ``wgmma`` fed by a TMA ring, in
+3xTF32 for float32 (each float32 word read as TF32 is its hi, truncated;
+lo = x - hi; a_lo b_hi + a_hi b_lo + a_hi b_hi summed in float32, which
+``subtile_maxima_3xtf32_plain`` repeats), on bf16 / int8 values as they lie
+for the others. Narrower rows (float32 at d = 25, int8 at d = 24, say) take
+the narrow kernels (IEEE FMAs on the CUDA cores for float32, ``mma.sync``
+for bf16 / int8), chosen by row width alone. The library's
+``phase1_route`` says which a launch took; the narrow kernels' launches are
+counted in ``NARROW_LAUNCHES`` instead. The plain versions stay IEEE.
 
 Layout: ``subtile_maxima`` returns **(B, C/SUBTILE)**. The JAX function
 returns the transpose, (C/SUBTILE, B), a constraint of its compiler, and its
@@ -56,6 +71,7 @@ import torch
 
 from minivectordb_tpu_torch.kernels import build
 from minivectordb_tpu_torch.ops import scan as scan_ops
+from minivectordb_tpu_torch.ops.tf32 import matmul_3xtf32
 
 _MASKED_SCORE = float(scan_ops._MASKED_SCORE)
 
@@ -73,10 +89,11 @@ LAUNCHES = {
 }
 
 
-# Launches of the mma.sync kernel that bfloat16 / int8 rows narrower than TMA
-# can describe take (csrc/phase1.cu, phase1_route), by the same names.
+# Launches of the narrow kernels that rows narrower than TMA can describe take
+# (csrc/phase1.cu, phase1_route), by the same names.
 NARROW_LAUNCHES = {
-    "phase1_bf16": 0, "phase1_bf16_mask": 0, "phase1_i8": 0, "phase1_i8_mask": 0,
+    "phase1_f32": 0, "phase1_f32_mask": 0, "phase1_bf16": 0, "phase1_bf16_mask": 0,
+    "phase1_i8": 0, "phase1_i8_mask": 0,
 }
 
 
@@ -151,12 +168,11 @@ def _check_operands(buf, inv_norms, q, mask, elem_dtypes) -> tuple[int, int, int
 def _launch(name: str, buf, args_before_mask, mask, c, d, b, count):
     """Allocate the output, launch on the current stream, do not synchronise."""
     fn = _kernel_fn(name)
+    args_before_mask = [_aligned16(t) for t in args_before_mask]
+    mask = None if mask is None else _aligned16(mask)
     counts = LAUNCHES
-    if name != "phase1_f32":
-        args_before_mask = [_aligned16(t) for t in args_before_mask]
-        mask = None if mask is None else _aligned16(mask)
-        if not _kernel_fn("phase1_route")(d, buf.element_size()):
-            counts = NARROW_LAUNCHES
+    if not _kernel_fn("phase1_route")(d, buf.element_size()):
+        counts = NARROW_LAUNCHES
     out = torch.empty((b, c // SUBTILE), dtype=torch.float32, device=buf.device)
     with torch.cuda.device(buf.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -179,14 +195,35 @@ def _launch(name: str, buf, args_before_mask, mask, c, d, b, count):
 def subtile_maxima_plain(buf, inv_norms, q, count, mask=None):
     """The function K1 computes, in plain PyTorch, in row pieces so the
     (B, C) score matrix never exists whole. Same arguments and result as
-    ``subtile_maxima``."""
+    ``subtile_maxima``; float32 dots are IEEE float32."""
+    return _plain_maxima(buf, inv_norms, q, count, mask, scan_ops.dots_f32)
+
+
+def subtile_maxima_3xtf32_plain(buf, inv_norms, q, count, mask=None):
+    """K1-f32's arithmetic on the tensor cores in plain PyTorch, for tests
+    and chip_smoke.py only (the kernel's plain version stays the IEEE
+    ``subtile_maxima_plain``): each dot from three TF32 products of the
+    float32 words truncated to TF32 (hi) and of their truncated remainders
+    (lo), q_lo buf_hi + q_hi buf_lo + q_hi buf_hi summed in float32
+    (``tf32.matmul_3xtf32(rounding="zero")``), then the same scale, mask and
+    32-row max. float32 only."""
+    if buf.dtype != torch.float32 or q.dtype != torch.float32:
+        raise TypeError(f"the 3xTF32 form is float32's, not {buf.dtype}'s")
+
+    def dots(qq, rows):
+        return matmul_3xtf32(qq, rows.T, rounding="zero")
+
+    return _plain_maxima(buf, inv_norms, q, count, mask, dots)
+
+
+def _plain_maxima(buf, inv_norms, q, count, mask, dots):
     c = buf.shape[0]
     b = q.shape[0]
     out = torch.empty((b, c // SUBTILE), dtype=torch.float32, device=buf.device)
     rows = torch.arange(c, device=buf.device)
     for lo in range(0, c, _PLAIN_ROWS):
         hi = min(lo + _PLAIN_ROWS, c)
-        scores = scan_ops.dots_f32(q, buf[lo:hi]) * inv_norms[None, lo:hi]
+        scores = dots(q, buf[lo:hi]) * inv_norms[None, lo:hi]
         valid = rows[lo:hi] < count
         if mask is not None:
             valid = valid & mask[lo:hi]

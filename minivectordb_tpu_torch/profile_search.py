@@ -67,11 +67,13 @@ four entry points in turns with this one's (other, this, this, other), both
 called the same way; without it, K6 with lse is timed in turns with the
 inference launch.
 
-With ``--phase1`` it times the phase-1 kernels K1-bf16 and K2-int8 alone at
-the flat search's shape (C = 1,048,576, d = 384, B = 256, count = 1,000,000;
-``--rows``/``--dim``/``--batch`` change it), without and with a mask, the
-same way: each held against its plain version, and with ``--against`` another
-phase1.cu (same C interface, e.g. the parent commit's) in turns with this one.
+With ``--phase1`` it times the phase-1 kernels K1-f32, K1-bf16 and K2-int8
+alone at the flat search's shape (C = 1,048,576, d = 384, B = 256,
+count = 1,000,000; ``--rows``/``--dim``/``--batch`` change it), without and
+with a mask, the same way: each entry point through its C function, held
+against its plain version (K1-f32 also against its 3xTF32 arithmetic in plain
+PyTorch), and with ``--against`` another phase1.cu (same C interface, e.g.
+the parent commit's) in turns with this one.
 
 With ``--backward`` it times the backward kernels K7 (dK, dV) and K8 (dQ)
 alone, in ``--dtype``, at the training step's shape (16 heads of 64, S = 512,
@@ -1074,40 +1076,43 @@ def profile_phase1(against: str | None, rows: int, dim: int, batch: int, seed: i
     count = rows
     other = _load_other(against, "phase1", fused_scan._ARGTYPES) if against else None
     mask, cases = phase1_operands(c, dim, batch, seed)
-    del cases["f32"]
+    names = {"f32": ("phase1_f32", "K1-f32"), "bf16": ("phase1_bf16", "K1-bf16"),
+             "i8": ("phase1_i8", "K2-int8")}
     out_rows = []
     for kind, (buf, inv, q, qinv) in cases.items():
-        name = "phase1_bf16" if kind == "bf16" else "phase1_i8"
+        name, label = names[kind]
+        ptrs = [buf, q, inv] + ([qinv] if kind == "i8" else [])
         for m in (None, mask):
-            if kind == "bf16":
-                def this():
-                    return fused_scan.subtile_maxima(buf, inv, q, count, m)
-                want = fused_scan.subtile_maxima_plain(buf, inv, q, count, m)
-                ptrs = [buf, q, inv]
-            else:
-                def this():
-                    return fused_scan.subtile_maxima_int8(buf, inv, q, qinv, count, m)
+            if kind == "i8":
                 want = fused_scan.subtile_maxima_int8_plain(buf, inv, q, qinv, count, m)
-                ptrs = [buf, q, inv, qinv]
+            else:
+                want = fused_scan.subtile_maxima_plain(buf, inv, q, count, m)
 
-            def that():
-                out = torch.empty_like(want)
-                err = getattr(other, name)(
-                    *[t.data_ptr() for t in ptrs], None if m is None else m.data_ptr(),
-                    out.data_ptr(), c, dim, batch, count,
-                    torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"{name} of {against}: cudaError {err}")
-                return out
+            def launcher(fn, source):
+                def call():
+                    out = torch.empty_like(want)
+                    err = fn(*[t.data_ptr() for t in ptrs], None if m is None else m.data_ptr(),
+                             out.data_ptr(), c, dim, batch, count,
+                             torch.cuda.current_stream().cuda_stream)
+                    if err:
+                        raise RuntimeError(f"{name} of {source}: cudaError {err}")
+                    return out
+                return call
 
-            row = {"kernel": ("K1-bf16" if kind == "bf16" else "K2-int8")
-                   + ("-mask" if m is not None else ""),
+            # both sources through their C functions, the same way
+            this = launcher(fused_scan._kernel_fn(name), "this source")
+            that = launcher(getattr(other, name), against) if other is not None else None
+            row = {"kernel": label + ("-mask" if m is not None else ""),
                    "shape": {"C": c, "d": dim, "B": batch, "count": count},
                    "max_abs_err_vs_plain": float((this() - want).abs().max())}
+            if kind == "f32":
+                emulated = fused_scan.subtile_maxima_3xtf32_plain(buf, inv, q, count, m)
+                row["max_abs_err_vs_3xtf32_plain"] = float((this() - emulated).abs().max())
+                del emulated
             if other is not None:
                 row["other"] = against
                 row["other_max_abs_err_vs_plain"] = float((that() - want).abs().max())
-            _in_turns(row, this, that if other is not None else None, reps)
+            _in_turns(row, this, that, reps)
             out_rows.append(row)
             del want
     return out_rows
@@ -1169,7 +1174,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help=f"with --attention: the head width, one of {flash_ops.HEAD_DIMS}")
     ap.add_argument("--heads", type=int, default=16, help="with --attention: the heads")
     ap.add_argument("--phase1", action="store_true",
-                    help="time the phase-1 kernels K1-bf16 and K2 alone at the search's shape")
+                    help="time the phase-1 kernels K1-f32, K1-bf16 and K2 alone at the "
+                         "search's shape")
     ap.add_argument("--backward", action="store_true",
                     help="time the backward kernels K7 and K8 alone at the training shape")
     ap.add_argument("--train", action="store_true",

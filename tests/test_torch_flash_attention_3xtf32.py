@@ -26,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as jax_fa
 
 from minivectordb_tpu_torch.ops import flash_attention as fa
+from minivectordb_tpu_torch.ops import tf32
 
 TOL = 2e-5
 
@@ -129,12 +130,12 @@ def test_tf32_round_on_hand_picked_bit_patterns():
         0x7F7FE000: 0x7F7FE000,  # the largest TF32 value
         0x7F7FF000: 0x7F800000,  # its half step rounds to inf
     }
-    got = fa.tf32_round(_f32(list(cases)))
+    got = tf32.tf32_round(_f32(list(cases)))
     assert _bits(got) == list(cases.values())
-    nan = fa.tf32_round(_f32([0x7FC00000, 0x7F800001]))
+    nan = tf32.tf32_round(_f32([0x7FC00000, 0x7F800001]))
     assert torch.isnan(nan).all()  # a NaN whose payload would round to inf stays NaN
     with pytest.raises(TypeError):
-        fa.tf32_round(torch.ones(2, dtype=torch.float64))
+        tf32.tf32_round(torch.ones(2, dtype=torch.float64))
 
 
 def test_tf32_split_is_exact_where_it_must_be():
@@ -143,7 +144,7 @@ def test_tf32_split_is_exact_where_it_must_be():
     rng = np.random.default_rng(11)
     x = torch.from_numpy((rng.standard_normal((64, 48)) * 10.0 ** rng.integers(-30, 30, (64, 48)))
                          .astype(np.float32))[:, ::3]
-    hi, lo = fa.tf32_split(x)
+    hi, lo = tf32.tf32_split(x)
     assert hi.shape == lo.shape == x.shape
     for t in (hi, lo):
         assert not (t.contiguous().numpy().view(np.uint32) & 0x1FFF).any()
@@ -160,8 +161,8 @@ def test_3xtf32_products_are_near_float64_and_only_float32():
     a, b = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
             for shape in ((32, 128), (128, 40)))
     scale = (a.double().abs() @ b.double().abs())
-    err3 = ((fa._matmul_3xtf32(a, b).double() - a.double() @ b.double()).abs() / scale).max()
-    err1 = ((fa.tf32_round(a).double() @ fa.tf32_round(b).double() - a.double() @ b.double())
+    err3 = ((tf32.matmul_3xtf32(a, b).double() - a.double() @ b.double()).abs() / scale).max()
+    err1 = ((tf32.tf32_round(a).double() @ tf32.tf32_round(b).double() - a.double() @ b.double())
             .abs() / scale).max()
     assert float(err3) <= 4 * 2.0 ** -22
     assert float(err1) > 16 * float(err3)

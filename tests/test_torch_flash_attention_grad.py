@@ -73,8 +73,23 @@ CASES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
+def _private(result):
+    """A copy of a cached result for one test: no test sees another's arrays."""
+    if isinstance(result, tuple):
+        return tuple(_private(x) for x in result)
+    return np.array(result, copy=True)
+
+
 def _jax(case: str):
+    return _private(_jax_cached(case))
+
+
+def _jax_bf16(case: str):
+    return _private(_jax_bf16_cached(case))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_cached(case: str):
     """(inputs, lse = m + log l, (dq, dk, dv)) of JAX's TPU kernel interpreted."""
     b, nh, s, hd, pattern, seed = CASES[case]
     q, k, v, do, seg = _inputs(b, nh, s, hd, pattern, seed)
@@ -93,16 +108,20 @@ def _jax(case: str):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_bf16(case: str):
+def _jax_bf16_cached(case: str):
     """The same case with q, k, v and dO rounded to bfloat16: (inputs as the
     float32 values of their bfloat16 roundings, out, lse = m + log l, (dq,
     dk, dv)), out and the gradients as float32 arrays of bfloat16 values."""
     b, nh, s, hd, pattern, seed = CASES[case]
     q, k, v, do, seg = _inputs(b, nh, s, hd, pattern, seed)
+    # The roundings are made on the host (round to nearest even, as XLA's
+    # conversion rounds) and both packages take these very values: the inputs
+    # are never read back from JAX buffers, as the float32 cases' are not.
+    rounded = tuple(torch.from_numpy(x).to(torch.bfloat16).float().numpy() for x in (q, k, v, do))
     ids = jax_fa.SegmentIds(q=jnp.asarray(seg), kv=jnp.asarray(seg))
     scale = float(1.0 / np.sqrt(hd))
-    args = [jnp.asarray(x).astype(jnp.bfloat16) for x in (q, k, v)]
-    jdo = jnp.asarray(do).astype(jnp.bfloat16)
+    args = [jnp.asarray(x).astype(jnp.bfloat16) for x in rounded[:3]]  # exact
+    jdo = jnp.asarray(rounded[3]).astype(jnp.bfloat16)
     with pltpu.force_tpu_interpret_mode():
         out, vjp = jax.vjp(
             lambda q_, k_, v_: jax_fa.flash_attention(q_, k_, v_, segment_ids=ids,
@@ -110,8 +129,7 @@ def _jax_bf16(case: str):
         grads = tuple(np.asarray(g.astype(jnp.float32)) for g in vjp(jdo))
         blocks = jax_fa.BlockSizes.get_default(b, nh, s, s, hd)
         _o, l, m = jax_fa._flash_attention(*args, None, ids, True, False, scale, blocks, False)
-    inputs = tuple(np.asarray(x.astype(jnp.float32)) for x in (*args, jdo)) + (seg,)
-    return inputs, np.asarray(out.astype(jnp.float32)), np.asarray(m + jnp.log(l)), grads
+    return rounded + (seg,), np.asarray(out.astype(jnp.float32)), np.asarray(m + jnp.log(l)), grads
 
 
 def _bf16(*arrays):

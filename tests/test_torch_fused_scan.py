@@ -174,7 +174,7 @@ def test_launch_counters_do_not_move_on_cpu():
         "phase1_f32", "phase1_f32_mask", "phase1_bf16", "phase1_bf16_mask",
         "phase1_i8", "phase1_i8_mask",
     }
-    assert set(narrow) == {"phase1_bf16", "phase1_bf16_mask", "phase1_i8", "phase1_i8_mask"}
+    assert set(narrow) == set(before)  # float32 rows too can be narrow
 
 
 @pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])

@@ -14,7 +14,8 @@ Phases (one JSON object per output line):
              or spilled in K6-f32 at any width, or reported a K6-f32 wgmma
              pipeline serialized or a setmaxnreg ignored (C7508 / C7512 /
              C7515); the same for K1-f32's 3xTF32 kernel
-             (phase1_tf32_kernel) in each of its three instantiations
+             (phase1_tf32_kernel) in each of its three instantiations, and for
+             K7-f32's (bwd_dkv_tf32_kernel) at every head width (C7520 too)
   main_path  VectorDatabase(device_dtype="float32") with 1,000,000 x 384
              seeded vectors: batch, filtered, single, async and
              after-delete searches, held against an oracle computed here
@@ -534,6 +535,17 @@ def phase_env() -> str:
                 if any(code in line for code in ("C7508", "C7512", "C7515"))
                 and ("phase1_tf32_kernel" in line or "'" not in line)]
     assert not pipeline, ("ptxas serialized K1-f32's wgmma or ignored its setmaxnreg", pipeline)
+    # K7-f32 (3xTF32 on wgmma) spills nothing at any width, and ptxas did not
+    # serialize its wgmma pipeline (C7512, C7515; C7520: around a
+    # warpgroup.arrive it inserted in a divergent path)
+    k7_f32 = {hd: ptxas_of("bwd_dkv_tf32_kernel", hd) for hd in flash_ops.HEAD_DIMS}
+    spilled = {hd: r for hd, r in k7_f32.items()
+               if r["spill_store_bytes"] or r["spill_load_bytes"]}
+    assert not spilled, ("K7-f32 spills", spilled)
+    pipeline = [line for line in build.build_info["flash_attention_bwd"]["log"].splitlines()
+                if any(code in line for code in ("C7508", "C7512", "C7515", "C7520"))
+                and ("bwd_dkv_tf32_kernel" in line or "'" not in line)]
+    assert not pipeline, ("ptxas serialized K7-f32's wgmma", pipeline)
     emit({
         "phase": "env",
         "nvidia_smi": smi,
@@ -548,6 +560,7 @@ def phase_env() -> str:
         "k6_bf16_hd128_ptxas": k6_hd128,
         "k6_f32_ptxas": k6_f32,
         "k1_f32_ptxas": k1_f32,
+        "k7_f32_ptxas": k7_f32,
     })
     print(smi, flush=True)
     return smi
@@ -2251,6 +2264,50 @@ def f32_accuracy(q, k, v, seg, scale, out, lse=None) -> dict:
     return res
 
 
+def float64_attention_bwd(q, k, v, seg, dout, scale):
+    """(dq, dk, dv) of attention within segments in float64, a batch row at a
+    time (delta = rowsum(dP * P), equal to rowsum(dO * O) in exact
+    arithmetic): the yardstick of the K7-f32 rows' max_abs_err_vs_float64."""
+    grads = [torch.empty(q.shape, dtype=torch.float64, device=q.device) for _ in range(3)]
+    mask = torch.tensor(flash_ops.MASK_VALUE, dtype=torch.float64, device=q.device)
+    for i in range(q.shape[0]):
+        qd, kd, vd, dod = (t[i:i + 1].double() for t in (q, k, v, dout))
+        same = seg[i:i + 1, None, :, None] == seg[i:i + 1, None, None, :]
+        p = torch.softmax(torch.where(same, (qd @ kd.transpose(-1, -2)) * scale, mask), dim=-1)
+        dp = dod @ vd.transpose(-1, -2)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        grads[0][i:i + 1] = (ds @ kd) * scale
+        grads[1][i:i + 1] = (ds.transpose(-1, -2) @ qd) * scale
+        grads[2][i:i + 1] = p.transpose(-1, -2) @ dod
+    return grads
+
+
+def f32_bwd_accuracy(q, k, v, seg, scale, out, dout, lse, dk, dv, library) -> dict:
+    """K7-f32's dK and dV beside the IEEE plain backward's, its 3xTF32
+    arithmetic in plain PyTorch (flash_attention_bwd_3xtf32_plain) and SDPA's
+    autograd backward (``library``: dq, dk, dv), each against
+    float64_attention_bwd (the larger distance of dK's and dV's), and the
+    kernel's distance to the 3xTF32 plain version; the plain versions take
+    the same forward output and log-sum-exp as the kernel."""
+    _dq64, dk64, dv64 = float64_attention_bwd(q, k, v, seg, dout, scale)
+    _pdq, pdk, pdv = flash_ops.flash_attention_bwd_plain(q, k, v, seg, out, dout, lse, scale)
+    _edq, edk, edv = flash_ops.flash_attention_bwd_3xtf32_plain(q, k, v, seg, out, dout, lse,
+                                                                scale)
+
+    def dist(gk, gv):
+        return max(float((gk.to(torch.float64) - dk64).abs().max()),
+                   float((gv.to(torch.float64) - dv64).abs().max()))
+
+    res = {"max_abs_err_vs_float64": {"kernel": dist(dk, dv), "plain": dist(pdk, pdv),
+                                      "3xtf32_plain": dist(edk, edv),
+                                      "library": dist(library[1], library[2])},
+           "max_abs_err_vs_3xtf32_plain": max(float((dk - edk).abs().max()),
+                                              float((dv - edv).abs().max()))}
+    del dk64, dv64, pdk, pdv, edk, edv
+    torch.cuda.empty_cache()
+    return res
+
+
 def k6_row(kind, shape, lengths, seed, launches: int, name: str) -> dict:
     """K6 of ``kind`` at ``shape`` = (B, nh, S, hd) with the given lengths,
     held against its plain version (compare_attention), timed beside it,
@@ -3677,7 +3734,8 @@ def train_kernel_rows(launches: dict) -> list:
     16, S = 512, hd = 64, ragged lengths; the encoder's (B, S, nh, hd) memory),
     after S = 256 at every head width, S = 200 / 129 / 1, S = 333 and 384 at
     hd = 16, 48, 80 and 128 (ragged last tiles; hd = 48 and 80 leave a
-    thread's float4 column groups partly idle) and the packed and cyclic ids.
+    thread's float4 column groups partly idle) and the packed and cyclic ids
+    at hd = 64, 48 and 128.
     ``launches`` are the e5-large training path's."""
     small = {}
 
@@ -3699,6 +3757,9 @@ def train_kernel_rows(launches: dict) -> list:
                  f"bwd S={s} hd={hd}")
     for name, ids in segment_patterns(4, 512, SEED + 85).items():
         held(attention_case(4, 4, 512, 64, torch.float32, ids, SEED + 86), f"bwd {name} ids")
+        for hd in (48, 128):  # the slots' widths: K7-f32's other tiles (32 keys above hd = 64)
+            held(attention_case(4, 4, 512, hd, torch.float32, ids, SEED + 86 + hd),
+                 f"bwd {name} ids hd={hd}")
 
     b, nh, s, hd = 16, 16, 512, 64
     lengths = seeded_lengths(b, s, 200, SEED + 87)
@@ -3714,9 +3775,12 @@ def train_rows_at(shape, lengths, seed, launches: dict, suffix: str) -> list:
     """K6-f32 with lse, K7 and K8 at ``shape`` = (B, nh, S, hd) with the given
     lengths (the case from ``seed``, dO from ``seed + 1``), held against their
     plain versions (compare_backward), timed beside them, beside SDPA's
-    forward and autograd backward and beside the bound; with each kernel's
-    registers and spills at that hd. Rows are named "<kernel><suffix>".
-    ``launches`` maps entry points to the path's counts."""
+    forward and autograd backward and beside the bound (for K6-f32-lse and
+    K7-f32, whose products are 3xTF32, three TF32 products at the TF32 peak,
+    the IEEE bound beside it, and their outputs' distances to float64 beside
+    the plain versions' and SDPA's); with each kernel's registers and spills
+    at that hd. Rows are named "<kernel><suffix>". ``launches`` maps entry
+    points to the path's counts."""
     b, nh, s, hd = shape
     case = attention_case(b, nh, s, hd, torch.float32, lengths, seed)
     q, k, v, seg = case
@@ -3769,7 +3833,7 @@ def train_rows_at(shape, lengths, seed, launches: dict, suffix: str) -> list:
     tiles = {"K6-f32-lse": flash_ops.tile_shape(torch.float32, hd),
              "K7-f32": bwd_tiles["dkv"], "K8-f32": bwd_tiles["dq"]}
     per_pair = {"K6-f32-lse": 4, "K7-f32": 8, "K8-f32": 6}
-    ptxas = {"K6-f32-lse": "flash_f32_kernel", "K7-f32": "bwd_dkv_kernel",
+    ptxas = {"K6-f32-lse": "flash_f32_kernel", "K7-f32": "bwd_dkv_tf32_kernel",
              "K8-f32": "bwd_dq_kernel"}
     rows = []
     for name, (run, plain, library, n_bytes, n_ops, replaces, source, entry,
@@ -3787,6 +3851,13 @@ def train_rows_at(shape, lengths, seed, launches: dict, suffix: str) -> list:
             extra = {"bound_ms_ieee": max(t_bytes, t_ops),
                      **f32_accuracy(q, k, v, seg, scale, out, lse)}
             t_ops = 3 * n_ops / PEAK_TF32_S * 1e3
+        elif name == "K7-f32":  # the same, and the gradients beside float64's
+            dk, dv = run()
+            extra = {"bound_ms_ieee": max(t_bytes, t_ops),
+                     **f32_bwd_accuracy(q, k, v, seg, scale, out, dout, lse, dk, dv,
+                                        sdpa_backward())}
+            t_ops = 3 * n_ops / PEAK_TF32_S * 1e3
+            del dk, dv
         ms = statistics.median([ms_a, ms_b])
         rows.append({
             "name": name + suffix,

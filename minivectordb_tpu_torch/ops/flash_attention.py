@@ -55,8 +55,11 @@ the TPU kernel's ``_flash_attention_bwd_dkv`` (K7: dK, dV) and
     dV = P^T dO,   dS = P * (dO V^T - rowsum(dO * O)),
     dK = dS^T Q * sm_scale,   dQ = dS K * sm_scale
 
-K7 and K8 exist for float32 (CUDA-core FMAs, ``csrc/flash_attention_bwd.cu``)
-and for bfloat16 (tensor cores, ``csrc/flash_attention_bwd_bf16.cu``). In
+K7 and K8 exist for float32 (``csrc/flash_attention_bwd.cu``: K7 on the
+tensor cores in 3xTF32, K8 with IEEE FMAs on the CUDA cores) and for bfloat16
+(tensor cores, ``csrc/flash_attention_bwd_bf16.cu``). The float32 K7's plain
+version stays the IEEE ``flash_attention_bwd_plain``, held to the same 2e-5;
+``flash_attention_bwd_3xtf32_plain`` repeats its arithmetic. In
 bfloat16 they round where the TPU kernels round: P to bfloat16 before
 ``dV = P^T dO``, and ``dS * sm_scale`` to bfloat16 before ``dK = dS^T Q`` and
 ``dQ = dS K``, every sum in float32. delta is float32 from float32 products in
@@ -73,7 +76,7 @@ import torch
 
 from minivectordb_tpu_torch.kernels import build
 from minivectordb_tpu_torch.ops import scan as scan_ops
-from minivectordb_tpu_torch.ops.tf32 import matmul_3xtf32
+from minivectordb_tpu_torch.ops.tf32 import matmul_3xtf32, tf32_split
 
 # float32(-0.7 * float32 max): what a query scores against a key of another
 # segment. Finite, so a row of masked logits has a softmax and no NaN.
@@ -300,6 +303,59 @@ def flash_attention_bwd_plain(q, k, v, segment_ids, out, dout, lse, sm_scale: fl
     return tuple(grads)
 
 
+DKV_F32_STEP = 64  # queries a step of the float32 K7 (csrc/flash_attention_bwd.cu: DkvCfg::W)
+
+
+def _k7_product(x, y):
+    """A product of K7-f32 in 3xTF32: x's words (Q, dO; Q^T, dO^T) truncated,
+    as the kernel reads them from the tiles, y's (K, V; P, dS) rounded to
+    nearest, as the kernel writes them."""
+    return matmul_3xtf32(x, y, rounding="zero", rounding_b="nearest")
+
+
+def flash_attention_bwd_3xtf32_plain(q, k, v, segment_ids, out, dout, lse, sm_scale: float):
+    """K7-f32's arithmetic in plain PyTorch, for tests and chip_smoke.py only
+    (the kernel's plain version stays ``flash_attention_bwd_plain``, in IEEE
+    float32): S = Q K^T and dP = dO V^T each from three TF32 products
+    (``matmul_3xtf32``: Q and dO cut by truncation, as the kernel reads them
+    from the tiles as they lie; K and V rounded to nearest), P = exp(S *
+    sm_scale - lse) in float32, and dS = (hi + lo) * (dP - delta) from P's
+    TF32 words hi and lo (rounded to nearest; hi + lo is P to 2^-22); then
+    per step of ``DKV_F32_STEP`` queries dV^T = dO^T P and dK^T = Q^T dS,
+    three TF32 products each (dO / Q the split A, truncated; P / dS the
+    split B, rounded to nearest), the steps' sums added in float32 in
+    ascending order, dK times sm_scale. dQ is K8's, IEEE float32 as in
+    ``flash_attention_bwd_plain``. float32 inputs only. Returns (dq, dk, dv)."""
+    _check(q, k, v, segment_ids)
+    _check_bwd(q, out, dout, lse)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the 3xTF32 form is float32's, not {q.dtype}'s")
+    scan_ops._assert_ieee_f32(q)
+    grads = [torch.empty(q.shape, dtype=q.dtype, device=q.device) for _ in range(3)]
+    s = q.shape[2]
+    for sl in _plain_pieces(q, segment_ids):
+        qf, kf, vf, dof = q[sl], k[sl], v[sl], dout[sl]
+        delta = _delta(out[sl], dout[sl])[..., None]
+        # dQ: K8's IEEE arithmetic
+        p = torch.exp(_plain_logits(qf, kf, segment_ids[sl], sm_scale) - lse[sl][..., None])
+        ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
+        grads[0][sl] = torch.matmul(ds, kf) * sm_scale
+        # dK, dV: K7's
+        p = torch.exp(_plain_logits(qf, kf, segment_ids[sl], sm_scale, _k7_product)
+                      - lse[sl][..., None])
+        p_hi, p_lo = tf32_split(p)  # warpgroup 1 reads P back from its words
+        ds = (p_hi + p_lo) * (_k7_product(dof, vf.transpose(-1, -2)) - delta)
+        dvt = torch.zeros(q[sl].transpose(-1, -2).shape, dtype=torch.float32, device=q.device)
+        dkt = torch.zeros_like(dvt)
+        for m0 in range(0, s, DKV_F32_STEP):
+            rows = slice(m0, min(m0 + DKV_F32_STEP, s))
+            dvt += _k7_product(dof[..., rows, :].transpose(-1, -2), p[..., rows, :])
+            dkt += _k7_product(qf[..., rows, :].transpose(-1, -2), ds[..., rows, :])
+        grads[1][sl] = dkt.transpose(-1, -2) * sm_scale
+        grads[2][sl] = dvt.transpose(-1, -2)
+    return tuple(grads)
+
+
 def tile_shape(dtype, hd: int) -> tuple[int, int]:
     """(query rows, keys) of one tile of the kernel that serves (dtype, hd):
     bfloat16 128 x 128; float32 128 x 64 up to hd = 64, 128 x 32 above
@@ -312,13 +368,14 @@ def tile_shape(dtype, hd: int) -> tuple[int, int]:
 def bwd_tile_shapes(dtype, hd: int) -> dict:
     """{"dkv": (query rows, keys), "dq": (query rows, keys)}: the tile on
     which K7 and K8 serving (dtype, hd) decide to skip or multiply. float32
-    (csrc/flash_attention_bwd.cu: T): 64 x 64 for both. bfloat16
+    (csrc/flash_attention_bwd.cu): K7 64 x KEYS (DkvCfg::W, KEYS), with
+    KEYS = 64 up to hd = 64, else 32; K8 64 x 64 (T). bfloat16
     (csrc/flash_attention_bwd_bf16.cu): K7 W x 64 (DkvCfg::W, KEYS), K8
     64 x W (DqCfg::QUERIES, W), with W = 64 up to hd = 64, else 32."""
+    w = 64 if hd <= 64 else 32
     if dtype == torch.bfloat16:
-        w = 64 if hd <= 64 else 32
         return {"dkv": (w, 64), "dq": (64, w)}
-    return {"dkv": (64, 64), "dq": (64, 64)}
+    return {"dkv": (DKV_F32_STEP, w), "dq": (64, 64)}
 
 
 def visited_tiles(segment_ids, rows: int, keys: int) -> int:

@@ -65,12 +65,14 @@ def tf32_split(x, rounding: str = "nearest"):
     return hi, f(x - hi)
 
 
-def matmul_3xtf32(a, b, rounding: str = "nearest"):
+def matmul_3xtf32(a, b, rounding: str = "nearest", rounding_b: str | None = None):
     """a @ b as the float32 kernels form it on the tensor cores: three
     products of TF32 operands, a_lo b_hi + a_hi b_lo + a_hi b_hi, summed in
     float32 in that order, the small terms first (each product of two TF32
     values is exact in float32; the dropped a_lo b_lo is below 2^-22 of
-    |a| |b| rounded, 2^-20 truncated)."""
+    |a| |b| rounded, 2^-20 truncated). ``rounding_b`` cuts b another way than
+    a (by default the same): K7-f32 truncates the tiles it reads as they lie
+    and rounds the words it writes."""
     a_hi, a_lo = tf32_split(a, rounding)
-    b_hi, b_lo = tf32_split(b, rounding)
+    b_hi, b_lo = tf32_split(b, rounding if rounding_b is None else rounding_b)
     return (torch.matmul(a_lo, b_hi) + torch.matmul(a_hi, b_lo)) + torch.matmul(a_hi, b_hi)

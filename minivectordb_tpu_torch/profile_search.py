@@ -11,7 +11,7 @@
     python -m minivectordb_tpu_torch.profile_search --phase1
         [--against OTHER/phase1.cu]
     python -m minivectordb_tpu_torch.profile_search --backward
-        [--dtype float32|bfloat16] [--batch 16]
+        [--dtype float32|bfloat16] [--batch 16] [--hd 64] [--heads 16] [--seq 512]
         [--against OTHER/flash_attention_bwd.cu | OTHER/flash_attention_bwd_bf16.cu]
     python -m minivectordb_tpu_torch.profile_search --train [--batch 8]
         [--seq 512] [--dtype float32|bfloat16]
@@ -79,8 +79,11 @@ With ``--backward`` it times the backward kernels K7 (dK, dV) and K8 (dQ)
 alone, in ``--dtype``, at the training step's shape (16 heads of 64, S = 512,
 the encoder's (B, S, nh, hd) memory; ragged lengths, q, k, v and dO seeded as
 chip_smoke.py seeds its training rows) for B = 16 and B = 8 (a step's
-launch), or ``--batch`` alone: each held against the plain backward, then the
-median of single launches and the mean of 20 back-to-back launches, by CUDA
+launch), or ``--batch`` alone; ``--hd``, ``--heads`` and ``--seq`` change the
+shape (``--hd 128 --heads 8 --seq 256 --batch 64``: the large slots'
+train_builtin launch, lengths from 100 up). Each is held against the plain
+backward, then timed: the median of single launches and the mean of 20
+back-to-back launches, by CUDA
 events; each row also gives what ptxas said of the kernel at that width
 (registers, spills; the other source's too, when this call built it) and,
 in bfloat16, the blocks an SM holds. Both this source and ``--against`` (another csrc/flash_attention_bwd.cu,
@@ -860,17 +863,19 @@ def _load_other(src: str, name: str, argtypes: dict):
     return lib
 
 
-def _ptxas(log: str, kernel: str) -> str | None:
-    """What ptxas -v said of the kernel whose mangled name holds ``kernel``:
-    "Used N registers, ...; ... bytes spill stores, ... bytes spill loads"
-    (None if the log does not hold it, e.g. a library built earlier)."""
+def _ptxas(log: str, *kernels: str) -> str | None:
+    """What ptxas -v said of the kernel whose mangled name holds the first
+    of ``kernels`` that the log names: "Used N registers, ...; ... bytes
+    spill stores, ... bytes spill loads" (None if the log holds none of them,
+    e.g. a library built earlier)."""
     lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line:
-            near = lines[i + 1:i + 4]
-            used = next((u for u in near if "Used" in u), "")
-            spills = next((u for u in near if "spill" in u), "")
-            return used.split(":", 1)[-1].strip() + "; " + spills.strip()
+    for kernel in kernels:
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and kernel in line:
+                near = lines[i + 1:i + 4]
+                used = next((u for u in near if "Used" in u), "")
+                spills = next((u for u in near if "spill" in u), "")
+                return used.split(":", 1)[-1].strip() + "; " + spills.strip()
     return None
 
 
@@ -972,9 +977,9 @@ def profile_attention(against: str | None, seed: int, reps: int, heads: int = 16
 
 
 def profile_backward(against: str | None, dtype: str, batches: list, seed: int,
-                     reps: int) -> list:
+                     reps: int, hd: int = 64, heads: int = 16, seq: int = 512) -> list:
     dev = torch.device("cuda", torch.cuda.current_device())
-    nh, s, hd = 16, 512, 64
+    nh, s = heads, seq
     kind = "f32" if dtype == "float32" else "bf16"
     names = {"K7": f"flash_attention_bwd_dkv_{kind}", "K8": f"flash_attention_bwd_dq_{kind}"}
     other = None
@@ -985,9 +990,10 @@ def profile_backward(against: str | None, dtype: str, batches: list, seed: int,
     rows = []
     for b in batches:
         # chip_smoke.py's training rows: seeded_lengths(b, s, 200, SEED + 87),
-        # attention_case(..., SEED + 88), dO from SEED + 89
+        # attention_case(..., SEED + 88), dO from SEED + 89 (lengths from
+        # 200 / 512 of S up: 100 at the slots' S = 256)
         rng = np.random.default_rng(seed + 87)
-        lengths = rng.integers(200, s + 1, size=b)
+        lengths = rng.integers(s * 200 // 512, s + 1, size=b)
         lengths[0] = s
         seg = torch.as_tensor((np.arange(s)[None, :] < lengths[:, None]).astype(np.int32),
                               device=dev)
@@ -1024,13 +1030,17 @@ def profile_backward(against: str | None, dtype: str, batches: list, seed: int,
         for kernel, name in names.items():
             n_out = 2 if kernel == "K7" else 1
             this = bare(flash_ops._kernel_fn(name), name, n_out)
-            mangled = (f"{'bwd_dkv' if kernel == 'K7' else 'bwd_dq'}"
-                       f"{'_bf16' if kind == 'bf16' else ''}_kernelILi{hd}E")
+            # K7-f32's kernel is bwd_dkv_tf32_kernel (bwd_dkv_kernel in sources
+            # before its 3xTF32 form)
+            stem = "bwd_dkv" if kernel == "K7" else "bwd_dq"
+            infixes = (["_bf16"] if kind == "bf16" else ["_tf32", ""] if kernel == "K7"
+                       else [""])
+            mangled = [f"{stem}{infix}_kernelILi{hd}E" for infix in infixes]
             row = {"kernel": f"{kernel}-{kind}", "shape": [b, nh, s, hd],
                    "lengths_min": int(lengths.min()),
                    "lengths_mean": float(lengths.mean()),
                    "max_abs_err_vs_plain": err_vs_plain(this, kernel),
-                   "ptxas": _ptxas(build.build_info[flash_ops._SOURCE[name]]["log"], mangled)}
+                   "ptxas": _ptxas(build.build_info[flash_ops._SOURCE[name]]["log"], *mangled)}
             if kind == "bf16":
                 row["blocks_per_sm"] = flash_ops.bwd_bf16_blocks_per_sm(
                     hd, "dkv" if kernel == "K7" else "dq")
@@ -1039,7 +1049,7 @@ def profile_backward(against: str | None, dtype: str, batches: list, seed: int,
                 that = bare(getattr(other, name), name, n_out)
                 row["other"] = against
                 row["other_max_abs_err_vs_plain"] = err_vs_plain(that, kernel)
-                row["other_ptxas"] = _ptxas(_OTHER_LOGS.get(against, ""), mangled)
+                row["other_ptxas"] = _ptxas(_OTHER_LOGS.get(against, ""), *mangled)
             _in_turns(row, this, that, reps)
             rows.append(row)
         del q, k, v, dout, out, lse, ops, want, qo, ko, vo, doo, lseo, deltao
@@ -1171,8 +1181,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--attention", action="store_true",
                     help="time the attention kernel K6 alone at the embed call's shape")
     ap.add_argument("--hd", type=int, default=64,
-                    help=f"with --attention: the head width, one of {flash_ops.HEAD_DIMS}")
-    ap.add_argument("--heads", type=int, default=16, help="with --attention: the heads")
+                    help=f"with --attention / --backward: the head width, one of "
+                         f"{flash_ops.HEAD_DIMS}")
+    ap.add_argument("--heads", type=int, default=16,
+                    help="with --attention / --backward: the heads")
     ap.add_argument("--phase1", action="store_true",
                     help="time the phase-1 kernels K1-f32, K1-bf16 and K2 alone at the "
                          "search's shape")
@@ -1226,7 +1238,8 @@ def main() -> None:
         return
     if args.backward:
         batches = [args.batch] if batch_given else [16, 8]
-        for res in profile_backward(args.against, args.dtype, batches, args.seed, args.reps):
+        for res in profile_backward(args.against, args.dtype, batches, args.seed, args.reps,
+                                    args.hd, args.heads, args.seq):
             res["card"] = smi
             print(json.dumps(res), flush=True)
         return

@@ -361,10 +361,25 @@ def test_backward_kernels_have_a_source_count_launches_and_build_nothing_at_impo
     assert len(fa._ARGTYPES["flash_attention_bwd_dq_f32"]) == 8 + 4 + 9 + 2
     for hd in fa.HEAD_DIMS:
         assert f"BWD_CASE({hd})" in bwd
-    # float32 FMAs on the CUDA cores: no tensor-core instruction, no library;
-    # P as one exp2f of a prescaled argument in both kernels
-    assert "fmaf" in bwd and bwd.count("exp2f(fmaf(s[i][j], scale2, -lrow))") == 2
-    assert "mma.sync" not in bwd and "mma_async" not in bwd
+    # K7 forms its four products on the tensor cores in 3xTF32 (wgmma with
+    # TF32 operands: A from shared memory for the hi words of S and dP, from
+    # registers otherwise; hi and lo words by truncation where the kernel
+    # reads a tile, by cvt.rna where it writes one; its tiles by TMA onto
+    # mbarriers); K8 keeps float32 FMAs on the CUDA cores; no library. P is
+    # one exponential of a prescaled argument in both kernels (ex2.approx in
+    # K7, exp2f in K8)
+    k7 = bwd[bwd.index("bwd_dkv_tf32_kernel(const"):bwd.index("// K8\n")]
+    k8 = bwd[bwd.index("bwd_dq_kernel(const"):bwd.index("struct Problem {")]
+    assert k7.count("Tf32Mma<KEYS>::rs(") == 4 and k7.count("Tf32Mma<KEYS>::ss(") == 2
+    assert "tf32_split(" in k7 and "tf32_trunc(" in k7 and "fmaf(s[" not in k7
+    assert "cvt.rna.tf32.f32" in bwd and "cp.async.bulk.tensor.5d" in bwd
+    for n in (32, 64):  # a block's keys: N of every product
+        assert f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 {{" in bwd
+    assert k7.count("fast_exp2(fmaf(x, scale2, -lq[hh]))") == 1
+    assert "mma_async" not in k8 and "Tf32Mma" not in k8
+    assert "fmaf" in k8 and k8.count("exp2f(fmaf(s[i][j], scale2, -lrow))") == 1
+    assert "mma.sync" not in bwd and "bwd_dkv_kernel" not in bwd  # the CUDA-core K7 is gone
+    assert "atom." not in bwd and "atomicAdd" not in bwd  # deterministic: no atomics
     for word in ("cublas", "cutlass", "cudnn"):
         assert word not in bwd.lower()
     with pytest.raises(ValueError):
@@ -385,32 +400,38 @@ def _bwd_tile_consts():
         with open(os.path.join(build.CSRC_DIR, name + ".cu"), encoding="utf-8") as f:
             return f.read()
 
+    def struct(src, name):
+        body = src[src.index(f"struct {name} {{"):]
+        return body[:body.index("};")]
+
     f32, bf16 = read("flash_attention_bwd"), read("flash_attention_bwd_bf16")
     t = int(re.search(r"constexpr int T = (\d+);", f32).group(1))
-    dq_cfg = bf16[bf16.index("struct DqCfg {"):]
-    dq_cfg = dq_cfg[:dq_cfg.index("};")]
-    dkv_cfg = bf16[bf16.index("struct DkvCfg {"):]
-    dkv_cfg = dkv_cfg[:dkv_cfg.index("};")]
+    dq_cfg, dkv_cfg = struct(bf16, "DqCfg"), struct(bf16, "DkvCfg")
     rule = r"constexpr int W = HD <= (\d+) \? (\d+) : (\d+);"
     w_dq = [int(x) for x in re.search(rule, dq_cfg).groups()]
     bt = int(re.search(r"constexpr int QUERIES = (\d+);", dq_cfg).group(1))
     w_dkv = [int(x) for x in re.search(rule, dkv_cfg).groups()]
     keys = int(re.search(r"constexpr int KEYS = (\d+);", dkv_cfg).group(1))
-    return t, bt, w_dq, keys, w_dkv
+    # the float32 K7: W queries a step, KEYS keys a block by the head width
+    f32_dkv = struct(f32, "DkvCfg")
+    w_f32 = int(re.search(r"constexpr int W = (\d+);", f32_dkv).group(1))
+    keys_f32 = [int(x) for x in re.search(r"constexpr int KEYS = HD <= (\d+) \? (\d+) : (\d+);",
+                                          f32_dkv).groups()]
+    return t, bt, w_dq, keys, w_dkv, w_f32, keys_f32
 
 
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_bwd_tile_shapes_match_the_kernels(hd):
     """What chip_smoke.py multiplies out for K7 / K8: the tiles on which each
     backward kernel decides to skip or multiply, read from the sources."""
-    t, bt, w_dq, keys, w_dkv = _bwd_tile_consts()
-    assert fa.bwd_tile_shapes(torch.float32, hd) == {"dkv": (t, t), "dq": (t, t)}
-    assert t == bt == 64
+    t, bt, w_dq, keys, w_dkv, w_f32, keys_f32 = _bwd_tile_consts()
 
     def w(rule):
         upto, then, other = rule
         return then if hd <= upto else other
 
+    assert fa.bwd_tile_shapes(torch.float32, hd) == {"dkv": (w_f32, w(keys_f32)), "dq": (t, t)}
+    assert t == bt == w_f32 == fa.DKV_F32_STEP == 64
     assert fa.bwd_tile_shapes(torch.bfloat16, hd) == {"dkv": (w(w_dkv), keys),
                                                       "dq": (bt, w(w_dq))}
 
@@ -486,6 +507,10 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119bwd_dkv_bf16_kernel
 ptxas info    : Function properties for _ZN12_GLOBAL__N_119bwd_dkv_bf16_kernelILi64EEEvPK13__nv_bfloat16
     8 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers, 528 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__171b0146_22_flash_attention_bwd_cu_fecfc4fd19bwd_dkv_tf32_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_bbPKfS3_PKiPfS6_iiNS_7StridesEf' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__171b0146_22_flash_attention_bwd_cu_fecfc4fd19bwd_dkv_tf32_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_bbPKfS3_PKiPfS6_iiNS_7StridesEf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 254 registers, used 4 barriers, 592 bytes cmem[0]
 """
 
 
@@ -495,14 +520,22 @@ ptxas info    : Used 168 registers, used 1 barriers, 528 bytes cmem[0]
     ("bwd_dq_bf16_kernelILi64E", "Used 154 registers, used 1 barriers, 528 bytes cmem[0]; "
                                  "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
     ("bwd_dkv_bf16_kernelILi128E", None),
+    # the float32 K7 (3xTF32), whose name an older source does not hold: the
+    # first name the log holds is reported
+    ("bwd_dkv_tf32_kernelILi128E", "Used 254 registers, used 4 barriers, 592 bytes cmem[0]; "
+                                   "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("bwd_dkv_kernelILi128E bwd_dkv_tf32_kernelILi128E",
+     "Used 254 registers, used 4 barriers, 592 bytes cmem[0]; "
+     "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("bwd_dkv_kernelILi64E bwd_dkv_tf32_kernelILi64E", None),
 ])
 def test_profile_search_reads_each_kernels_registers_and_spills(kernel, want):
     """``profile_search --backward`` reports what ptxas -v said of the kernel
-    it times, found by its mangled name, and nothing for a kernel the log
-    does not hold."""
+    it times, found by its mangled name (the first of several names that the
+    log holds), and nothing for a kernel the log does not hold."""
     from minivectordb_tpu_torch import profile_search
 
-    assert profile_search._ptxas(_PTXAS_LOG, kernel) == want
+    assert profile_search._ptxas(_PTXAS_LOG, *kernel.split()) == want
 
 
 @pytest.mark.cuda

@@ -15,7 +15,8 @@ Phases (one JSON object per output line):
              pipeline serialized or a setmaxnreg ignored (C7508 / C7512 /
              C7515); the same for K1-f32's 3xTF32 kernel
              (phase1_tf32_kernel) in each of its three instantiations, and for
-             K7-f32's (bwd_dkv_tf32_kernel) at every head width (C7520 too)
+             K7-f32's (bwd_dkv_tf32_kernel) and K8-f32's (bwd_dq_tf32_kernel)
+             at every head width (C7520 too)
   main_path  VectorDatabase(device_dtype="float32") with 1,000,000 x 384
              seeded vectors: batch, filtered, single, async and
              after-delete searches, held against an oracle computed here
@@ -304,6 +305,10 @@ peak, and bound_ms_ieee beside it the operations at the float32 peak. Its rows
 also give max_abs_err_vs_float64 of the kernel, of the IEEE plain version and
 of SDPA against a float64 attention of the same inputs, and the kernel's
 distance to flash_attention_3xtf32_plain (its arithmetic in plain PyTorch).
+K7-f32 and K8-f32 form theirs in 3xTF32 as well: the same two bounds, and
+max_abs_err_vs_float64 (dK and dV, or dQ, against float64_attention_bwd) of
+the kernel, the IEEE plain backward, flash_attention_bwd_3xtf32_plain and
+SDPA's autograd backward.
 K1-f32 and K1-f32-mask run 3xTF32 too (the words as they lie are their TF32
 hi, truncated): the same two bounds, and max_abs_err_vs_float64 of the
 kernel, the IEEE plain version and subtile_maxima_3xtf32_plain over the first
@@ -535,17 +540,19 @@ def phase_env() -> str:
                 if any(code in line for code in ("C7508", "C7512", "C7515"))
                 and ("phase1_tf32_kernel" in line or "'" not in line)]
     assert not pipeline, ("ptxas serialized K1-f32's wgmma or ignored its setmaxnreg", pipeline)
-    # K7-f32 (3xTF32 on wgmma) spills nothing at any width, and ptxas did not
-    # serialize its wgmma pipeline (C7512, C7515; C7520: around a
-    # warpgroup.arrive it inserted in a divergent path)
-    k7_f32 = {hd: ptxas_of("bwd_dkv_tf32_kernel", hd) for hd in flash_ops.HEAD_DIMS}
-    spilled = {hd: r for hd, r in k7_f32.items()
-               if r["spill_store_bytes"] or r["spill_load_bytes"]}
-    assert not spilled, ("K7-f32 spills", spilled)
-    pipeline = [line for line in build.build_info["flash_attention_bwd"]["log"].splitlines()
-                if any(code in line for code in ("C7508", "C7512", "C7515", "C7520"))
-                and ("bwd_dkv_tf32_kernel" in line or "'" not in line)]
-    assert not pipeline, ("ptxas serialized K7-f32's wgmma", pipeline)
+    # K7-f32 and K8-f32 (3xTF32 on wgmma) spill nothing at any width, and
+    # ptxas did not serialize their wgmma pipelines (C7512, C7515; C7520:
+    # around a warpgroup.arrive it inserted in a divergent path)
+    bwd_f32 = {}
+    for name, kernel in (("K7-f32", "bwd_dkv_tf32_kernel"), ("K8-f32", "bwd_dq_tf32_kernel")):
+        found = bwd_f32[name] = {hd: ptxas_of(kernel, hd) for hd in flash_ops.HEAD_DIMS}
+        spilled = {hd: r for hd, r in found.items()
+                   if r["spill_store_bytes"] or r["spill_load_bytes"]}
+        assert not spilled, (f"{name} spills", spilled)
+        pipeline = [line for line in build.build_info["flash_attention_bwd"]["log"].splitlines()
+                    if any(code in line for code in ("C7508", "C7512", "C7515", "C7520"))
+                    and (kernel in line or "'" not in line)]
+        assert not pipeline, (f"ptxas serialized {name}'s wgmma", pipeline)
     emit({
         "phase": "env",
         "nvidia_smi": smi,
@@ -560,7 +567,8 @@ def phase_env() -> str:
         "k6_bf16_hd128_ptxas": k6_hd128,
         "k6_f32_ptxas": k6_f32,
         "k1_f32_ptxas": k1_f32,
-        "k7_f32_ptxas": k7_f32,
+        "k7_f32_ptxas": bwd_f32["K7-f32"],
+        "k8_f32_ptxas": bwd_f32["K8-f32"],
     })
     print(smi, flush=True)
     return smi
@@ -2267,7 +2275,8 @@ def f32_accuracy(q, k, v, seg, scale, out, lse=None) -> dict:
 def float64_attention_bwd(q, k, v, seg, dout, scale):
     """(dq, dk, dv) of attention within segments in float64, a batch row at a
     time (delta = rowsum(dP * P), equal to rowsum(dO * O) in exact
-    arithmetic): the yardstick of the K7-f32 rows' max_abs_err_vs_float64."""
+    arithmetic): the yardstick of the K7-f32 and K8-f32 rows'
+    max_abs_err_vs_float64."""
     grads = [torch.empty(q.shape, dtype=torch.float64, device=q.device) for _ in range(3)]
     mask = torch.tensor(flash_ops.MASK_VALUE, dtype=torch.float64, device=q.device)
     for i in range(q.shape[0]):
@@ -2282,28 +2291,31 @@ def float64_attention_bwd(q, k, v, seg, dout, scale):
     return grads
 
 
-def f32_bwd_accuracy(q, k, v, seg, scale, out, dout, lse, dk, dv, library) -> dict:
-    """K7-f32's dK and dV beside the IEEE plain backward's, its 3xTF32
-    arithmetic in plain PyTorch (flash_attention_bwd_3xtf32_plain) and SDPA's
-    autograd backward (``library``: dq, dk, dv), each against
-    float64_attention_bwd (the larger distance of dK's and dV's), and the
-    kernel's distance to the 3xTF32 plain version; the plain versions take
-    the same forward output and log-sum-exp as the kernel."""
-    _dq64, dk64, dv64 = float64_attention_bwd(q, k, v, seg, dout, scale)
-    _pdq, pdk, pdv = flash_ops.flash_attention_bwd_plain(q, k, v, seg, out, dout, lse, scale)
-    _edq, edk, edv = flash_ops.flash_attention_bwd_3xtf32_plain(q, k, v, seg, out, dout, lse,
-                                                                scale)
+def f32_bwd_accuracy(q, k, v, seg, scale, out, dout, lse, got, which, library) -> dict:
+    """A float32 backward kernel's gradients ``got`` (K7-f32: dk, dv, which =
+    (1, 2); K8-f32: dq, which = (0,)) beside the IEEE plain backward's, the
+    3xTF32 arithmetic in plain PyTorch (flash_attention_bwd_3xtf32_plain) and
+    SDPA's autograd backward (``library``: dq, dk, dv), each against
+    float64_attention_bwd (the largest distance over the kernel's gradients),
+    and the kernel's distance to the 3xTF32 plain version; the plain versions
+    take the same forward output and log-sum-exp as the kernel."""
+    want = float64_attention_bwd(q, k, v, seg, dout, scale)
+    plain = flash_ops.flash_attention_bwd_plain(q, k, v, seg, out, dout, lse, scale)
+    emul = flash_ops.flash_attention_bwd_3xtf32_plain(q, k, v, seg, out, dout, lse, scale)
 
-    def dist(gk, gv):
-        return max(float((gk.to(torch.float64) - dk64).abs().max()),
-                   float((gv.to(torch.float64) - dv64).abs().max()))
+    def dist(grads):
+        return max(float((g.to(torch.float64) - want[i]).abs().max())
+                   for g, i in zip(grads, which))
 
-    res = {"max_abs_err_vs_float64": {"kernel": dist(dk, dv), "plain": dist(pdk, pdv),
-                                      "3xtf32_plain": dist(edk, edv),
-                                      "library": dist(library[1], library[2])},
-           "max_abs_err_vs_3xtf32_plain": max(float((dk - edk).abs().max()),
-                                              float((dv - edv).abs().max()))}
-    del dk64, dv64, pdk, pdv, edk, edv
+    def pick(grads):
+        return [grads[i] for i in which]
+
+    res = {"max_abs_err_vs_float64": {"kernel": dist(got), "plain": dist(pick(plain)),
+                                      "3xtf32_plain": dist(pick(emul)),
+                                      "library": dist(pick(library))},
+           "max_abs_err_vs_3xtf32_plain": max(float((g - e).abs().max())
+                                              for g, e in zip(got, pick(emul)))}
+    del want, plain, emul
     torch.cuda.empty_cache()
     return res
 
@@ -3757,7 +3769,9 @@ def train_kernel_rows(launches: dict) -> list:
                  f"bwd S={s} hd={hd}")
     for name, ids in segment_patterns(4, 512, SEED + 85).items():
         held(attention_case(4, 4, 512, 64, torch.float32, ids, SEED + 86), f"bwd {name} ids")
-        for hd in (48, 128):  # the slots' widths: K7-f32's other tiles (32 keys above hd = 64)
+        # the slots' widths: K7-f32's and K8-f32's other tiles (32 keys or
+        # queries a block above hd = 64)
+        for hd in (48, 128):
             held(attention_case(4, 4, 512, hd, torch.float32, ids, SEED + 86 + hd),
                  f"bwd {name} ids hd={hd}")
 
@@ -3775,8 +3789,8 @@ def train_rows_at(shape, lengths, seed, launches: dict, suffix: str) -> list:
     """K6-f32 with lse, K7 and K8 at ``shape`` = (B, nh, S, hd) with the given
     lengths (the case from ``seed``, dO from ``seed + 1``), held against their
     plain versions (compare_backward), timed beside them, beside SDPA's
-    forward and autograd backward and beside the bound (for K6-f32-lse and
-    K7-f32, whose products are 3xTF32, three TF32 products at the TF32 peak,
+    forward and autograd backward and beside the bound (for K6-f32-lse, K7-f32
+    and K8-f32, whose products are 3xTF32, three TF32 products at the TF32 peak,
     the IEEE bound beside it, and their outputs' distances to float64 beside
     the plain versions' and SDPA's); with each kernel's registers and spills
     at that hd. Rows are named "<kernel><suffix>". ``launches`` maps entry
@@ -3834,7 +3848,7 @@ def train_rows_at(shape, lengths, seed, launches: dict, suffix: str) -> list:
              "K7-f32": bwd_tiles["dkv"], "K8-f32": bwd_tiles["dq"]}
     per_pair = {"K6-f32-lse": 4, "K7-f32": 8, "K8-f32": 6}
     ptxas = {"K6-f32-lse": "flash_f32_kernel", "K7-f32": "bwd_dkv_tf32_kernel",
-             "K8-f32": "bwd_dq_kernel"}
+             "K8-f32": "bwd_dq_tf32_kernel"}
     rows = []
     for name, (run, plain, library, n_bytes, n_ops, replaces, source, entry,
                lib_what) in kinds.items():
@@ -3854,10 +3868,17 @@ def train_rows_at(shape, lengths, seed, launches: dict, suffix: str) -> list:
         elif name == "K7-f32":  # the same, and the gradients beside float64's
             dk, dv = run()
             extra = {"bound_ms_ieee": max(t_bytes, t_ops),
-                     **f32_bwd_accuracy(q, k, v, seg, scale, out, dout, lse, dk, dv,
+                     **f32_bwd_accuracy(q, k, v, seg, scale, out, dout, lse, (dk, dv), (1, 2),
                                         sdpa_backward())}
             t_ops = 3 * n_ops / PEAK_TF32_S * 1e3
             del dk, dv
+        elif name == "K8-f32":
+            dq = run()
+            extra = {"bound_ms_ieee": max(t_bytes, t_ops),
+                     **f32_bwd_accuracy(q, k, v, seg, scale, out, dout, lse, (dq,), (0,),
+                                        sdpa_backward())}
+            t_ops = 3 * n_ops / PEAK_TF32_S * 1e3
+            del dq
         ms = statistics.median([ms_a, ms_b])
         rows.append({
             "name": name + suffix,

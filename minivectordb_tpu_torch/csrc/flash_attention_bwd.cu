@@ -17,9 +17,9 @@
 //   dQ       = dS K * scale
 // in float32, the (S, S) matrices never in device memory. delta is one
 // torch.sum in the wrapper, as the TPU code computes it in XLA outside its
-// kernels. K7 forms its four products on the tensor cores in 3xTF32
-// (bwd_dkv_tf32_kernel); K8 multiplies with IEEE FMAs on the CUDA cores
-// (bwd_dq_kernel, never TF32).
+// kernels. Both form their products on the tensor cores in 3xTF32: K7 its
+// four (bwd_dkv_tf32_kernel), K8 its three (bwd_dq_tf32_kernel), K8 being
+// K7 mirrored.
 //
 // K7. Work: 8 * HD operations per (query, key) pair of one segment (S, dP,
 // dV, dK), against q, k, v, dO read and dK, dV written once: operations bound
@@ -79,21 +79,48 @@
 // What bounds it now is the chain of a step inside each warpgroup, not the
 // tensor cores: see PERF.md section 6 for its ablations on the card.
 //
-// K8 takes one block per (batch, head, query tile of T = 64 rows) and walks
-// the key tiles, dQ in registers. Its 256 threads form two groups that split
-// S and dP (group 0 S and P, group 1 dP and dS, 8 x 4 tiles a thread, a warp
-// 8 rows x 4 keys), P and dS passing through one row-major tile whose stores
-// miss no bank; then all 256 threads compute dQ += dS K on a 16 x 16 grid,
-// each thread 4 rows and float4 column groups tx + 16 c, over the keys in
-// ascending order. K is double-buffered and V refilled in place, by cp.async
-// behind the products: group 0 fetches the next visited tile's K once its P
-// is in, group 1 the next V once its own reads of V are done, so a key tile
-// costs two block-wide barriers and one named one. Two blocks an SM up to
-// HD = 64 (106 KB, 128 registers). Work: 6 * HD operations per pair (S, dP,
-// dQ), about 67 TFLOP/s of float32 on the card; what bounds it is the
-// dispatch of FMAs beside the shared-memory loads that feed them (per 4-wide
-// step of HD a thread reads 12 float4s for 128 FMAs in S or dP, 8 for 64 in
-// dQ).
+// K8. Work: 6 * HD operations per pair of one segment (S, dP, dQ), against
+// q, k, v, dO read and dQ written once: operations bound it, 0.098 ms in
+// 3xTF32 at the e5-large training shape (0.240 ms on the CUDA cores, where
+// the CUDA-core kernel this one replaces reached 38% of it, held back by the
+// dispatch of FMAs beside the shared-memory loads that fed them). K8 is K7
+// mirrored: a block owns a tile of queries and walks the key steps of 64.
+//   - Operands. dQ = dS K contracts over the keys, so the kernel forms
+//     dQ^T = K^T dS^T: dS is written query-major by the kernel itself (B),
+//     K^T is read from the landed K tile in transposed order into register
+//     fragments (A; K7's bank-free order, the keys of each 8 as 0, 2, 4, 6,
+//     1, 3, 5, 7 on both sides). M is hd (one m-tile up to hd = 64, two
+//     above; rows past hd read as zeros). S and dP are formed transposed
+//     too, S^T = K Q^T and dP^T = V dO^T: the step's K and V are their A
+//     operands as TMA lands them (hi: the tile as it lies; lo: x - hi,
+//     truncated, in registers), and the block's Q and dO, rounded in place
+//     once with their lo words beside them, are B. So, as in K7, no stage
+//     needs lo words written into shared memory.
+//   - Shared memory: Q, dO and their lo words stay for the block's life, a
+//     step's K and V land in one of two stages, dS takes two query-major
+//     words (hi, lo) and S^T / dP^T one exchange tile. A block owns 64
+//     queries up to hd = 64 (177 KB at hd = 64) and 32 above (217 KB at
+//     hd = 128); one block an SM.
+//   - The split: warpgroup 0 forms S^T, warpgroup 1 dP^T, over all of the
+//     block's queries. Each then hands the other half of its product to the
+//     other warpgroup through the exchange tile and forms P (one ex2.approx
+//     of a prescaled argument, then the mask) and dS = P (dP - delta) for
+//     its own half of the queries, written as dS^T's hi and lo words. dQ^T
+//     is split in two as well: up to hd = 64 each warpgroup takes its own
+//     half of the queries, above it one m-tile of all the queries; either
+//     way N = 32 and 16 + 16 accumulator words a thread.
+//   - Each warpgroup keeps one step's dQ^T and the next step's S^T or dP^T
+//     in flight together and waits for both inside the iteration. Above
+//     hd = 64 the lo words of S^T's or dP^T's A past the first quarter of hd
+//     are loaded once that dQ^T has completed, so the two sets of register
+//     words never live at once: no spill at any width (up to 255 registers).
+//     Each step's dQ^T is summed on the tensor cores into a fresh accumulator and
+//     added to the running sum in IEEE float32, the steps in ascending key
+//     order (K7's rule). K and V arrive by TMA into two stages, each visited
+//     step two ahead, by warp 0 once every warp has released the stage, the
+//     keys' ids by cp.async onto the same barrier; Q, dO and the queries'
+//     lse, delta and ids once.
+//   - dQ leaves through shared memory as whole 16-byte pieces, times scale.
 //
 // In both kernels a tile whose range of segment ids [min, max] does not meet
 // the block's own holds no pair of one segment and is skipped: the rule of
@@ -119,9 +146,6 @@
 
 namespace {
 
-constexpr int T = 64;         // K8: query rows and keys per tile
-constexpr int THREADS = 256;  // 16 x 16: ty = tid / 16, tx = tid % 16
-constexpr int PLD = T + 4;    // shared row stride of a P or dS tile
 constexpr int MAX_DEVICES = 64;
 constexpr float LOG2E = 1.44269504088896341f;
 
@@ -129,95 +153,14 @@ struct Strides {
     long long b, h, s;  // in elements
 };
 
-template <int HD>
-struct Cfg {
-    static constexpr int LD = HD + 4;  // shared row stride of a Q, K, V or dO tile
-    static constexpr int C4 = HD / 4;  // float4 columns of a row
-    static constexpr int CG = (C4 + 15) / 16;  // float4 column groups of a thread
-    // K8: Q, dO, two K tiles, V, P / dS, lse, delta, the rows' ids and two
-    // key tiles' ids; two blocks an SM where they fit
-    static constexpr int DQ_SMEM = (5 * T * LD + T * PLD + 2 * T) * 4 + 3 * T * 4;
-    static constexpr int DQ_MINB = 2 * (DQ_SMEM + 1024) <= 233472 ? 2 : 1;
-    static_assert(DQ_SMEM <= 232448, "shared memory above the block limit");
-};
-
-// [lo, hi] of the segment ids of rows first .. first + T - 1 below S (first <
-// S); every lane of the calling warp gets both (indices past S repeat row
-// S - 1, which changes neither bound). Every warp computes it for itself, so
-// a block-wide decision on it needs no barrier.
-__device__ __forceinline__ void seg_range(const int* __restrict__ segb, int first, int S,
-                                          int& lo, int& hi) {
-    const int lane = threadIdx.x & 31;
-    const int a = segb[min(first + lane, S - 1)];
-    const int c = segb[min(first + lane + 32, S - 1)];
-    lo = min(a, c);
-    hi = max(a, c);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    }
-}
-
-__device__ __forceinline__ float comp(const float4& x, int u) {
-    return u == 0 ? x.x : u == 1 ? x.y : u == 2 ? x.z : x.w;
-}
-
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 / 4 bytes global -> shared, asynchronous; zeros when !valid (src unread)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
+// 4 bytes global -> shared, asynchronous; zeros when !valid (src unread)
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                  :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0) : "memory");
-}
-// waits for this thread's copies; a barrier after it publishes everyone's
-__device__ __forceinline__ void cp_async_wait_all() {
-    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows r0 .. r0 + T - 1 of one (batch, head) of a (.., S, HD) tensor whose
-// rows are ss elements apart -> a shared tile with row stride LD, by cp.async
-// (zeros past S), issued by threads first .. first + n - 1 of the block
-template <int HD>
-__device__ __forceinline__ void fetch_tile(float* dst, const float* __restrict__ src,
-                                           long long ss, int r0, int S,
-                                           int first = 0, int n = THREADS) {
-    using C = Cfg<HD>;
-    for (int idx = threadIdx.x - first; idx < T * C::C4; idx += n) {
-        const int r = idx / C::C4;
-        const int c = idx - r * C::C4;
-        const bool ok = r0 + r < S;
-        cp_async16(dst + r * C::LD + 4 * c, src + (ok ? (r0 + r) * ss + 4 * c : 0), ok);
-    }
-}
-
-// the segment ids of rows r0 .. r0 + T - 1 -> ids[0, T) by cp.async, one a
-// thread of the first T (zeros past S)
-__device__ __forceinline__ void fetch_ids(int* ids, const int* __restrict__ segb, int r0,
-                                          int S) {
-    const int t = threadIdx.x;
-    if (t < T) cp_async4(ids + t, segb + (r0 + t < S ? r0 + t : 0), r0 + t < S);
-}
-
-// lse, delta and ids of rows r0 .. r0 + T - 1 -> rows[0, T), [T, 2T),
-// [2T, 3T) by cp.async, one value a thread (zeros past S)
-__device__ __forceinline__ void fetch_rows(float* rows, const float* __restrict__ lseb,
-                                           const float* __restrict__ deltab,
-                                           const int* __restrict__ segb, int r0, int S) {
-    static_assert(THREADS >= 3 * T, "one value a thread");
-    const int i = threadIdx.x, which = i / T, r = i - which * T;
-    if (which > 2) return;
-    const bool ok = r0 + r < S;
-    const int at = ok ? r0 + r : 0;
-    cp_async4(rows + i, which == 0 ? static_cast<const void*>(lseb + at)
-                        : which == 1 ? static_cast<const void*>(deltab + at)
-                                     : static_cast<const void*>(segb + at), ok);
 }
 
 // named barriers (0 is __syncthreads): n threads, whole warps
@@ -466,6 +409,15 @@ __device__ __forceinline__ int next_step(const int* __restrict__ segb, int r0, i
     return r0;
 }
 
+// Within each 8 positions of the dimension a second product contracts over
+// (K7: queries, K8: keys), its B tile holds them in the order 0, 2, 4, 6, 1,
+// 3, 5, 7: the order its A fragments take them in (fragment column t4 + 4 E
+// is position 2 t4 + E), which keeps the fragment loads off shared bank
+// conflicts
+__device__ __forceinline__ int frag_pos(int x) {
+    return (x & ~7) | ((x & 7) >> 1) | ((x & 1) << 2);
+}
+
 // K7's shapes and shared memory (byte offsets). Tiles of q, k, v and dO
 // land by TMA as slabs of SPAN-byte rows (the widest swizzle, 64 or 128
 // bytes, dividing a row's 4 HD bytes), slab after slab; P and dS are tiles of
@@ -656,10 +608,6 @@ bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
         wgmma_commit();
     };
 
-    // Within each 8 queries the P and dS tiles hold queries 0, 2, 4, 6, 1, 3,
-    // 5, 7 (the order the second product's A fragments take them in)
-    auto qpos = [](int q) { return (q & ~7) | ((q & 7) >> 1) | ((q & 1) << 2); };
-
     // P = 2^(s * scale * log2 e - lse * log2 e), then the mask (a query
     // past S takes lse = inf, so its P is 0), written key-major as its hi and
     // lo words; warpgroup 1 reads them back (hi + lo is exact in float32)
@@ -698,7 +646,7 @@ bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 #pragma unroll
                     for (int e = 0; e < 2; ++e) {
                         const float p = c[4 * j + 2 * hh + e];
-                        const uint32_t at = tile_at<128, KEYS>(8 * j + 2 * t4 + e, qpos(r0 + 8 * hh));
+                        const uint32_t at = tile_at<128, KEYS>(8 * j + 2 * t4 + e, frag_pos(r0 + 8 * hh));
                         uint32_t hi, lo;
                         tf32_split(p, hi, lo);
                         *reinterpret_cast<uint32_t*>(pw + at) = hi;
@@ -718,7 +666,7 @@ bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                 for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
                     for (int e = 0; e < 2; ++e) {
-                        const uint32_t at = tile_at<128, KEYS>(8 * j + 2 * t4 + e, qpos(r0 + 8 * hh));
+                        const uint32_t at = tile_at<128, KEYS>(8 * j + 2 * t4 + e, frag_pos(r0 + 8 * hh));
                         const float p = *reinterpret_cast<const float*>(pw + at) +
                                         *reinterpret_cast<const float*>(pw + C::PT + at);
                         float& x = c[4 * j + 2 * hh + e];
@@ -731,7 +679,7 @@ bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
                 for (int hh = 0; hh < 2; ++hh)
 #pragma unroll
                     for (int e = 0; e < 2; ++e) {
-                        const uint32_t at = tile_at<128, KEYS>(8 * j + 2 * t4 + e, qpos(r0 + 8 * hh));
+                        const uint32_t at = tile_at<128, KEYS>(8 * j + 2 * t4 + e, frag_pos(r0 + 8 * hh));
                         uint32_t hi, lo;
                         tf32_split(c[4 * j + 2 * hh + e], hi, lo);
                         *reinterpret_cast<uint32_t*>(pw + 2 * C::PT + at) = hi;
@@ -747,7 +695,7 @@ bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
     // step's queries into a fresh accumulator, then added in IEEE float32.
     // The A words, dO^T's or Q^T's, are cut by truncation (as the first
     // product's): fragment column t4 + 4 E of k-step kk is query 8 kk +
-    // 2 t4 + E (qpos), element (that query, column 64 mt + r0 + 8 (e & 1)) of
+    // 2 t4 + E (frag_pos), element (that query, column 64 mt + r0 + 8 (e & 1)) of
     // the tile, read in transposed order (0 past hd), the 32 lanes of a load
     // on 32 banks. With one m-tile the product is left in flight; then the
     // stage is released.
@@ -866,199 +814,391 @@ bwd_dkv_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
 }
 
 // ---------------------------------------------------------------------------
-// K8
+// K8: 3xTF32 on wgmma, K7 mirrored
 // ---------------------------------------------------------------------------
 
-// the first tile at or after n0 whose range of ids meets [qlo, qhi], or S;
-// every warp finds it for itself
-__device__ __forceinline__ int next_tile(const int* __restrict__ segb, int n0, int S, int qlo,
-                                         int qhi) {
-    for (; n0 < S; n0 += T) {
-        int klo, khi;
-        seg_range(segb, n0, S, klo, khi);
-        if (!(khi < qlo || klo > qhi)) break;
-    }
-    return n0;
-}
-
-// K8: one block per (batch, head, query tile of T rows). Its 256 threads form
-// two groups of 128 for S and dP: group 0 computes S = Q K^T and P, group 1
-// dP = dO V^T and dS = P (dP - delta), a thread 8 rows x 4 keys (rows ra + 8 i,
-// keys ka + 16 j). Then every thread adds dS K to dQ for rows ty + 16 i and
-// float4 columns tx + 16 c.
+// K8's shapes and shared memory (byte offsets). Tiles of q, k, v and dO land
+// by TMA as K7's do; dS^T's words are tiles of QUERIES rows (queries) of W
+// keys in 128-byte slabs. Every tile starts on a 1024-byte boundary.
 template <int HD>
-__global__ void __launch_bounds__(THREADS, Cfg<HD>::DQ_MINB)
-bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, const float* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              const int* __restrict__ seg, float* __restrict__ dq, int NH, int S, Strides in,
-              Strides dos, Strides os, float scale)
+struct DqCfg {
+    static constexpr int W = 64;                          // keys a step: M of S^T and dP^T
+    static constexpr int QUERIES = HD <= 64 ? 64 : 32;    // queries a block: N of S^T, dP^T
+    static constexpr int THREADS = 256;                   // two warpgroups
+    static constexpr int SPAN = HD % 32 == 0 ? 128 : 64;  // bytes of a slab row of q, k, v, dO
+    static constexpr int MT = (HD + 63) / 64;             // 64-row m-tiles of dQ^T
+    // a warpgroup's dQ^T: its half of the queries (one m-tile) or its m-tile
+    static constexpr int NQ = MT == 1 ? QUERIES / 2 : QUERIES;
+    static constexpr int OWN = QUERIES * HD * 4;          // Q, Q lo, dO or dO lo
+    static constexpr int TILE = W * HD * 4;               // a step's K or V
+    static constexpr int DST = QUERIES * W * 4;           // one word of dS^T, query-major
+    static constexpr int Q = 0, DO = 2 * OWN;             // Q lo at Q + OWN, dO lo at DO + OWN
+    static constexpr int STAGES = 4 * OWN;                // stage st: K at + 2 st TILE, V after it
+    static constexpr int DS = STAGES + 4 * TILE;          // dS^T hi, dS^T lo
+    static constexpr int XCH = DS + 2 * DST;              // S^T / dP^T halves exchanged
+    static constexpr int ROWS = XCH + W * QUERIES * 4;    // the block's lse, delta, ids
+    static constexpr int SEGK = ROWS + 3 * QUERIES * 4;   // stage st: its keys' ids at + st W
+    static constexpr int BARS = SEGK + 2 * W * 4;         // full[2], empty[2], then Q and dO's
+    static constexpr int SMEM = BARS + 5 * 8;
+    static constexpr int LDO = HD + 4;                    // row stride of dQ staged at the end
+    static_assert(NQ == 32, "a warpgroup's dQ^T has 32 columns");
+    static_assert(SMEM <= 232448, "shared memory above the block limit");
+    static_assert(OWN % 1024 == 0 && TILE % 1024 == 0 && DST % 1024 == 0 &&
+                  QUERIES * SPAN % 1024 == 0, "tiles off the swizzle's 1024 bytes");
+    static_assert(QUERIES * LDO * 4 <= STAGES, "dQ is staged in Q and dO's bytes");
+};
+
+// K8: one block per (batch, head, tile of QUERIES queries), two warpgroups;
+// it walks the key steps of W keys that meet its queries. A step: warpgroup 0
+// forms S^T = K Q^T, warpgroup 1 dP^T = V dO^T; each hands the other half of
+// its product to the other through the exchange tile and forms P and dS =
+// P (dP - delta) for its own half of the queries, written query-major as
+// dS^T's hi and lo words; then each forms its part of dQ^T += K^T dS^T. Every
+// product is three TF32 products on wgmma. S^T and dP^T read their A words'
+// hi, K's or V's, from the step's tile as it lies and their lo words from
+// registers; dQ^T takes K^T's hi and lo from registers, read from the tile in
+// transposed order. Each warpgroup keeps a step's dQ^T and the next step's
+// S^T or dP^T in flight together; the elementwise work of a step runs
+// between. Warp 0 also loads the steps: a stage is refilled once every warp
+// has released it.
+template <int HD>
+__global__ void __launch_bounds__(DqCfg<HD>::THREADS, 1)
+bwd_dq_tf32_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                   bool q_swap, bool do_swap, const float* __restrict__ lse,
+                   const float* __restrict__ delta, const int* __restrict__ seg,
+                   float* __restrict__ dq, int NH, int S, Strides os, float scale)
 {
-    using C = Cfg<HD>;
-    constexpr int LD = C::LD, CG = C::CG;
-    extern __shared__ __align__(16) float sm[];
-    float* Qs = sm;
-    float* dOs = Qs + T * LD;
-    float* K2 = dOs + T * LD;  // two K tiles: this one and the next
-    float* Vs = K2 + 2 * T * LD;
-    float* dSs = Vs + T * LD;  // P, then dS: [row][key]
-    float* lse_s = dSs + T * PLD;
-    float* dl_s = lse_s + T;
-    int* segq_s = reinterpret_cast<int*>(dl_s + T);
-    int* segk2 = segq_s + T;  // two key tiles' ids
+    using C = DqCfg<HD>;
+    constexpr int W = C::W, QN = C::QUERIES, SPAN = C::SPAN, MT = C::MT, NQ = C::NQ;
+    constexpr int NT = C::THREADS;
+    constexpr int JH = QN / 16;  // fragment column groups (8 queries) of half the queries
+    extern __shared__ __align__(1024) unsigned char sm8[];  // the swizzles repeat every 1024 bytes
+    const uint32_t sb = smem_u32(sm8);
+    if (sb % 1024 != 0) __trap();
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int wg = warp >> 2;            // 0: S^T; 1: dP^T
+    const int g = lane >> 2, t4 = lane & 3;
+    const int r0 = 16 * (warp & 3) + g;  // this thread's fragment rows r0 and r0 + 8
+    // this warpgroup's dQ^T: m-tile mt, queries qo .. qo + NQ - 1
+    const int mt = MT > 1 ? wg : 0, qo = MT > 1 ? 0 : wg * NQ;
 
-    // A warp of either group is 8 rows x 4 keys: its loads of Q or dO touch 8
-    // rows, those of K or V 4 keys, and its P / dS stores fall on 32
-    // different banks (PLD = 4 mod 32).
-    const int tid = threadIdx.x, lane = tid & 31;
-    const int grp = tid >> 7;  // 0: S, P; 1: dP, dS
-    const int ra = lane & 7;                        // S, dP: rows ra + 8 i
-    const int ka = (lane >> 3) + 4 * ((tid >> 5) & 3);  // and keys ka + 16 j
-    const int tx = tid & 15, ty = tid >> 4;         // dQ: rows ty + 16 i
-
-    const int ntiles = (S + T - 1) / T;
+    const int ntiles = (S + QN - 1) / QN;
     const int bh = blockIdx.x / ntiles;
-    const int m0 = (blockIdx.x - bh * ntiles) * T;
+    const int m0 = (blockIdx.x - bh * ntiles) * QN;
     const int b = bh / NH, h = bh - b * NH;
     const int* segb = seg + (size_t)b * S;
-    const size_t in_off = (size_t)b * in.b + (size_t)h * in.h;
-    const float* kb = k + in_off;
-    const float* vb = v + in_off;
+    const float* lseb = lse + (size_t)bh * S;
+    const float* deltab = delta + (size_t)bh * S;
+    // a stage's "full" barrier: warp 0's lane 0 with the TMA bytes and its 32
+    // lanes' cp.async copies; "empty": one arrival a warp
+    auto full = [&](int st) { return sb + C::BARS + 8 * st; };
+    auto empty = [&](int st) { return sb + C::BARS + 16 + 8 * st; };
+    const uint32_t qbar = sb + C::BARS + 32;
+    auto k_at = [&](int st) { return C::STAGES + 2 * st * C::TILE; };  // V at + TILE
+    if (tid == 0) {
+        for (int i = 0; i < 2; ++i) {
+            mbar_init(full(i), 33);
+            mbar_init(empty(i), NT / 32);
+        }
+        mbar_init(qbar, 1);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
 
+    // warp 0: a step's K and V by TMA (rows past S land as zeros), its keys'
+    // ids by cp.async (zeros past S), all onto the stage's barrier
+    auto load_step = [&](int st, int n0) {
+        if (lane == 0) {
+            mbar_expect_tx(full(st), 2 * C::TILE);
+            tma_load(sb + k_at(st), &tk, n0, h, b, q_swap, full(st));
+            tma_load(sb + k_at(st) + C::TILE, &tv, n0, h, b, q_swap, full(st));
+        }
+        unsigned char* r = sm8 + C::SEGK + st * W * 4;
+        for (int i = lane; i < W; i += 32) {
+            const bool ok = n0 + i < S;
+            cp_async4(r + 4 * i, segb + (ok ? n0 + i : 0), ok);
+        }
+        cp_async_arrive(full(st));
+    };
+    // this warp is done with stage st (its reads come before TMA refills it)
+    auto release = [&](int st) {
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty(st));
+    };
+
+    if (tid == 0) {
+        mbar_expect_tx(qbar, 2 * C::OWN);
+        tma_load(sb + C::Q, &tq, m0, h, b, q_swap, qbar);
+        tma_load(sb + C::DO, &tdo, m0, h, b, do_swap, qbar);
+    }
+    // the block's queries' lse, delta and ids (zeros past S)
+    for (int i = tid; i < 3 * QN; i += NT) {
+        const int which = i / QN, r = i - which * QN;
+        const bool ok = m0 + r < S;
+        const int at = ok ? m0 + r : 0;
+        cp_async4(sm8 + C::ROWS + 4 * i,
+                  which == 0 ? static_cast<const void*>(lseb + at)
+                  : which == 1 ? static_cast<const void*>(deltab + at)
+                               : static_cast<const void*>(segb + at), ok);
+    }
+    cp_async_commit();
     int qlo, qhi;
-    seg_range(segb, m0, S, qlo, qhi);
-    int n0 = next_tile(segb, 0, S, qlo, qhi);  // < S: the block's own tile meets its range
-    fetch_tile<HD>(Qs, q + in_off, in.s, m0, S);
-    fetch_tile<HD>(dOs, dout + (size_t)b * dos.b + (size_t)h * dos.h, dos.s, m0, S);
-    fetch_rows(lse_s, lse + (size_t)bh * S, delta + (size_t)bh * S, segb, m0, S);
-    fetch_tile<HD>(K2, kb, in.s, n0, S);
-    fetch_tile<HD>(Vs, vb, in.s, n0, S);
-    fetch_ids(segk2, segb, n0, S);
-
-    float adq[4][CG][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CG; ++c)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) adq[i][c][e] = 0.f;
-
-    for (int cur = 0; n0 < S; cur ^= 1) {
-        const int n1 = next_tile(segb, n0 + T, S, qlo, qhi);
-        const float* Ks = K2 + cur * T * LD;
-        const int* segk_s = segk2 + cur * T;
-        cp_async_wait_all();
-        __syncthreads();  // this tile's K, V and ids are in; the last tile's dQ is done
-
-        // group 0: s = Q K^T, group 1: s = dO V^T
-        {
-            const float* X = grp == 0 ? Qs : dOs;
-            const float* Y = grp == 0 ? Ks : Vs;
-            float s[8][4];
-#pragma unroll
-            for (int i = 0; i < 8; ++i)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 1
-            for (int kk = 0; kk < HD; kk += 4) {
-                float4 y[4];
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-                    y[j] = *reinterpret_cast<const float4*>(&Y[(ka + 16 * j) * LD + kk]);
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    const float4 x = *reinterpret_cast<const float4*>(&X[(ra + 8 * i) * LD + kk]);
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        s[i][j] = fmaf(x.x, y[j].x, s[i][j]);
-                        s[i][j] = fmaf(x.y, y[j].y, s[i][j]);
-                        s[i][j] = fmaf(x.z, y[j].z, s[i][j]);
-                        s[i][j] = fmaf(x.w, y[j].w, s[i][j]);
-                    }
-                }
-            }
-            if (grp == 0) {
-                const float scale2 = scale * 1.44269504088896341f;
-                // P (0 where the segments differ or the row or key lies past S)
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    const int row = ra + 8 * i;
-                    const bool rok = m0 + row < S;
-                    const float lrow = lse_s[row] * 1.44269504088896341f;
-                    const int sq = segq_s[row];
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        const int key = ka + 16 * j;
-                        const bool vis = rok && n0 + key < S && segk_s[key] == sq;
-                        const float e = exp2f(fmaf(s[i][j], scale2, -lrow));
-                        dSs[row * PLD + key] = __int_as_float(__float_as_int(e) & -int(vis));
-                    }
-                }
-                bar_arrive(1, THREADS);  // P is in for group 1
-                // the next tile's K into the other buffer (read last in the
-                // last tile's dQ), and its ids
-                if (n1 < S) {
-                    fetch_tile<HD>(K2 + (cur ^ 1) * T * LD, kb, in.s, n1, S, 0, THREADS / 2);
-                    fetch_ids(segk2 + (cur ^ 1) * T, segb, n1, S);
-                }
-            } else {
-                bar_sync(1, THREADS);  // P is in, and this group's reads of V are done
-                if (n1 < S) fetch_tile<HD>(Vs, vb, in.s, n1, S, THREADS / 2, THREADS / 2);
-#pragma unroll
-                for (int i = 0; i < 8; ++i) {
-                    const int row = ra + 8 * i;
-                    const float drow = dl_s[row];
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) {
-                        const int at = row * PLD + ka + 16 * j;
-                        dSs[at] = dSs[at] * (s[i][j] - drow);
-                    }
-                }
-            }
-        }
-        __syncthreads();  // dS is in
-
-        // dQ[row] += sum_key dS[row, key] K[key] for rows ty + 16 i
-#pragma unroll 4
-        for (int key = 0; key < T; key += 4) {
-            float4 sv[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-                sv[i] = *reinterpret_cast<const float4*>(&dSs[(ty + 16 * i) * PLD + key]);
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-#pragma unroll
-                for (int c = 0; c < CG; ++c) {
-                    const int col = 4 * (tx + 16 * c);
-                    if (col >= HD) continue;
-                    const float4 x = *reinterpret_cast<const float4*>(&Ks[(key + u) * LD + col]);
-#pragma unroll
-                    for (int i = 0; i < 4; ++i) {
-                        const float su = comp(sv[i], u);
-                        adq[i][c][0] = fmaf(su, x.x, adq[i][c][0]);
-                        adq[i][c][1] = fmaf(su, x.y, adq[i][c][1]);
-                        adq[i][c][2] = fmaf(su, x.z, adq[i][c][2]);
-                        adq[i][c][3] = fmaf(su, x.w, adq[i][c][3]);
-                    }
-                }
-        }
-        n0 = n1;
+    seg_range_of<QN>(segb, m0, S, lane, qlo, qhi);
+    int n0 = next_step<W>(segb, 0, S, lane, qlo, qhi);       // this step (S: none)
+    int nn = next_step<W>(segb, n0 + W, S, lane, qlo, qhi);  // the next
+    if (warp == 0) {
+        if (n0 < S) load_step(0, n0);
+        if (nn < S) load_step(1, nn);
     }
 
-    const size_t out_off = (size_t)b * os.b + (size_t)h * os.h;
+    // Q and dO rounded to their TF32 hi words in place, their lo words at the
+    // same offsets OWN bytes on, 16 bytes a thread at a time
+    cp_async_wait<0>();
+    mbar_wait(qbar, 0);
+    for (int i = tid; i < 2 * C::OWN / 16; i += NT) {
+        const int which = i / (C::OWN / 16);
+        unsigned char* at = sm8 + 2 * which * C::OWN + 16 * (i - which * (C::OWN / 16));
+        float4 x = *reinterpret_cast<const float4*>(at);
+        uint4 hi, lo;
+        tf32_split(x.x, hi.x, lo.x);
+        tf32_split(x.y, hi.y, lo.y);
+        tf32_split(x.z, hi.z, lo.z);
+        tf32_split(x.w, hi.w, lo.w);
+        *reinterpret_cast<uint4*>(at) = hi;
+        *reinterpret_cast<uint4*>(at + C::OWN) = lo;
+    }
+    fence_proxy_async();  // before wgmma reads them
+    __syncthreads();      // ... and the queries' rows are in
+
+    const float scale2 = scale * LOG2E;
+    float acc[NQ / 2];  // dQ^T: rows hd (m-tile mt), columns queries qo ..
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const int row = m0 + ty + 16 * i;
-        if (row >= S) continue;
-        float* dqr = dq + out_off + (size_t)row * os.s;
+    for (int i = 0; i < NQ / 2; ++i) acc[i] = 0.f;
+    float c[QN / 2];                        // S^T or dP^T: keys r0, r0 + 8 by queries 8 j + 2 t4 + {0, 1}
+    float f[NQ / 2];                        // a step's dQ^T
+    uint32_t alo[HD / 8][4];                // the first product's lo words
+    uint32_t bhi[W / 8][4], blo[W / 8][4];  // dQ^T's A words
+    // 0 before the first dQ^T: above hd = 64 the first step's issue_first adds it
 #pragma unroll
-        for (int c = 0; c < CG; ++c) {
-            const int col = 4 * (tx + 16 * c);
-            if (col >= HD) continue;
-            *reinterpret_cast<float4*>(dqr + col) =
-                make_float4(adq[i][c][0] * scale, adq[i][c][1] * scale, adq[i][c][2] * scale,
-                            adq[i][c][3] * scale);
+    for (int i = 0; i < NQ / 2; ++i) f[i] = 0.f;
+    // a step's dQ^T, once waited for, added to the running sum in IEEE float32
+    auto add_step = [&]() {
+        fence_regs(f);
+#pragma unroll
+        for (int k = 0; k < NQ / 2; ++k) acc[k] += f[k];
+    };
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1) of the step in
+    // stage st, issued (not waited for): X_lo Y_hi + X_hi Y_lo + X_hi Y_hi.
+    // X's hi is the tile as it lies (A from shared memory); its lo words,
+    // x - hi truncated, are wgmma's register fragment: element (key r0 +
+    // 8 (e & 1), column 8 ks + t4 + 4 (e >> 1)) of the tile. Above hd = 64
+    // the lo words past the first quarter of hd are loaded only once the
+    // step before's dQ^T, issued just before, has read its A words
+    // (registers: the two do not live at once), the X_lo Y_hi term in two
+    // groups; that dQ^T is added to the running sum there.
+    auto issue_first = [&](int st) {
+        const uint32_t xa = k_at(st) + wg * C::TILE;
+        const uint64_t dx = tdesc<SPAN>(sb + xa);
+        const uint64_t dy = tdesc<SPAN>(sb + (wg == 0 ? C::Q : C::DO));  // lo at + OWN
+        auto lo_words = [&](int ks) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float x = *reinterpret_cast<const float*>(
+                    sm8 + xa + tile_at<SPAN, W>(r0 + 8 * (e & 1), 8 * ks + t4 + 4 * (e >> 1)));
+                alo[ks][e] = tf32_trunc(x - __uint_as_float(tf32_trunc(x)));
+            }
+        };
+        constexpr int KA = MT > 1 ? HD / 32 : HD / 8;  // k-steps of the first group
+#pragma unroll
+        for (int ks = 0; ks < KA; ++ks) lo_words(ks);
+#pragma unroll
+        for (int i = 0; i < QN / 2; ++i) c[i] = 0.f;
+        fence_regs(c);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < KA; ++ks) Tf32Mma<QN>::rs(c, alo[ks], dy + kstep<SPAN, QN>(ks));
+        if constexpr (KA < HD / 8) {
+            wgmma_commit();
+            wgmma_wait<1>();  // the step before's dQ^T is done (0 before the first)
+            add_step();
+#pragma unroll
+            for (int ks = KA; ks < HD / 8; ++ks) lo_words(ks);
+            wgmma_fence();
+#pragma unroll
+            for (int ks = KA; ks < HD / 8; ++ks) Tf32Mma<QN>::rs(c, alo[ks], dy + kstep<SPAN, QN>(ks));
         }
+#pragma unroll
+        for (int ks = 0; ks < HD / 8; ++ks)
+            Tf32Mma<QN>::ss(c, dx + kstep<SPAN, W>(ks),
+                            dy + (C::OWN >> 4) + kstep<SPAN, QN>(ks));
+#pragma unroll
+        for (int ks = 0; ks < HD / 8; ++ks)
+            Tf32Mma<QN>::ss(c, dx + kstep<SPAN, W>(ks), dy + kstep<SPAN, QN>(ks));
+        wgmma_commit();
+    };
+
+    // The halves: warpgroup 0 keeps S^T's queries 0 .. QN / 2 - 1 (fragment
+    // columns j < JH) and hands over the rest, warpgroup 1 keeps dP^T's
+    // queries QN / 2 .. and hands over the first; an exchanged value lies at
+    // float v * 128 + (tid & 127) of its warpgroup's half of the tile (32
+    // lanes, 32 banks). Then P = 2^(s * scale * log2 e - lse * log2 e), 0
+    // where the ids differ or the key lies past S, and dS = P (dP - delta),
+    // written query-major as dS^T's hi and lo words (keys in frag_pos order).
+    // Selects, not indices, pick a half: the fragment stays in registers.
+    auto elementwise = [&](int st, int n0) {
+        const int* sk = reinterpret_cast<const int*>(sm8 + C::SEGK + st * W * 4);
+        float* xch = reinterpret_cast<float*>(sm8 + C::XCH);
+        unsigned char* dsw = sm8 + C::DS;
+        const int me = tid & 127;
+#pragma unroll
+        for (int jj = 0; jj < JH; ++jj)
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+                xch[(wg * 4 * JH + 4 * jj + u) * 128 + me] =
+                    wg == 0 ? c[4 * (JH + jj) + u] : c[4 * jj + u];
+        bar_sync(1, NT);  // both halves are in
+        const float* rows = reinterpret_cast<const float*>(sm8 + C::ROWS);
+        int sk_r[2];
+        bool kok[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            sk_r[hh] = sk[r0 + 8 * hh];
+            kok[hh] = n0 + r0 + 8 * hh < S;
+        }
+#pragma unroll
+        for (int jj = 0; jj < JH; ++jj) {
+            // this thread's queries 8 (wg JH + jj) + 2 t4 + {0, 1}: lse, delta, ids
+            const int q = 8 * (wg * JH + jj) + 2 * t4;
+            const float2 lq = *reinterpret_cast<const float2*>(rows + q);
+            const float2 dz = *reinterpret_cast<const float2*>(rows + QN + q);
+            const int2 sq = *reinterpret_cast<const int2*>(rows + 2 * QN + q);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int u = 2 * hh + e;
+                    const float mine = wg == 0 ? c[4 * jj + u] : c[4 * (JH + jj) + u];
+                    const float other = xch[((1 - wg) * 4 * JH + 4 * jj + u) * 128 + me];
+                    const float s = wg == 0 ? mine : other;
+                    const float dp = wg == 0 ? other : mine;
+                    const float p = kok[hh] && sk_r[hh] == (e ? sq.y : sq.x)
+                                        ? fast_exp2(fmaf(s, scale2, -(e ? lq.y : lq.x) * LOG2E))
+                                        : 0.f;
+                    uint32_t hi, lo;
+                    tf32_split(p * (dp - (e ? dz.y : dz.x)), hi, lo);
+                    const uint32_t at = tile_at<128, QN>(q + e, frag_pos(r0 + 8 * hh));
+                    *reinterpret_cast<uint32_t*>(dsw + at) = hi;
+                    *reinterpret_cast<uint32_t*>(dsw + C::DST + at) = lo;
+                }
+        }
+        fence_proxy_async();
+        bar_sync(2, NT);  // dS^T's words are in, and the exchange tile is read
+    };
+
+    // dQ^T += K^T dS^T of the step in stage st: hd rows 64 mt + r0 (+ 8) by
+    // queries qo .., summed over the step's keys into a fresh accumulator
+    // (added in IEEE float32 by add_step once waited for). K^T's words are cut by
+    // truncation (as the first product's): fragment column t4 + 4 E of
+    // k-step kk is key 8 kk + 2 t4 + E (frag_pos), element (that key, column
+    // 64 mt + r0 + 8 (e & 1)) of the tile, read in transposed order (0 past
+    // hd), the 32 lanes of a load on 32 banks. The product is left in flight;
+    // then the stage is released.
+    auto issue_second = [&](int st) {
+        const unsigned char* x = sm8 + k_at(st);
+        const uint64_t dy = tdesc<128>(sb + C::DS + qo * 128);  // hi words; lo at + DST
+#pragma unroll
+        for (int kk = 0; kk < W / 8; ++kk)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                // rows past hd read a real column and take 0 by a select,
+                // not a branch (wgmma's registers must not come from a
+                // divergent path, C7520)
+                const int d = 64 * mt + r0 + 8 * (e & 1);
+                const float u = *reinterpret_cast<const float*>(
+                    x + tile_at<SPAN, W>(8 * kk + 2 * t4 + (e >> 1), min(d, HD - 1)));
+                const float v = d < HD ? u : 0.f;
+                bhi[kk][e] = tf32_trunc(v);
+                blo[kk][e] = tf32_trunc(v - __uint_as_float(bhi[kk][e]));
+            }
+#pragma unroll
+        for (int i = 0; i < NQ / 2; ++i) f[i] = 0.f;
+        fence_regs(f);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < W / 8; ++kk) Tf32Mma<NQ>::rs(f, blo[kk], dy + kstep<128, QN>(kk));
+#pragma unroll
+        for (int kk = 0; kk < W / 8; ++kk)
+            Tf32Mma<NQ>::rs(f, bhi[kk], dy + (C::DST >> 4) + kstep<128, QN>(kk));
+#pragma unroll
+        for (int kk = 0; kk < W / 8; ++kk) Tf32Mma<NQ>::rs(f, bhi[kk], dy + kstep<128, QN>(kk));
+        wgmma_commit();
+        release(st);
+    };
+
+    // Step i lies in stage i & 1. Each iteration issues step i's dQ^T and
+    // step i + 1's first product, and waits for both inside it (a wait across
+    // the loop's back-edge serializes wgmma, C7515); warp 0 refills stage
+    // i & 1 with step i + 2 as soon as every warp has released it, before
+    // the wait.
+    if (n0 < S) {
+        mbar_wait(full(0), 0);
+        issue_first(0);
+        wgmma_wait<0>();
+        fence_regs(c);
+        elementwise(0, n0);
+    }
+    for (int i = 0; n0 < S; ++i) {
+        const int st = i & 1;
+        const int nnn = next_step<W>(segb, nn < S ? nn + W : S, S, lane, qlo, qhi);
+        issue_second(st);
+        if (warp == 0 && nnn < S) {  // stage st is released: TMA refills it under the products
+            mbar_wait(empty(st), (i >> 1) & 1);
+            load_step(st, nnn);
+        }
+        if (nn < S) {
+            mbar_wait(full(st ^ 1), ((i + 1) >> 1) & 1);
+            issue_first(st ^ 1);
+        }
+        wgmma_wait<0>();
+        fence_regs(c);
+        if (MT == 1 || nn >= S) add_step();  // else issue_first added it
+        if (nn >= S) break;
+        elementwise(st ^ 1, nn);
+        n0 = nn;
+        nn = nnn;
+    }
+
+    // dQ staged row-major in shared memory, rows LDO floats apart (the 4
+    // queries a warp's store touches lie 8 banks apart), then written as
+    // whole 16-byte pieces, times scale
+    __syncthreads();  // every warp is done with Q, dO and the stages
+    float* ob = reinterpret_cast<float*>(sm8);
+    constexpr int LDO = C::LDO;
+#pragma unroll
+    for (int j = 0; j < NQ / 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int d = 64 * mt + r0 + 8 * hh;
+            if (d >= HD) continue;
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+                ob[(qo + 8 * j + 2 * t4 + e) * LDO + d] = acc[4 * j + 2 * hh + e];
+        }
+    __syncthreads();
+    const size_t out_off = (size_t)b * os.b + (size_t)h * os.h;
+    constexpr int C4 = HD / 4;
+    for (int idx = tid; idx < QN * C4; idx += NT) {
+        const int r = idx / C4, c4 = idx - r * C4;
+        if (m0 + r >= S) continue;
+        float4 x = *reinterpret_cast<const float4*>(ob + r * LDO + 4 * c4);
+        x.x *= scale;
+        x.y *= scale;
+        x.z *= scale;
+        x.w *= scale;
+        *reinterpret_cast<float4*>(dq + out_off + (size_t)(m0 + r) * os.s + 4 * c4) = x;
     }
 }
 
@@ -1170,12 +1310,18 @@ int launch_dkv(const Problem& p) {
 
 template <int HD>
 int launch_dq(const Problem& p) {
-    constexpr int smem = Cfg<HD>::DQ_SMEM;
+    using C = DqCfg<HD>;
     static bool ready[MAX_DEVICES];
     int blocks;
-    if (int e = prepare(p, bwd_dq_kernel<HD>, smem, T, ready, blocks)) return e;
-    bwd_dq_kernel<HD><<<blocks, THREADS, smem, p.stream>>>(
-        p.q, p.k, p.v, p.dout, p.lse, p.delta, p.seg, p.out0, p.NH, p.S, p.in, p.dos, p.os,
+    if (int e = prepare(p, bwd_dq_tf32_kernel<HD>, C::SMEM, C::QUERIES, ready, blocks)) return e;
+    CUtensorMap tq, tdo, tk, tv;
+    bool q_swap, do_swap;
+    if (int e = make_map(&tq, p.q, p.in, p, HD, C::QUERIES, C::SPAN, q_swap)) return e;
+    if (int e = make_map(&tk, p.k, p.in, p, HD, C::W, C::SPAN, q_swap)) return e;
+    if (int e = make_map(&tv, p.v, p.in, p, HD, C::W, C::SPAN, q_swap)) return e;
+    if (int e = make_map(&tdo, p.dout, p.dos, p, HD, C::QUERIES, C::SPAN, do_swap)) return e;
+    bwd_dq_tf32_kernel<HD><<<blocks, C::THREADS, C::SMEM, p.stream>>>(
+        tq, tdo, tk, tv, q_swap, do_swap, p.lse, p.delta, p.seg, p.out0, p.NH, p.S, p.os,
         p.scale);
     return static_cast<int>(cudaGetLastError());
 }
@@ -1197,8 +1343,8 @@ int dispatch(const Problem& p, int HD) {
 // q, k, v: element (b, h, s, d) at b*in_b + h*in_h + s*in_s + d; dout with the
 // do_* strides; dk, dv (K7) and dq (K8) with the out_* strides; lse and delta
 // (B, NH, S) float32 and seg (B, S) int32, contiguous. Strides in elements.
-// Returns the cudaError of the launch (0 = launched), or for K7 10001 / 10002
-// when the driver's tensor-map encoder is missing or refuses the layout.
+// Returns the cudaError of the launch (0 = launched), or 10001 / 10002 when
+// the driver's tensor-map encoder is missing or refuses the layout.
 extern "C" int flash_attention_bwd_dkv_f32(const float* q, const float* k, const float* v,
                                            const float* dout, const float* lse,
                                            const float* delta, const int* seg, float* dk,

@@ -55,11 +55,11 @@ the TPU kernel's ``_flash_attention_bwd_dkv`` (K7: dK, dV) and
     dV = P^T dO,   dS = P * (dO V^T - rowsum(dO * O)),
     dK = dS^T Q * sm_scale,   dQ = dS K * sm_scale
 
-K7 and K8 exist for float32 (``csrc/flash_attention_bwd.cu``: K7 on the
-tensor cores in 3xTF32, K8 with IEEE FMAs on the CUDA cores) and for bfloat16
-(tensor cores, ``csrc/flash_attention_bwd_bf16.cu``). The float32 K7's plain
-version stays the IEEE ``flash_attention_bwd_plain``, held to the same 2e-5;
-``flash_attention_bwd_3xtf32_plain`` repeats its arithmetic. In
+K7 and K8 exist for float32 (``csrc/flash_attention_bwd.cu``, both on the
+tensor cores in 3xTF32) and for bfloat16 (tensor cores,
+``csrc/flash_attention_bwd_bf16.cu``). The float32 kernels' plain version
+stays the IEEE ``flash_attention_bwd_plain``, held to the same 2e-5;
+``flash_attention_bwd_3xtf32_plain`` repeats their arithmetic. In
 bfloat16 they round where the TPU kernels round: P to bfloat16 before
 ``dV = P^T dO``, and ``dS * sm_scale`` to bfloat16 before ``dK = dS^T Q`` and
 ``dQ = dS K``, every sum in float32. delta is float32 from float32 products in
@@ -304,28 +304,35 @@ def flash_attention_bwd_plain(q, k, v, segment_ids, out, dout, lse, sm_scale: fl
 
 
 DKV_F32_STEP = 64  # queries a step of the float32 K7 (csrc/flash_attention_bwd.cu: DkvCfg::W)
+DQ_F32_STEP = 64  # keys a step of the float32 K8 (csrc/flash_attention_bwd.cu: DqCfg::W)
 
 
-def _k7_product(x, y):
-    """A product of K7-f32 in 3xTF32: x's words (Q, dO; Q^T, dO^T) truncated,
-    as the kernel reads them from the tiles, y's (K, V; P, dS) rounded to
-    nearest, as the kernel writes them."""
+def _bwd_product(x, y):
+    """A product of the float32 K7 or K8 in 3xTF32: x's words (K7: Q, dO,
+    Q^T, dO^T; K8: K, V, K^T) truncated, as the kernel reads them from the
+    tiles, y's (K7: K, V, P, dS; K8: Q, dO, dS) rounded to nearest, as the
+    kernel writes them."""
     return matmul_3xtf32(x, y, rounding="zero", rounding_b="nearest")
 
 
 def flash_attention_bwd_3xtf32_plain(q, k, v, segment_ids, out, dout, lse, sm_scale: float):
-    """K7-f32's arithmetic in plain PyTorch, for tests and chip_smoke.py only
-    (the kernel's plain version stays ``flash_attention_bwd_plain``, in IEEE
-    float32): S = Q K^T and dP = dO V^T each from three TF32 products
-    (``matmul_3xtf32``: Q and dO cut by truncation, as the kernel reads them
-    from the tiles as they lie; K and V rounded to nearest), P = exp(S *
-    sm_scale - lse) in float32, and dS = (hi + lo) * (dP - delta) from P's
-    TF32 words hi and lo (rounded to nearest; hi + lo is P to 2^-22); then
-    per step of ``DKV_F32_STEP`` queries dV^T = dO^T P and dK^T = Q^T dS,
-    three TF32 products each (dO / Q the split A, truncated; P / dS the
-    split B, rounded to nearest), the steps' sums added in float32 in
-    ascending order, dK times sm_scale. dQ is K8's, IEEE float32 as in
-    ``flash_attention_bwd_plain``. float32 inputs only. Returns (dq, dk, dv)."""
+    """The float32 K7's and K8's arithmetic in plain PyTorch, for tests and
+    chip_smoke.py only (the kernels' plain version stays
+    ``flash_attention_bwd_plain``, in IEEE float32). Every product is three
+    TF32 products (``matmul_3xtf32``), the words of the tiles the kernel
+    reads truncated and those it writes rounded to nearest (``_bwd_product``);
+    P = exp(S * sm_scale - lse), dS = P (dP - delta), in float32.
+
+    K7 (dK, dV): S = Q K^T and dP = dO V^T; dS = (hi + lo) * (dP - delta) from
+    P's TF32 words (rounded to nearest; hi + lo is P to 2^-22); then per step
+    of ``DKV_F32_STEP`` queries dV^T = dO^T P and dK^T = Q^T dS, the steps'
+    sums added in float32 in ascending order, dK times sm_scale.
+
+    K8 (dQ), K7 mirrored: S^T = K Q^T and dP^T = V dO^T, dS = P (dP - delta)
+    as is; then per step of ``DQ_F32_STEP`` keys dQ^T = K^T dS^T, the steps'
+    sums added in float32 in ascending order, times sm_scale.
+
+    float32 inputs only. Returns (dq, dk, dv)."""
     _check(q, k, v, segment_ids)
     _check_bwd(q, out, dout, lse)
     if q.dtype != torch.float32:
@@ -336,24 +343,36 @@ def flash_attention_bwd_3xtf32_plain(q, k, v, segment_ids, out, dout, lse, sm_sc
     for sl in _plain_pieces(q, segment_ids):
         qf, kf, vf, dof = q[sl], k[sl], v[sl], dout[sl]
         delta = _delta(out[sl], dout[sl])[..., None]
-        # dQ: K8's IEEE arithmetic
-        p = torch.exp(_plain_logits(qf, kf, segment_ids[sl], sm_scale) - lse[sl][..., None])
-        ds = p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)
-        grads[0][sl] = torch.matmul(ds, kf) * sm_scale
+        grads[0][sl] = _k8_dq(qf, kf, vf, dof, segment_ids[sl], lse[sl], delta, sm_scale)
         # dK, dV: K7's
-        p = torch.exp(_plain_logits(qf, kf, segment_ids[sl], sm_scale, _k7_product)
+        p = torch.exp(_plain_logits(qf, kf, segment_ids[sl], sm_scale, _bwd_product)
                       - lse[sl][..., None])
         p_hi, p_lo = tf32_split(p)  # warpgroup 1 reads P back from its words
-        ds = (p_hi + p_lo) * (_k7_product(dof, vf.transpose(-1, -2)) - delta)
+        ds = (p_hi + p_lo) * (_bwd_product(dof, vf.transpose(-1, -2)) - delta)
         dvt = torch.zeros(q[sl].transpose(-1, -2).shape, dtype=torch.float32, device=q.device)
         dkt = torch.zeros_like(dvt)
         for m0 in range(0, s, DKV_F32_STEP):
             rows = slice(m0, min(m0 + DKV_F32_STEP, s))
-            dvt += _k7_product(dof[..., rows, :].transpose(-1, -2), p[..., rows, :])
-            dkt += _k7_product(qf[..., rows, :].transpose(-1, -2), ds[..., rows, :])
+            dvt += _bwd_product(dof[..., rows, :].transpose(-1, -2), p[..., rows, :])
+            dkt += _bwd_product(qf[..., rows, :].transpose(-1, -2), ds[..., rows, :])
         grads[1][sl] = dkt.transpose(-1, -2) * sm_scale
         grads[2][sl] = dvt.transpose(-1, -2)
     return tuple(grads)
+
+
+def _k8_dq(q, k, v, dout, segment_ids, lse, delta, sm_scale: float):
+    """The float32 K8's dQ of one piece (see flash_attention_bwd_3xtf32_plain);
+    ``delta`` (.., S, 1)."""
+    s = q.shape[2]
+    st = _bwd_product(k, q.transpose(-1, -2))  # S^T: keys x queries
+    same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+    p = torch.where(same, torch.exp(st.transpose(-1, -2) * sm_scale - lse[..., None]), 0.0)
+    ds = p * (_bwd_product(v, dout.transpose(-1, -2)).transpose(-1, -2) - delta)
+    dqt = torch.zeros(q.transpose(-1, -2).shape, dtype=torch.float32, device=q.device)
+    for n0 in range(0, s, DQ_F32_STEP):
+        keys = slice(n0, min(n0 + DQ_F32_STEP, s))
+        dqt += _bwd_product(k[..., keys, :].transpose(-1, -2), ds[..., keys].transpose(-1, -2))
+    return dqt.transpose(-1, -2) * sm_scale
 
 
 def tile_shape(dtype, hd: int) -> tuple[int, int]:
@@ -367,15 +386,15 @@ def tile_shape(dtype, hd: int) -> tuple[int, int]:
 
 def bwd_tile_shapes(dtype, hd: int) -> dict:
     """{"dkv": (query rows, keys), "dq": (query rows, keys)}: the tile on
-    which K7 and K8 serving (dtype, hd) decide to skip or multiply. float32
-    (csrc/flash_attention_bwd.cu): K7 64 x KEYS (DkvCfg::W, KEYS), with
-    KEYS = 64 up to hd = 64, else 32; K8 64 x 64 (T). bfloat16
+    which K7 and K8 serving (dtype, hd) decide to skip or multiply, with
+    W = 64 up to hd = 64, else 32. float32 (csrc/flash_attention_bwd.cu): K7
+    64 x W (DkvCfg::W, KEYS), K8 W x 64 (DqCfg::QUERIES, W). bfloat16
     (csrc/flash_attention_bwd_bf16.cu): K7 W x 64 (DkvCfg::W, KEYS), K8
-    64 x W (DqCfg::QUERIES, W), with W = 64 up to hd = 64, else 32."""
+    64 x W (DqCfg::QUERIES, W)."""
     w = 64 if hd <= 64 else 32
     if dtype == torch.bfloat16:
         return {"dkv": (w, 64), "dq": (64, w)}
-    return {"dkv": (DKV_F32_STEP, w), "dq": (64, 64)}
+    return {"dkv": (DKV_F32_STEP, w), "dq": (w, DQ_F32_STEP)}
 
 
 def visited_tiles(segment_ids, rows: int, keys: int) -> int:

@@ -1030,11 +1030,11 @@ def profile_backward(against: str | None, dtype: str, batches: list, seed: int,
         for kernel, name in names.items():
             n_out = 2 if kernel == "K7" else 1
             this = bare(flash_ops._kernel_fn(name), name, n_out)
-            # K7-f32's kernel is bwd_dkv_tf32_kernel (bwd_dkv_kernel in sources
-            # before its 3xTF32 form)
+            # the float32 kernels are bwd_dkv_tf32_kernel and bwd_dq_tf32_kernel
+            # (bwd_dkv_kernel and bwd_dq_kernel in sources before their 3xTF32
+            # forms)
             stem = "bwd_dkv" if kernel == "K7" else "bwd_dq"
-            infixes = (["_bf16"] if kind == "bf16" else ["_tf32", ""] if kernel == "K7"
-                       else [""])
+            infixes = ["_bf16"] if kind == "bf16" else ["_tf32", ""]
             mangled = [f"{stem}{infix}_kernelILi{hd}E" for infix in infixes]
             row = {"kernel": f"{kernel}-{kind}", "shape": [b, nh, s, hd],
                    "lengths_min": int(lengths.min()),

@@ -1,25 +1,28 @@
-"""K7-f32's arithmetic on the CPU: the float32 dK/dV kernel forms its four
-products on the tensor cores in 3xTF32 (x = hi + lo cut into TF32 words,
-a_lo b_hi + a_hi b_lo + a_hi b_hi summed in float32, the small terms first):
-S = Q K^T and dP = dO V^T, then per step of 64 queries dV^T = dO^T P and
-dK^T = Q^T dS, whose step sums are added in float32. The words of the tiles
-the kernel reads (Q, dO and their transposes) are truncated, those it writes
-(K and V's, P's and dS's) rounded with cvt.rna.
-``flash_attention_bwd_3xtf32_plain`` repeats that arithmetic in plain
-PyTorch (dQ stays K8's IEEE float32); here its gradients are held to
-``jax.vjp`` of JAX's Pallas TPU flash attention run in interpret mode (its
-custom VJP runs the two backward kernels) and to the port's IEEE plain
-backward (the kernel's plain version, which stays IEEE float32), at the head
-widths of the e5-large encoder (64) and of the bundled slots (48, 128),
-S = 256 and 512, with the segment ids the training paths send. The forward's
-output and row log-sum-exp come from the port's IEEE plain forward.
+"""The float32 backward kernels' arithmetic on the CPU: K7 (dK, dV) and K8
+(dQ) form their products on the tensor cores in 3xTF32 (x = hi + lo cut into
+TF32 words, a_lo b_hi + a_hi b_lo + a_hi b_hi summed in float32, the small
+terms first). K7: S = Q K^T and dP = dO V^T, then per step of 64 queries
+dV^T = dO^T P and dK^T = Q^T dS, whose step sums are added in float32. K8,
+K7 mirrored: S^T = K Q^T and dP^T = V dO^T, then per step of 64 keys
+dQ^T = K^T dS^T, whose step sums are added in float32. The words of the
+tiles a kernel reads (K7: Q, dO and their transposes; K8: K, V, K^T) are
+truncated, those it writes (K7: K and V's, P's and dS's; K8: Q and dO's,
+dS's) rounded with cvt.rna. ``flash_attention_bwd_3xtf32_plain`` repeats
+that arithmetic in plain PyTorch; here its gradients are held to ``jax.vjp``
+of JAX's Pallas TPU flash attention run in interpret mode (its custom VJP
+runs the two backward kernels) and to the port's IEEE plain backward (the
+kernels' plain version, which stays IEEE float32), at the head widths of the
+e5-large encoder (64) and of the bundled slots (48, 128), S = 256 and 512,
+with the segment ids the training paths send. The forward's output and row
+log-sum-exp come from the port's IEEE plain forward.
 
-Tolerance: 2e-5, the float32 tolerance of every K7 test and of chip_smoke.py.
-Each product drops a_lo b_lo and cuts the two lo words: about 3 * 2^-22 of
-|a| |b| a product rounded, 2^-20 truncated (IEEE: 2^-24 a multiply-add). Over at most 128 terms (S,
-dP) or 64 (a step of dV, dK) of standard normal inputs that is of order 1e-6
-in gradients of at most about 10, a tenth of the tolerance (a scratch run: at
-most 1.4e-6 against the IEEE plain version).
+Tolerance: 2e-5, the float32 tolerance of every K7 / K8 test and of
+chip_smoke.py. Each product drops a_lo b_lo and cuts the two lo words: about
+3 * 2^-22 of |a| |b| a product rounded, 2^-20 truncated (IEEE: 2^-24 a
+multiply-add). Over at most 128 terms (S, dP) or 64 (a step of dV, dK, dQ)
+of standard normal inputs that is of order 1e-6 in gradients of at most
+about 10, a tenth of the tolerance (a scratch run: at most 1.4e-6 against
+the IEEE plain version).
 """
 
 import functools
@@ -103,11 +106,11 @@ def test_3xtf32_backward_equals_the_tpu_kernels_vjp(s, hd, pattern):
 def test_3xtf32_backward_equals_the_ieee_plain(s, hd, pattern):
     got = _port(fa.flash_attention_bwd_3xtf32_plain, s, hd, pattern)
     want = _port(fa.flash_attention_bwd_plain, s, hd, pattern)
-    assert np.array_equal(got[0], want[0])  # dQ is K8's IEEE arithmetic
-    for name, g, w in zip(("dk", "dv"), got[1:], want[1:]):
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert np.abs(g - w).max() <= TOL, name
     # the 3xTF32 gradients differ from the IEEE ones: the emulation is not the
-    # IEEE path under another name
+    # IEEE path under another name (dQ included: K8 is 3xTF32 too)
+    assert not np.array_equal(got[0], want[0])
     assert not np.array_equal(got[2], want[2])
 
 
@@ -122,13 +125,43 @@ def test_3xtf32_backward_sums_its_steps_apart():
     # the same gradients from the steps summed by hand
     step = fa.DKV_F32_STEP
     assert step == 64 and fa.bwd_tile_shapes(torch.float32, 64)["dkv"][0] == step
-    p = torch.exp(fa._plain_logits(q, k, seg, scale, fa._k7_product) - lse[..., None])
+    p = torch.exp(fa._plain_logits(q, k, seg, scale, fa._bwd_product) - lse[..., None])
     want = torch.zeros_like(dv.transpose(-1, -2))
     for m0 in range(0, 256, step):
         want += fa.matmul_3xtf32(do[..., m0:m0 + step, :].transpose(-1, -2), p[..., m0:m0 + step, :],
                                  rounding="zero", rounding_b="nearest")
     assert torch.equal(dv, want.transpose(-1, -2))
     assert dk.shape == dv.shape and torch.isfinite(dk).all()
+
+
+@pytest.mark.parametrize("hd", [48, 64, 128])
+def test_3xtf32_dq_sums_its_steps_apart(hd):
+    """dQ is the sum of 64-key steps, each step's 3xTF32 product dQ^T =
+    K^T dS^T formed apart (K^T truncated, dS^T rounded to nearest) and added
+    in float32 in ascending key order, from S^T = K Q^T and dP^T = V dO^T
+    (K, V truncated; Q, dO rounded); the one product over all keys is another
+    sum."""
+    q, k, v, do, seg = (torch.from_numpy(x) for x in _case(256, hd, "slot"))
+    scale = float(1.0 / np.sqrt(hd))
+    out, lse = fa.flash_attention_lse_plain(q, k, v, seg, scale)
+    dq = fa.flash_attention_bwd_3xtf32_plain(q, k, v, seg, out, do, lse, scale)[0]
+    step = fa.DQ_F32_STEP
+    assert step == 64 and fa.bwd_tile_shapes(torch.float32, hd)["dq"][1] == step
+    st = fa.matmul_3xtf32(k, q.transpose(-1, -2), rounding="zero", rounding_b="nearest")
+    same = seg[:, None, :, None] == seg[:, None, None, :]
+    p = torch.where(same, torch.exp(st.transpose(-1, -2) * scale - lse[..., None]), 0.0)
+    dpt = fa.matmul_3xtf32(v, do.transpose(-1, -2), rounding="zero", rounding_b="nearest")
+    ds = p * (dpt.transpose(-1, -2) - fa._delta(out, do)[..., None])
+    want = torch.zeros_like(dq.transpose(-1, -2))
+    for n0 in range(0, 256, step):
+        want += fa.matmul_3xtf32(k[..., n0:n0 + step, :].transpose(-1, -2),
+                                 ds[..., n0:n0 + step].transpose(-1, -2),
+                                 rounding="zero", rounding_b="nearest")
+    assert torch.equal(dq, want.transpose(-1, -2) * scale)
+    whole = fa.matmul_3xtf32(k.transpose(-1, -2), ds.transpose(-1, -2),
+                             rounding="zero", rounding_b="nearest")
+    assert not torch.equal(dq, whole.transpose(-1, -2) * scale)
+    assert (dq - whole.transpose(-1, -2) * scale).abs().max() <= TOL
 
 
 @pytest.mark.parametrize("bad", ["bf16", "shape"])

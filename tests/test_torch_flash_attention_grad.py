@@ -361,23 +361,28 @@ def test_backward_kernels_have_a_source_count_launches_and_build_nothing_at_impo
     assert len(fa._ARGTYPES["flash_attention_bwd_dq_f32"]) == 8 + 4 + 9 + 2
     for hd in fa.HEAD_DIMS:
         assert f"BWD_CASE({hd})" in bwd
-    # K7 forms its four products on the tensor cores in 3xTF32 (wgmma with
-    # TF32 operands: A from shared memory for the hi words of S and dP, from
-    # registers otherwise; hi and lo words by truncation where the kernel
-    # reads a tile, by cvt.rna where it writes one; its tiles by TMA onto
-    # mbarriers); K8 keeps float32 FMAs on the CUDA cores; no library. P is
-    # one exponential of a prescaled argument in both kernels (ex2.approx in
-    # K7, exp2f in K8)
-    k7 = bwd[bwd.index("bwd_dkv_tf32_kernel(const"):bwd.index("// K8\n")]
-    k8 = bwd[bwd.index("bwd_dq_kernel(const"):bwd.index("struct Problem {")]
+    # K7 and K8 form their products (four and three) on the tensor cores in
+    # 3xTF32 (wgmma with TF32 operands: A from shared memory for the hi words
+    # of the first products, from registers otherwise; hi and lo words by
+    # truncation where a kernel reads a tile, by cvt.rna where it writes one;
+    # tiles by TMA onto mbarriers); no CUDA-core dot loop, no library. P is
+    # one ex2.approx of a prescaled argument in both kernels
+    k7 = bwd[bwd.index("bwd_dkv_tf32_kernel(const"):bwd.index("// K8: 3xTF32 on wgmma")]
+    k8 = bwd[bwd.index("bwd_dq_tf32_kernel(const"):bwd.index("struct Problem {")]
     assert k7.count("Tf32Mma<KEYS>::rs(") == 4 and k7.count("Tf32Mma<KEYS>::ss(") == 2
     assert "tf32_split(" in k7 and "tf32_trunc(" in k7 and "fmaf(s[" not in k7
     assert "cvt.rna.tf32.f32" in bwd and "cp.async.bulk.tensor.5d" in bwd
-    for n in (32, 64):  # a block's keys: N of every product
+    for n in (32, 64):  # K7's keys a block, K8's queries: N of the products
         assert f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32 {{" in bwd
     assert k7.count("fast_exp2(fmaf(x, scale2, -lq[hh]))") == 1
-    assert "mma_async" not in k8 and "Tf32Mma" not in k8
-    assert "fmaf" in k8 and k8.count("exp2f(fmaf(s[i][j], scale2, -lrow))") == 1
+    # K8: S^T and dP^T (one rs, in two groups above hd = 64, and two ss a
+    # k-step), dQ^T (three rs)
+    assert k8.count("Tf32Mma<QN>::rs(") == 2 and k8.count("Tf32Mma<QN>::ss(") == 2
+    assert k8.count("Tf32Mma<NQ>::rs(") == 3
+    assert "tf32_split(" in k8 and "tf32_trunc(" in k8 and "tma_load(" in k8
+    assert k8.count("fast_exp2(fmaf(s, scale2, -(e ? lq.y : lq.x) * LOG2E))") == 1
+    assert "fmaf(s[" not in k8 and "exp2f(" not in k8 and "for (int kk = 0; kk < HD;" not in k8
+    assert "bwd_dq_tf32_kernel<HD><<<" in bwd and "bwd_dq_kernel" not in bwd  # the CUDA-core K8 is gone
     assert "mma.sync" not in bwd and "bwd_dkv_kernel" not in bwd  # the CUDA-core K7 is gone
     assert "atom." not in bwd and "atomicAdd" not in bwd  # deterministic: no atomics
     for word in ("cublas", "cutlass", "cudnn"):
@@ -388,9 +393,11 @@ def test_backward_kernels_have_a_source_count_launches_and_build_nothing_at_impo
 
 
 def _bwd_tile_consts():
-    """The tile constants of the two backward sources: float32 T; bfloat16
+    """The tile constants of the two backward sources: float32 K8's keys a
+    step (W, in DqCfg); bfloat16
     K8's queries a block (QUERIES, in DqCfg) and its rule for W (W = HD <= a
-    ? b : c), and K7's keys a block (KEYS, in DkvCfg) and its own rule for W."""
+    ? b : c), and K7's keys a block (KEYS, in DkvCfg) and its own rule for W;
+    float32 K7's queries a step and keys a block, and K8's queries a block."""
     import os
     import re
 
@@ -405,7 +412,6 @@ def _bwd_tile_consts():
         return body[:body.index("};")]
 
     f32, bf16 = read("flash_attention_bwd"), read("flash_attention_bwd_bf16")
-    t = int(re.search(r"constexpr int T = (\d+);", f32).group(1))
     dq_cfg, dkv_cfg = struct(bf16, "DqCfg"), struct(bf16, "DkvCfg")
     rule = r"constexpr int W = HD <= (\d+) \? (\d+) : (\d+);"
     w_dq = [int(x) for x in re.search(rule, dq_cfg).groups()]
@@ -417,21 +423,27 @@ def _bwd_tile_consts():
     w_f32 = int(re.search(r"constexpr int W = (\d+);", f32_dkv).group(1))
     keys_f32 = [int(x) for x in re.search(r"constexpr int KEYS = HD <= (\d+) \? (\d+) : (\d+);",
                                           f32_dkv).groups()]
-    return t, bt, w_dq, keys, w_dkv, w_f32, keys_f32
+    # the float32 K8: W keys a step, QUERIES queries a block by the head width
+    f32_dq = struct(f32, "DqCfg")
+    t = int(re.search(r"constexpr int W = (\d+);", f32_dq).group(1))
+    queries_f32 = [int(x) for x in re.search(
+        r"constexpr int QUERIES = HD <= (\d+) \? (\d+) : (\d+);", f32_dq).groups()]
+    return t, bt, w_dq, keys, w_dkv, w_f32, keys_f32, queries_f32
 
 
 @pytest.mark.parametrize("hd", fa.HEAD_DIMS)
 def test_bwd_tile_shapes_match_the_kernels(hd):
     """What chip_smoke.py multiplies out for K7 / K8: the tiles on which each
     backward kernel decides to skip or multiply, read from the sources."""
-    t, bt, w_dq, keys, w_dkv, w_f32, keys_f32 = _bwd_tile_consts()
+    t, bt, w_dq, keys, w_dkv, w_f32, keys_f32, queries_f32 = _bwd_tile_consts()
 
     def w(rule):
         upto, then, other = rule
         return then if hd <= upto else other
 
-    assert fa.bwd_tile_shapes(torch.float32, hd) == {"dkv": (w_f32, w(keys_f32)), "dq": (t, t)}
-    assert t == bt == w_f32 == fa.DKV_F32_STEP == 64
+    assert fa.bwd_tile_shapes(torch.float32, hd) == {"dkv": (w_f32, w(keys_f32)),
+                                                     "dq": (w(queries_f32), t)}
+    assert t == bt == w_f32 == fa.DKV_F32_STEP == fa.DQ_F32_STEP == 64
     assert fa.bwd_tile_shapes(torch.bfloat16, hd) == {"dkv": (w(w_dkv), keys),
                                                       "dq": (bt, w(w_dq))}
 
@@ -511,6 +523,10 @@ ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__171b0146_22_flash_att
 ptxas info    : Function properties for _ZN55_GLOBAL__N__171b0146_22_flash_attention_bwd_cu_fecfc4fd19bwd_dkv_tf32_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_bbPKfS3_PKiPfS6_iiNS_7StridesEf
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 254 registers, used 4 barriers, 592 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__171b0146_22_flash_attention_bwd_cu_fecfc4fd18bwd_dq_tf32_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_bbPKfS3_PKiPfiiNS_7StridesEf' for 'sm_90a'
+ptxas info    : Function properties for _ZN55_GLOBAL__N__171b0146_22_flash_attention_bwd_cu_fecfc4fd18bwd_dq_tf32_kernelILi64EEEv14CUtensorMap_stS1_S1_S1_bbPKfS3_PKiPfiiNS_7StridesEf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 254 registers, used 3 barriers, 592 bytes cmem[0]
 """
 
 
@@ -528,6 +544,12 @@ ptxas info    : Used 254 registers, used 4 barriers, 592 bytes cmem[0]
      "Used 254 registers, used 4 barriers, 592 bytes cmem[0]; "
      "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
     ("bwd_dkv_kernelILi64E bwd_dkv_tf32_kernelILi64E", None),
+    # the float32 K8 (3xTF32), as profile_search asks for it: its new name,
+    # then the name in sources before its 3xTF32 form
+    ("bwd_dq_tf32_kernelILi64E bwd_dq_kernelILi64E",
+     "Used 254 registers, used 3 barriers, 592 bytes cmem[0]; "
+     "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"),
+    ("bwd_dq_tf32_kernelILi128E bwd_dq_kernelILi128E", None),
 ])
 def test_profile_search_reads_each_kernels_registers_and_spills(kernel, want):
     """``profile_search --backward`` reports what ptxas -v said of the kernel

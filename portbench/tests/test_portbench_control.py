@@ -1,0 +1,40 @@
+"""The control of each cell comes out as not correct: the reference put in
+the program's place and computed in TF32, the nearest precision below the
+float32 the configurations state, at the cell's own size, on the card. For
+the training cell, the fault "half of the batch left out" too.
+
+    python -m pytest portbench/tests/test_portbench_control.py -q   (on a card)
+"""
+
+import json
+import os
+
+import pytest
+
+from portbench import control, harness
+
+CELLS = ["cohere-1m-768.serial-k100", "me5-large.ingest-f32", "me5-large.train-f32"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CELLS)
+def test_the_control_is_not_correct(card, root, name):
+    cell = harness.load_cell(root, name)
+    run = harness.Run(cell, 2 ** 31 + 99, 0.0, False, card)
+    kind = cell.traffic["driver"]
+    fn = {"search": control.search_control, "embed": control.embed_control,
+          "train": control.train_control}[kind]
+    extra = fn(run, {"search": 2048, "embed": 128, "train": 0}[kind])
+    assert not harness.is_correct(run), run.checks
+    if kind == "train":
+        half = extra["half_batch"]
+        assert any(half[k]["value"] > half[k]["limit"]
+                   for k in ("loss_gap", "grad_gap", "change_gap")), half
+    print(json.dumps({k: v for k, v in run.checks.items()}))
+
+
+def test_the_controls_are_defined_for_every_driver(root):
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        bench = json.load(f)
+    for w in bench["workloads"]:
+        assert harness.load_cell(root, w["name"]).traffic["driver"] in {"search", "embed", "train"}

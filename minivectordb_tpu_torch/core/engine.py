@@ -28,6 +28,7 @@ no counterpart: PyTorch compiles nothing.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import operator as _operator
 import os
@@ -50,7 +51,12 @@ from minivectordb_tpu_torch.ops import scan as scan_ops
 from minivectordb_tpu_torch.ops.ivf import IVFIndex
 from minivectordb_tpu_torch.ops.scan import fetch_results as _fetch_results
 from minivectordb_tpu_torch.parallel.mesh import Mesh
-from minivectordb_tpu_torch.utils.telemetry import Telemetry
+from minivectordb_tpu_torch.utils.telemetry import (
+    Telemetry,
+    current_request,
+    span,
+    spanned,
+)
 
 _MASK_CACHE_MAX = 64
 # Gathered host submatrices are bigger than masks: bound each copy and keep
@@ -75,15 +81,30 @@ _COMPACT_FRAC = float(os.environ.get("MINIVECTORDB_TORCH_COMPACT_FRAC", 0.25))
 _COMPACT_FLOOR = int(os.environ.get("MINIVECTORDB_TORCH_COMPACT_FLOOR", 4096))
 
 
-def _prefetch_to_host(vals, idx) -> scan_ops.ResultFetch:
-    """Start the device->host copy of a deferred result pair NOW (it queues
-    behind the producing work on the stream): one non-blocking transfer of
-    the packed pair into pinned host memory plus a CUDA event. Without this,
-    each deferred handle's drain would serialize a synchronous copy; with
-    the copies in flight, drains overlap across handles. The returned handle's
-    ``get()`` waits on the event before the pinned bytes are read. numpy
-    results (host route) pass through."""
-    return scan_ops.ResultFetch(vals, idx)
+class _Deferred:
+    """A deferred scan's result pair on its way to the host. The device->host
+    copy starts NOW (it queues behind the producing work on the stream): one
+    non-blocking transfer of the packed pair into pinned host memory plus a
+    CUDA event (``scan_ops.ResultFetch``). Without this, each deferred
+    handle's drain would serialize a synchronous copy; with the copies in
+    flight, drains overlap across handles. numpy results (host route) pass
+    through.
+
+    ``get()`` is the span ``search.fetch``: it waits on the event before the
+    pinned bytes are read, then calls ``drained`` (the scan's op, counted at
+    dispatch and timed to this drain: ``Telemetry.begin``)."""
+
+    __slots__ = ("_fetch", "_drained")
+
+    def __init__(self, vals, idx, drained):
+        self._fetch = scan_ops.ResultFetch(vals, idx)
+        self._drained = drained
+
+    def get(self) -> tuple[np.ndarray, np.ndarray]:
+        with span("search.fetch"):
+            pair = self._fetch.get()
+        self._drained()
+        return pair
 
 
 def _merge_topk_device(va, ia, vb, ib, off, k):
@@ -268,8 +289,6 @@ class _Coalescer:
                         qs, chunk[0][2], chunk[0][3], chunk[0][4], kk,
                         fetch=False, nprobe=nprobe_g,
                     )
-                    if res is not None:
-                        res = (_prefetch_to_host(res[0], res[1]),) + res[2:]
                     dispatched.append((chunk, res, None, kk, rd))
                 except Exception as exc:  # noqa: BLE001
                     dispatched.append((chunk, None, exc, kk, rd))
@@ -289,10 +308,11 @@ class _Coalescer:
                 else:
                     fetch, uids, metadata = res
                     v, ix = fetch.get()  # drain
-                    for j, e in enumerate(chunk):
-                        e[6] = self.engine._format_hits(
-                            v[j], ix[j], uids, metadata, rd
-                        )
+                    with span("search.format"):
+                        for j, e in enumerate(chunk):
+                            e[6] = self.engine._format_hits(
+                                v[j], ix[j], uids, metadata, rd
+                            )
             except Exception as drain_exc:  # noqa: BLE001
                 for e in chunk:
                     if e[6] is None and e[7] is None:
@@ -1369,7 +1389,10 @@ class SearchEngine:
               fetch=True, nprobe=None, hold=None, _force_exact=False):
         """Shared search core: filter + snapshot under the lock, device scan
         outside it. Returns (vals, idx, uids, metadata) or None when the
-        candidate set is empty.
+        candidate set is empty. With fetch=False it returns (results, uids,
+        metadata): results is a ``_Deferred`` whose ``get()`` drains the
+        pair, and the scan's op (``device_scan`` / ``ivf_scan``) is counted
+        at dispatch and timed to that drain, not to the enqueue.
 
         hold: optional list that receives the store snapshot(s), for a caller
         that must keep them alive past this call (a deferred search: while a
@@ -1397,7 +1420,7 @@ class SearchEngine:
         built = 0
         ivf_mask = None
         with self.lock:
-            with self.telemetry.timed("filter"):
+            with self.telemetry.timed("filter", "search.filter"):
                 mask, n_candidates = self._candidate_mask(
                     metadata_filter, exclude_filter, or_filters
                 )
@@ -1485,7 +1508,7 @@ class SearchEngine:
                 ivf_mask_cap = self.store.next_device_capacity()
                 ivf_frac = n_candidates / max(1, self.count)
         if ivf is not None:
-            with self.telemetry.timed("ivf_scan"):
+            with self._scan_op("ivf_scan", fetch) as drained:
                 if mask is not None:
                     ivf_mask = (
                         mask_dev(ivf_mask_cap)
@@ -1494,13 +1517,16 @@ class SearchEngine:
                     )
                 if ivf_mask is not None:
                     vals, idx = ivf.search(
-                        q, search_k, nprobe=nprobe, fetch=fetch,
+                        q, search_k, nprobe=nprobe, fetch=False,
                         mask_dev=ivf_mask, mask_frac=ivf_frac,
                     )
                 else:
                     vals, idx = ivf.search(
-                        q, search_k, nprobe=nprobe, fetch=fetch
+                        q, search_k, nprobe=nprobe, fetch=False
                     )
+                if fetch:
+                    with span("search.fetch"):
+                        vals, idx = _fetch_results(vals, idx)
                 if osnap is not None:
                     ovals, oidx = osnap.search(
                         q, min(search_k, osnap.count), fetch=fetch,
@@ -1527,6 +1553,8 @@ class SearchEngine:
                               (vals, idx, ovals, oidx)),
                             built, km,
                         )
+            if not fetch:
+                return _Deferred(vals, idx, drained), uids, metadata
             if mask is not None:
                 # count-guarantee: queries that found fewer than search_k
                 # eligible rows in the probed lists (filter correlated with
@@ -1544,7 +1572,7 @@ class SearchEngine:
                 if short.size == vals.shape[0]:
                     return self._scan(
                         q, metadata_filter, exclude_filter, or_filters, k,
-                        fetch=fetch, nprobe=nprobe, _force_exact=True,
+                        nprobe=nprobe, _force_exact=True,
                     )
                 if short.size:
                     # a tensor batch is sliced where it lives — the
@@ -1557,7 +1585,7 @@ class SearchEngine:
                     )
                     res2 = self._scan(
                         q_short, metadata_filter,
-                        exclude_filter, or_filters, k, fetch=fetch,
+                        exclude_filter, or_filters, k,
                         nprobe=nprobe, _force_exact=True,
                     )
                     # splice only when the row space provably did not move
@@ -1578,15 +1606,31 @@ class SearchEngine:
                         return vals, idx, uids, metadata
                     return self._scan(
                         q, metadata_filter, exclude_filter, or_filters, k,
-                        fetch=fetch, nprobe=nprobe, _force_exact=True,
+                        nprobe=nprobe, _force_exact=True,
                     )
             return vals, idx, uids, metadata
-        with self.telemetry.timed("device_scan"):
+        with self._scan_op("device_scan", fetch) as drained:
             vals, idx = self._snapshot_search(
                 snap, q, search_k, mask, fetch=fetch, mask_dev=mask_dev,
                 host_sub=host_sub,
             )
+        if not fetch:
+            return _Deferred(vals, idx, drained), uids, metadata
         return vals, idx, uids, metadata
+
+    @contextlib.contextmanager
+    def _scan_op(self, op, fetch):
+        """The span ``search.scan`` around a scan, with the count and time of
+        its op. A fetching scan is timed to the end of the block; a deferred
+        one is counted now, and the block gets the callable that adds its
+        time at the drain (``_Deferred``)."""
+        if fetch:
+            with self.telemetry.timed(op, "search.scan"):
+                yield None
+        else:
+            drained = self.telemetry.begin(op)
+            with span("search.scan"):
+                yield drained
 
     def _as_device(self, t):
         """A result array as a tensor on the engine's device (numpy from a
@@ -1668,6 +1712,7 @@ class SearchEngine:
             for b in range(B)
         ]
 
+    @spanned("search")
     def search(
         self,
         embedding,
@@ -1717,8 +1762,11 @@ class SearchEngine:
         if res is None:
             return [], [], []
         vals, idx, uids, metadata = res
-        return self._format_hits(vals[0], idx[0], uids, metadata, return_distances)
+        with span("search.format"):
+            return self._format_hits(vals[0], idx[0], uids, metadata,
+                                     return_distances)
 
+    @spanned("search")
     def search_batch(
         self,
         embeddings,
@@ -1750,9 +1798,11 @@ class SearchEngine:
         if res is None:
             return [([], [], [])] * q.shape[0]
         vals, idx, uids, metadata = res
-        return self._format_hits_batch(vals, idx, uids, metadata,
-                                       return_distances)
+        with span("search.format"):
+            return self._format_hits_batch(vals, idx, uids, metadata,
+                                           return_distances)
 
+    @spanned("search")
     def search_batch_multi(
         self,
         embeddings,
@@ -1796,8 +1846,9 @@ class SearchEngine:
                 return [([], [], [])] * B
             vals, idx, uids, metadata = res
             v, ix = _fetch_results(vals, idx)
-            return self._format_hits_batch(v, ix, uids, metadata,
-                                           return_distances)
+            with span("search.format"):
+                return self._format_hits_batch(v, ix, uids, metadata,
+                                               return_distances)
         pending = []
         # one lock acquisition (RLock — _scan re-enters it) around every
         # group's filter+snapshot capture, so all groups answer from ONE
@@ -1809,8 +1860,6 @@ class SearchEngine:
                 sub = np.ascontiguousarray(q[np.asarray(idxs)])
                 res = self._scan(sub, f, None, None, k, fetch=False,
                                  nprobe=nprobe)
-                if res is not None:
-                    res = (_prefetch_to_host(res[0], res[1]),) + res[2:]
                 pending.append((idxs, res))
         for idxs, res in pending:
             if res is None:
@@ -1819,13 +1868,15 @@ class SearchEngine:
                 continue
             fetch, uids, metadata = res
             v, ix = fetch.get()  # drains this group
-            formatted = self._format_hits_batch(
-                v, ix, uids, metadata, return_distances
-            )
+            with span("search.format"):
+                formatted = self._format_hits_batch(
+                    v, ix, uids, metadata, return_distances
+                )
             for j, i in enumerate(idxs):
                 results[i] = formatted[j]
         return results
 
+    @spanned("search")
     def search_batch_async(
         self,
         embeddings,
@@ -1858,8 +1909,7 @@ class SearchEngine:
                          fetch=False, nprobe=nprobe, hold=snap_hold)
         if res is None:
             return PendingSearch(lambda: [([], [], [])] * q.shape[0])
-        vals, idx, uids, metadata = res
-        fetch = _prefetch_to_host(vals, idx)
+        fetch, uids, metadata = res
 
         def materialize():
             # blocks until the device work drains; one batched transfer. The
@@ -1867,26 +1917,30 @@ class SearchEngine:
             # the tensors the queued scan reads.
             v, i = fetch.get()
             snap_hold.clear()
-            return self._format_hits_batch(v, i, uids, metadata,
-                                           return_distances)
+            with span("search.format"):
+                return self._format_hits_batch(v, i, uids, metadata,
+                                               return_distances)
 
-        return PendingSearch(materialize)
+        return PendingSearch(materialize, current_request())
 
 
 class PendingSearch:
     """Handle for an in-flight search (engine.search_batch_async): call
     .result() to drain the device transfer and get the formatted hits.
-    Idempotent — the materialized result is cached."""
+    Idempotent — the materialized result is cached. The drain is the span
+    ``search.result``, a root under its dispatch's request id."""
 
-    __slots__ = ("_materialize", "_out")
+    __slots__ = ("_materialize", "_out", "_request")
 
-    def __init__(self, materialize):
+    def __init__(self, materialize, request=None):
         self._materialize = materialize
         self._out = None
+        self._request = request
 
     def result(self):
         if self._out is None:
-            self._out = self._materialize()
+            with span("search.result", request=self._request):
+                self._out = self._materialize()
             self._materialize = None
         return self._out
 

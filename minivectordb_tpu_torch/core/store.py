@@ -43,6 +43,7 @@ import torch
 
 from minivectordb_tpu_torch.ops import fused_scan
 from minivectordb_tpu_torch.ops import scan as scan_ops
+from minivectordb_tpu_torch.utils.telemetry import span
 
 _MIN_CAPACITY = 1024
 # Beyond this dirty fraction of capacity, a full re-upload is cheaper than
@@ -707,7 +708,8 @@ class StoreSnapshot:
         device tensors the caller materializes later
         (ops/scan.py:fetch_results), so many launches can queue on the
         device before one drain. Host paths return numpy either way (already
-        materialized).
+        materialized). A fetching device search drains as the span
+        ``search.fetch`` (utils/telemetry.py).
 
         mask_dev: optional device-resident padded copy of ``mask`` (or a
         callable taking the snapshot's dev_capacity and producing one — kept
@@ -834,7 +836,8 @@ class StoreSnapshot:
         if not fetch:
             # device-resident slices; the caller drains with fetch_results
             return vals[:, :k], idx[:, :k]
-        return scan_ops.fetch_results(vals[:, :k], idx[:, :k])
+        with span("search.fetch"):
+            return scan_ops.fetch_results(vals[:, :k], idx[:, :k])
 
     def _use_fused(self, mode: str, batch: int) -> bool:
         """Batches of 16 and more over buffers of 4096 rows and more take the

@@ -61,6 +61,7 @@ from minivectordb_tpu_torch.models.encoder import (
 )
 from minivectordb_tpu_torch.models.tokenizer import WordVocabTokenizer, load_tokenizer
 from minivectordb_tpu_torch.ops import scan as scan_ops
+from minivectordb_tpu_torch.utils.telemetry import span, spanned
 
 # Single-text/small-batch embeds may run on the HOST instead of the card: the
 # compact bundled encoders (2 layers) are well under a millisecond of host
@@ -133,17 +134,20 @@ class _TorchEncoder:
 
     def _embed_host(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         self._calls["host"] += 1
-        out = embed_program_host(self._host_encoder_synced(), ids, mask, self.pooling)
-        return out.numpy()
+        with span("embed.host"):
+            out = embed_program_host(self._host_encoder_synced(), ids, mask, self.pooling)
+            return out.numpy()
 
     def _embed_device(self, ids: np.ndarray, mask: np.ndarray) -> np.ndarray:
         self._calls["device"] += 1
         dev = self.device
-        out = embed_program(
-            self.encoder, scan_ops.to_device(ids, dev), scan_ops.to_device(mask, dev),
-            self.pooling,
-        )
-        return out.cpu().numpy()
+        with span("embed.device"):
+            out = embed_program(
+                self.encoder, scan_ops.to_device(ids, dev), scan_ops.to_device(mask, dev),
+                self.pooling,
+            )
+        with span("embed.fetch"):
+            return out.cpu().numpy()
 
     def _tokenize_padded(self, texts: list[str], max_length: int):
         """Tokenize + pad to (pow2-batch, seq-bucket): the shapes the JAX
@@ -167,8 +171,10 @@ class _TorchEncoder:
             mask[-pad:, 0] = 1  # fully-masked rows would divide by zero count
         return ids, mask
 
+    @spanned("embed")
     def embed(self, texts: list[str], max_length: int = 512) -> np.ndarray:
-        ids, mask = self._tokenize_padded(texts, max_length)
+        with span("embed.tokenize"):
+            ids, mask = self._tokenize_padded(texts, max_length)
         if ids.shape[0] <= _HOST_EMBED_MAX_BATCH and self._host_capable():
             which = self._router.choose()
             if which == "device" and self._router.dev_ema is None:

@@ -69,6 +69,7 @@ from minivectordb_tpu_torch.models.encoder import (
 from minivectordb_tpu_torch.ops import scan as scan_ops
 from minivectordb_tpu_torch.parallel import tensor_parallel
 from minivectordb_tpu_torch.parallel.mesh import NamedSharding, train_spec
+from minivectordb_tpu_torch.utils.telemetry import span
 
 # optax.adamw's defaults
 ADAMW = {"betas": (0.9, 0.999), "eps": 1e-8, "weight_decay": 1e-4}
@@ -148,16 +149,27 @@ def make_train_step(cfg: EncoderConfig, optimizer, mesh=None,
     are scalar tensors on the card (read them when they are wanted: a read
     waits for the step). With a mesh, the sharded step of
     ``parallel/tensor_parallel.py`` over ``init_training(mesh=)``'s
-    placed params and optimizer."""
+    placed params and optimizer.
+
+    The single-card step is the span ``train.step`` with the spans
+    ``train.upload``, ``train.forward``, ``train.backward`` and
+    ``train.optimizer`` inside it (utils/telemetry.py; the last three time
+    the device by CUDA events on the card)."""
     if mesh is not None:
         return tensor_parallel.make_step(cfg, optimizer, mesh, temperature)
 
     def step(params, opt_state, batch):
-        batch = batch_to(batch, params.device)
-        optimizer.zero_grad(set_to_none=True)
-        loss, acc = info_nce_loss(params, cfg, batch, temperature)
-        loss.backward()
-        optimizer.step()
+        on_card = params.device.type == "cuda"
+        with span("train.step"):
+            with span("train.upload"):
+                batch = batch_to(batch, params.device)
+            with span("train.forward", device=on_card):
+                optimizer.zero_grad(set_to_none=True)
+                loss, acc = info_nce_loss(params, cfg, batch, temperature)
+            with span("train.backward", device=on_card):
+                loss.backward()
+            with span("train.optimizer", device=on_card):
+                optimizer.step()
         return params, opt_state, {"loss": loss.detach(), "accuracy": acc}
 
     return step

@@ -211,6 +211,37 @@ def test_trace_writes_a_chrome_trace(tmp_path):
     assert log_dir == str(tmp_path / "tr")
 
 
+def test_trace_writes_the_program_spans_on_the_trace_time_base(tmp_path):
+    import json
+    import time
+
+    from minivectordb_tpu_torch import VectorDatabase
+    from minivectordb_tpu_torch.utils.telemetry import SPAN_TRACK_PID, trace
+
+    rng = np.random.default_rng(3)
+    vecs = rng.standard_normal((64, 16)).astype(np.float32)
+    db = VectorDatabase(storage_file=str(tmp_path / "db.pkl"), device="cpu")
+    db.store_embeddings_batch(list(range(64)), vecs, [{"i": i} for i in range(64)])
+    with trace(str(tmp_path / "tr")):
+        t0 = time.time_ns()
+        db.find_most_similar(vecs[0], k=3)
+        t1 = time.time_ns()
+    with open(tmp_path / "tr" / "trace.json", encoding="utf-8") as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    spans = [e for e in doc["traceEvents"] if e.get("cat") == "span"]
+    (root,) = [e for e in spans if e["name"] == "search"]
+    assert root["ph"] == "X" and root["pid"] == SPAN_TRACK_PID
+    assert root["args"]["parent_id"] is None
+    # microseconds after the trace's base, as the profiler's own events
+    assert t0 / 1e3 - 1 <= base / 1e3 + root["ts"] <= t1 / 1e3 + 1
+    assert root["dur"] <= (t1 - t0) / 1e3 + 1
+    kids = {e["name"] for e in spans if e["args"]["parent_id"] == root["args"]["span_id"]}
+    assert {"search.filter", "search.scan", "search.format"} <= kids
+    ops = [e for e in doc["traceEvents"] if e.get("cat") == "cpu_op"]
+    assert ops and min(e["ts"] for e in ops) < root["ts"] + root["dur"]
+
+
 def test_merge_topk_device_matches():
     import jax.numpy as jnp
     import torch

@@ -185,7 +185,12 @@ Phases (one JSON object per output line):
              1M-row case; the K1-f32 rows also give the kernel's, the IEEE
              plain version's and the 3xTF32 emulation's distance to float64
              subtile maxima, the kernel's distance to both plain forms, and
-             its registers and spills;
+             its registers and spills; the small-batch scan
+             (small_scan_f32, csrc/small_scan.cu: the scan with its top-k and
+             the merge) at the serial benchmark cell's shape, C = 1,048,576,
+             d = 768, count = 1,000,000, kb = 128, B = 1 (and B = 8), against
+             its plain version and float64 dots, beside torch.matmul +
+             topk_last_axis, the route it replaced;
              and the IVF
              probe kernels (K3 f32/bf16, K4 f32/bf16, K5) at the shapes the
              1,000,000-row IVF path produced (its lists, its step table for
@@ -371,6 +376,7 @@ from minivectordb_tpu_torch.native import fastops  # noqa: E402
 from minivectordb_tpu_torch.ops import flash_attention as flash_ops  # noqa: E402
 from minivectordb_tpu_torch.ops import fused_scan, ivf as ivf_ops  # noqa: E402
 from minivectordb_tpu_torch.ops import ivf_probe, scan as scan_ops  # noqa: E402
+from minivectordb_tpu_torch.ops import small_scan  # noqa: E402
 from minivectordb_tpu_torch.parallel import dist_ivf, multihost  # noqa: E402
 from minivectordb_tpu_torch.parallel import tensor_parallel  # noqa: E402
 from minivectordb_tpu_torch.parallel.mesh import search_mesh, train_mesh  # noqa: E402
@@ -890,7 +896,77 @@ def tiling_cases() -> list:
     return out
 
 
-def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
+def small_scan_library(buf, inv, q, count, kb):
+    """The route the port took before csrc/small_scan.cu: one library product
+    into the whole (B, C) score matrix, the scale and mask, topk_last_axis.
+    The port never calls this on a CUDA float32 buffer."""
+    s = torch.matmul(scan_ops._normalize(q), buf.T) * inv[None, :]
+    valid = torch.arange(buf.shape[0], device=DEV) < count
+    vals, idx = scan_ops.topk_last_axis(s.masked_fill(~valid[None, :], MASKED), kb)
+    return vals, idx.to(torch.int32)
+
+
+def small_scan_kernel_rows(launches: dict) -> list:
+    """The small-batch scan (csrc/small_scan.cu: the scan and its merge) at
+    the serial benchmark cell's shape, C = 1,048,576, d = 768, count =
+    1,000,000, kb = 128, B = 1 (and B = 8 beside it), held against its plain
+    version and float64 dots over the whole output; its bound is the live
+    rows, their scales and the queries read once, the (value, id) pairs
+    written once."""
+    c, d, count, kb = 1 << 20, 768, 1_000_000, 128
+    g = torch.Generator(device=DEV).manual_seed(SEED + 25)
+    buf = torch.randn((c, d), device=DEV, generator=g)
+    buf[count:] = 0.0
+    inv = scan_ops.row_inv_norms(buf)
+    q8 = torch.randn((8, d), device=DEV, generator=g)
+    rows = []
+    for b in (1, 8):
+        q = q8[:b].contiguous()
+        got = small_scan.small_scan_topk(buf, inv, q, count, kb)
+        want = small_scan.small_scan_plain(buf, inv, q, count, kb)
+        torch.cuda.synchronize()
+        err = float((got[0] - want[0]).abs().max())
+        assert err <= TOL["f32"], ("small_scan_f32", b, err)
+        s64 = (scan_ops._normalize(q).double() @ buf[:count].double().T) * inv[:count].double()
+        own = torch.gather(s64, 1, got[1].long())
+        err64 = float((own - got[0].double()).abs().max())
+        rank64 = float((torch.topk(s64, kb, dim=1).values - own).max())
+        assert err64 <= TOL["f32"] and rank64 <= TOL["f32"], (b, err64, rank64)
+        del s64, own
+        same_ids = float((got[1] == want[1]).double().mean())
+        plain_a = event_ms(lambda: small_scan.small_scan_plain(buf, inv, q, count, kb), 5)
+        ms_a = event_ms(lambda: small_scan.small_scan_topk(buf, inv, q, count, kb), 20)
+        ms_b = event_ms(lambda: small_scan.small_scan_topk(buf, inv, q, count, kb), 20)
+        plain_b = event_ms(lambda: small_scan.small_scan_plain(buf, inv, q, count, kb), 5)
+        lib = event_ms(lambda: small_scan_library(buf, inv, q, count, kb), 5)
+        n_bytes = count * d * 4 + count * 4 + b * d * 4 + b * kb * 8
+        t_bytes = n_bytes / PEAK_BYTES_S * 1e3
+        t_ops = 2 * b * count * d / PEAK_OPS_S["f32"] * 1e3
+        rows.append({
+            "name": "small_scan_f32" + ("" if b == 1 else f" B{b}"),
+            "route": "cuda",
+            "source": "minivectordb_tpu_torch/csrc/small_scan.cu",
+            "replaces": "none (minivectordb_tpu/ops/scan.py:scan_topk is left to XLA)",
+            "launches": launches["small_scan_f32"] if b == 1 else 0,
+            "max_abs_err": err,
+            "tolerance": TOL["f32"],
+            "max_abs_err_vs_float64": err64,
+            "rank_gap_vs_float64": rank64,
+            "same_ids_as_plain": same_ids,
+            "ms": statistics.median([ms_a, ms_b]),
+            "plain_ms": statistics.median([plain_a, plain_b]),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib,
+            "library": "torch.matmul + topk_last_axis",
+            "shape": {"C": c, "d": d, "B": b, "count": count, "kb": kb},
+        })
+    del buf, inv, q8
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_kernels(launches: dict, small_launches: dict, ivf_shapes: dict, ivf_launches: dict,
                   k6_launches: dict, train_launches: dict, train_bf16_launches: dict,
                   slot_launches: dict) -> dict:
     # small ragged case first: d not a multiple of the chunk, B below a block;
@@ -978,6 +1054,7 @@ def phase_kernels(launches: dict, ivf_shapes: dict, ivf_launches: dict,
     assert fused_scan.NARROW_LAUNCHES == narrow, "the 1M-row case reached the narrow kernel"
     del cases, mask
     torch.cuda.empty_cache()
+    kernels += small_scan_kernel_rows(small_launches)
     kernels += ivf_kernel_rows(ivf_shapes, ivf_launches)
     kernels += encoder_kernel_rows(k6_launches)
     kernels += train_kernel_rows(train_launches)
@@ -4112,10 +4189,12 @@ def main() -> None:
     smi = phase_env()
     with tempfile.TemporaryDirectory() as tmp:
         fused_scan.reset_launches()
+        small_scan.reset_launches()
         main_data = phase_main_path(tmp)
         phase_dtypes(tmp)
         launches = dict(fused_scan.LAUNCHES)
         narrow = dict(fused_scan.NARROW_LAUNCHES)
+        small_launches = dict(small_scan.LAUNCHES)
         # bf16 / int8 rows of 384 take the Hopper kernel, never the narrow one
         assert not any(narrow.values()), f"the flat paths reached the narrow kernel: {narrow}"
         torch.cuda.empty_cache()
@@ -4136,13 +4215,14 @@ def main() -> None:
         train_bf16_launches = phase_train_path_bf16(tmp)
         train_mesh_launches = phase_train_mesh_path(tmp)
     emit({"phase": "launches", "flat_path": launches, "flat_path_narrow": narrow,
+          "flat_path_small_scan": small_launches,
           "ivf_path": ivf_launches, "sharded_path": sharded_launches,
           "mesh_path": mesh_launches,
           "text_path": k6_launches, "slots_path": slot_launches,
           "train_path": train_launches,
           "train_path_bf16": train_bf16_launches,
           "train_mesh_path": train_mesh_launches})
-    path_counts = {**launches, **ivf_launches,
+    path_counts = {**launches, **ivf_launches, "small_scan_f32": small_launches["small_scan_f32"],
                    **{n: k6_launches[n] for n in TEXT_ENTRY_POINTS},
                    **{n: train_launches["e5_large"][n] for n in TRAIN_ENTRY_POINTS},
                    **{n: train_bf16_launches[n] for n in TRAIN_BF16_ENTRY_POINTS}}
@@ -4160,7 +4240,7 @@ def main() -> None:
     missing = [(hd, n) for hd in SLOT_HEAD_DIMS for n in TEXT_ENTRY_POINTS + TRAIN_ENTRY_POINTS
                if not slot_launches_at(slot_launches, hd).get(n)]
     assert not missing, f"the slots path never launched: {missing}"
-    kernels = phase_kernels(launches, ivf_shapes, ivf_launches, k6_launches,
+    kernels = phase_kernels(launches, small_launches, ivf_shapes, ivf_launches, k6_launches,
                             train_launches["e5_large"], train_bf16_launches, slot_launches)
     for row in kernels["kernels"]:
         row["mesh_launches"] = mesh_launches.get(MESH_ROW_ENTRY.get(row["name"]), 0)

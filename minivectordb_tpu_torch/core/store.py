@@ -764,33 +764,36 @@ class StoreSnapshot:
         device = self.device
         if scan_ops.is_device_array(queries):
             # the batch is already a tensor (e.g. a serving batch uploaded
-            # once) — pad on its device if small, never bounce it through
-            # the host
+            # once) — pad it on its device for the fused route, never bounce
+            # it through the host
             q = scan_ops.as_device_queries(queries, device)
             b = int(q.shape[0])
         else:
             q_np = np.ascontiguousarray(queries, dtype=np.float32)
             b = q_np.shape[0] if q_np.ndim == 2 else None
             q = None
+        bp = 1
         if b is not None:
-            # Pad batches to a BOUNDED set of shapes at the device boundary,
-            # the shapes the JAX package runs (it bounds its compile cache
-            # this way): small batches round up to a power of two >= 8;
-            # larger ones to the next multiple of 256. Pad rows are zero
-            # vectors whose result slots are sliced off below. Host routes
-            # never come through here, so they never pay the padded rows'
-            # arithmetic.
+            # The route is chosen on the batch padded to a BOUNDED set of
+            # shapes, the shapes the JAX package runs (it bounds its compile
+            # cache this way): small batches round up to a power of two >= 8;
+            # larger ones to the next multiple of 256. Only the fused route
+            # takes the pad (zero vectors whose result slots are sliced off
+            # below); the small route takes the real queries alone, since
+            # pad rows would cost its kernel their selection and merge.
+            # Host routes never come through here.
             if b <= _POW2_PAD_MAX_BATCH:
                 bp = max(8, 1 << (b - 1).bit_length())
             else:
                 bp = -(-b // _POW2_PAD_MAX_BATCH) * _POW2_PAD_MAX_BATCH
-            if bp != b:
-                if q is not None:
-                    q = torch.cat([q, q.new_zeros((bp - b, q.shape[1]))])
-                else:
-                    q_np = np.concatenate(
-                        [q_np, np.zeros((bp - b, q_np.shape[1]), np.float32)]
-                    )
+        fused = self._use_fused(mode, bp)
+        if fused and bp != b:
+            if q is not None:
+                q = torch.cat([q, q.new_zeros((bp - b, q.shape[1]))])
+            else:
+                q_np = np.concatenate(
+                    [q_np, np.zeros((bp - b, q_np.shape[1]), np.float32)]
+                )
         if q is None:
             q = scan_ops.to_device(q_np, device)
             if q.ndim == 1:
@@ -808,7 +811,7 @@ class StoreSnapshot:
                 padded = np.zeros(self.dev_capacity, dtype=bool)
                 padded[: mask.shape[0]] = mask
                 mask_dev = scan_ops.to_device(padded, device)
-        if self._use_fused(mode, q.shape[0]):
+        if fused:
             if self.device_dtype == "int8":
                 vals, idx = fused_scan.fused_scan_topk_int8(
                     self.buf, self.inv_norms, q, self.count, kb, mask_dev

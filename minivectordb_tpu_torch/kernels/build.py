@@ -32,9 +32,9 @@ NVCC_FLAGS = (
 
 # every source of csrc/: the phase-1 scan (K1, K2), the IVF probes (K3-K5),
 # flash attention's forward (K6) and its backward (K7, K8) in float32 and in
-# bfloat16
+# bfloat16, the small-batch float32 scan with its top-k
 SOURCES = ("phase1", "ivf_probe", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_bf16")
+           "flash_attention_bwd_bf16", "small_scan")
 
 _lock = threading.Lock()  # guards _name_locks
 _name_locks: dict[str, threading.Lock] = {}  # one per source: sources build in parallel

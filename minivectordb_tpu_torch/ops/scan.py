@@ -14,6 +14,9 @@ FAISS usage:
 
 Everything here is a plain function on tensors: it runs wherever its
 arguments live (CUDA or CPU), holds no global device and compiles nothing.
+The one exception is ``scan_topk``'s route for up to 8 queries over a CUDA
+float32 buffer, which hands the search to the kernel of csrc/small_scan.cu
+(ops/small_scan.py; IEEE float32 FMAs by construction, no TF32 to switch off).
 The corpus lives in a padded buffer whose capacity takes bucketed values
 (``capacity_bucket``) so that both packages run the same shapes; the live row
 count is an ordinary integer and rows past it are masked.
@@ -311,10 +314,19 @@ def scan_topk(buf, inv_norms, q, count, k, mask=None, mode="exact"):
     mask:      optional (C,) bool — candidate rows (filtered search)
 
     Returns (values (B, k) float32, indices (B, k) int32), descending cosine,
-    lower row first among equal scores. Materializes the (B, C) score matrix:
-    this is the small-batch route (core/store.py sends batches of 16 and more
-    over 4096-row buffers to ops/fused_scan.py instead).
+    lower row first among equal scores. This is the small-batch route
+    (core/store.py sends batches of 16 and more over 4096-row buffers to
+    ops/fused_scan.py instead). Up to 8 queries over a CUDA float32 buffer
+    with k <= ops/small_scan.py's KMAX take the one-pass kernel of
+    csrc/small_scan.cu, which never materializes the (B, C) score matrix;
+    everything else (bfloat16 buffers, wider k, more queries, CPU tensors)
+    the plain route below, which does.
     """
+    # imported here: ops/small_scan.py imports this module
+    from minivectordb_tpu_torch.ops import small_scan
+
+    if small_scan.takes_kernel(buf.device.type, buf.dtype, q.shape[0], k):
+        return small_scan.small_scan_topk(buf, inv_norms, q, count, k, mask)
     c = buf.shape[0]
     qn = _normalize(q.to(torch.float32)).to(buf.dtype)
     scores = dots_f32(qn, buf) * inv_norms[None, :]

@@ -72,19 +72,20 @@ _ATTENTION_PRODUCTS = {"forward": 2, "dkv": 4, "dq": 3}
 
 
 def attention_work(kernel: str, lengths: list[int], heads: int, head_dim: int,
-                   dtype: str = "float32") -> tuple[float, float]:
+                   dtype: str = "float32", pairs: int | None = None) -> tuple[float, float]:
     """(flops, bytes) of one attention kernel launch over a batch of
     sequences of ``lengths`` real tokens. Operations count the real token
-    pairs of each sequence; bytes count every tensor the launch reads and
-    writes once, at the real tokens' rows (pads are padding the
-    implementation chose, not work), the row statistics at one float32 a
-    (real token, head).
+    pairs the launch needs: ``pairs`` where given (a kernel that attends
+    within a window), else every pair of each sequence; bytes count every
+    tensor the launch reads and writes once, at the real tokens' rows (pads
+    are padding the implementation chose, not work), the row statistics at
+    one float32 a (real token, head).
 
     kernel: "forward" (O from Q, K, V), "forward_lse" (O and the row
     log-sum-exp), "dkv" (dK, dV from Q, K, V, dO, lse, delta) or "dq"
     (dQ from the same)."""
     tokens = float(sum(lengths))
-    pairs = float(sum(n * n for n in lengths))
+    pairs = float(sum(n * n for n in lengths) if pairs is None else pairs)
     base = "forward" if kernel.startswith("forward") else kernel
     flops = 2.0 * _ATTENTION_PRODUCTS[base] * heads * head_dim * pairs
     tensor = tokens * heads * head_dim * DTYPE_BYTES[dtype]

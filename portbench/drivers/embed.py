@@ -14,7 +14,9 @@ through the pool.
 The window keeps the embeddings of a sample of the pool drawn from the seed,
 the longest chunk among them. After the window the program is freed, the
 weights are made again from the seed, the sampled texts are tokenized by
-the frozen tokenizer and embedded by the reference encoder.
+the frozen tokenizer and embedded by the reference encoder of the
+configuration's model family, ``check_batch`` texts at a time (16 unless
+the mix says otherwise).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import types
 import numpy as np
 import torch
 
-from portbench import hashtok, reference, traffic
+from portbench import families, hashtok, reference, traffic
 from portbench.drivers import common
 
 
@@ -42,7 +44,8 @@ def load_model(run, config: dict, mix: dict, seed: int, tmp: str, device: str):
     from minivectordb_tpu_torch import EmbeddingModel
     from minivectordb_tpu_torch.models.convert import save_converted
     weights = traffic.make_weights(config["model"], seed, device)
-    tree = traffic.to_pytree({p: v.cpu().numpy() for p, v in weights.items()})
+    tree = families.of(config["model"]).to_pytree(
+        {p: v.cpu().numpy() for p, v in weights.items()})
     del weights
     common.free(device)
     run.mark("weights")
@@ -103,14 +106,37 @@ def run(run, tmp: str, t_start: float) -> None:
                 if i in wanted and i not in kept:
                     kept[i] = np.array(out[i - lo], dtype=np.float32)
     common.close_window(run, dev)
-    mc = cfg["model"]
-    run.facts.update(calls=calls,
-                     hidden=int(mc["hidden_size"]), heads=int(mc["num_attention_heads"]),
-                     intermediate=int(mc["intermediate_size"]),
-                     layers=int(mc["num_hidden_layers"]), dtype=mix.get("compute_dtype") or "float32")
+    run.facts.update(calls=calls, dtype=mix.get("compute_dtype") or "float32")
     del model
     common.free(dev)
     check(run, texts, kept)
+
+
+def reference_embeddings(run, texts: list, order: list, tf32: bool = False):
+    """Yield (indices, the reference's embeddings of their texts) for the
+    texts ``order`` lists, ``check_batch`` at a time (the mix's, default
+    16): tokenized by the frozen tokenizer and embedded by the family's
+    reference from the seed's weights, with TF32 off (the reference) or on
+    (the control). The weights are freed once the last block is taken."""
+    cfg, mix, dev = run.cell.config, run.cell.traffic, run.device
+    mc = cfg["model"]
+    tok = hashtok.HashTokenizer(int(mc["vocab_size"]), cfg["document_prefix"])
+    seq = int(mix["chunk"]["max_tokens"])
+    block = int(mix.get("check_batch", 16))
+    w = traffic.make_weights(mc, run.seed, dev)
+    with reference.precision(tf32=tf32), torch.no_grad():
+        for lo in range(0, len(order), block):
+            part = order[lo:lo + block]
+            ids = np.full((len(part), seq), hashtok.PAD_ID, np.int64)
+            mask = np.zeros((len(part), seq), np.int64)
+            for r, i in enumerate(part):
+                t = tok.encode(texts[i], seq)
+                ids[r, :len(t)] = t
+                mask[r, :len(t)] = 1
+            yield part, reference.embed(w, torch.as_tensor(ids, device=dev),
+                                        torch.as_tensor(mask, device=dev), mc)
+    del w
+    common.free(dev)
 
 
 def check(run, texts: list, kept: dict) -> None:
@@ -118,9 +144,8 @@ def check(run, texts: list, kept: dict) -> None:
     embedding and the reference's embedding of the same text (both unit
     vectors); ``bad_answers``: kept embeddings of the wrong width or not
     finite."""
-    cfg, mix, dev = run.cell.config, run.cell.traffic, run.device
-    mc = cfg["model"]
-    width = int(mc["hidden_size"])
+    mix, dev = run.cell.traffic, run.device
+    width = int(run.cell.config["model"]["hidden_size"])
     bad = 0
     good = {}
     for i, e in kept.items():
@@ -130,28 +155,40 @@ def check(run, texts: list, kept: dict) -> None:
             good[i] = e
     gap = float("inf")
     if good:
-        tok = hashtok.HashTokenizer(int(mc["vocab_size"]), cfg["document_prefix"])
-        seq = int(mix["chunk"]["max_tokens"])
-        w = traffic.make_weights(mc, run.seed, dev)
-        order = sorted(good)
         gap = 0.0
-        with reference.precision(tf32=False):
-            for lo in range(0, len(order), 16):
-                part = order[lo:lo + 16]
-                ids = np.full((len(part), seq), hashtok.PAD_ID, np.int64)
-                mask = np.zeros((len(part), seq), np.int64)
-                for r, i in enumerate(part):
-                    t = tok.encode(texts[i], seq)
-                    ids[r, :len(t)] = t
-                    mask[r, :len(t)] = 1
-                with torch.no_grad():
-                    want = reference.embed(w, torch.as_tensor(ids, device=dev),
-                                           torch.as_tensor(mask, device=dev), mc)
-                got = torch.as_tensor(np.stack([good[i] for i in part]), device=dev)
-                gap = max(gap, float(torch.linalg.vector_norm(
-                    got.double() - want.double(), dim=1).max()))
-        del w
-        common.free(dev)
+        for part, want in reference_embeddings(run, texts, sorted(good)):
+            got = torch.as_tensor(np.stack([good[i] for i in part]), device=dev)
+            gap = max(gap, float(torch.linalg.vector_norm(
+                got.double() - want.double(), dim=1).max()))
     run.notes["answers_checked"] = len(kept)
     run.checks = {"bad_answers": (float(bad), float(mix["limits"]["bad_answers"])),
                   "embed_gap": (gap, float(mix["limits"]["embed_gap"]))}
+
+
+def control_answers(mix: dict) -> int:
+    """Texts a control compares a seed: as many as a run checks."""
+    return int(mix.get("check_texts", 0))
+
+
+def control(run, answers: int) -> dict:
+    """The reference computed in TF32 in the program's place: the
+    embeddings of ``answers`` texts of the pool drawn from the seed (the
+    longest among them), held to the run's check."""
+    cfg, mix = run.cell.config, run.cell.traffic
+    n = int(mix["batch"]) * int(mix["pool_batches"])
+    specials = len(hashtok.HashTokenizer(1 << 20, cfg["document_prefix"]).encode(""))
+    texts, lengths = traffic.text_pool(mix["chunk"], n, specials, run.seed)
+    picked = common.sample(n, answers, traffic.rng(run.seed, "sample"),
+                           must=[int(np.argmax(lengths))])
+    kept = {}
+    for part, out in reference_embeddings(run, texts, picked, tf32=True):
+        for i, e in zip(part, out.float().cpu().numpy()):
+            kept[i] = e
+    check(run, texts, kept)
+    return {}
+
+
+def tiny(config: dict, mix: dict) -> None:
+    """The mix cut, in place, to a size the CPU runs in seconds."""
+    mix.update(batch=4, pool_batches=3, check_texts=6,
+               chunk={"full_share": 0.75, "tail_min": 8, "tail_max": 60, "max_tokens": 64})

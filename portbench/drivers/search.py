@@ -193,3 +193,37 @@ def check(run, kept: list) -> None:
     run.checks = {"bad_answers": (float(bad), float(limits["bad_answers"])),
                   "score_gap": (score_gap, float(limits["score_gap"])),
                   "rank_gap": (rank_gap, float(limits["rank_gap"]))}
+
+
+def control_answers(mix: dict) -> int:
+    """Answers a control compares a seed."""
+    return 2048
+
+
+def control(run, answers: int) -> dict:
+    """The top-k computed in float32 with TF32 in the program's place, for
+    ``answers`` queries of the pool drawn from the seed, held to the run's
+    check."""
+    cfg, mix, dev = run.cell.config, run.cell.traffic, run.device
+    corpus, queries = inputs(cfg, int(mix["query_pool"]), run.seed, dev)
+    rows = traffic.rng(run.seed, "sample").integers(0, queries.shape[0], size=answers)
+    kept = []
+    for lo in range(0, answers, 512):
+        part = torch.as_tensor(rows[lo:lo + 512], device=dev)
+        v, i = reference.cosine_topk(corpus, queries[part], int(mix["k"]),
+                                     dtype=torch.float32, tf32=True)
+        for r, vv, ii in zip(rows[lo:lo + 512], v.tolist(), i.tolist()):
+            kept.append((int(r), (ii, vv, [{"id": x} for x in ii])))
+    del corpus, queries
+    common.free(dev)
+    check(run, kept)
+    return {}
+
+
+def tiny(config: dict, mix: dict) -> None:
+    """The corpus and the mix cut, in place, to a size the CPU runs in
+    seconds."""
+    config.update(rows=6000, dim=32)
+    mix.update(query_pool=512)
+    if mix["loop"] == "async":
+        mix.update(batch=32, in_flight=2)

@@ -25,7 +25,7 @@ import time
 import numpy as np
 import torch
 
-from portbench import hashtok, reference, traffic
+from portbench import families, hashtok, reference, traffic
 from portbench.drivers import common
 from portbench.drivers.embed import port_config
 
@@ -49,6 +49,7 @@ def run(run, tmp: str, t_start: float) -> None:
 
     cfg, mix, dev = run.cell.config, run.cell.traffic, run.device
     mc, warm = cfg["model"], int(mix["warm_steps"])
+    fam = families.of(mc)
     run.mark("imports")
     w = traffic.make_weights(mc, run.seed, dev)
     start = {p: v.cpu().numpy() for p, v in w.items()}
@@ -57,7 +58,7 @@ def run(run, tmp: str, t_start: float) -> None:
     run.mark("weights")
     pcfg = port_config(cfg)
     encoder, opt_state, optimizer = port_train.init_training(
-        pcfg, traffic.to_pytree(start), learning_rate=float(mix["learning_rate"]), device=dev)
+        pcfg, fam.to_pytree(start), learning_rate=float(mix["learning_rate"]), device=dev)
     step = port_train.make_train_step(pcfg, optimizer, temperature=float(mix["temperature"]))
     tok = hashtok.HashTokenizer(int(mc["vocab_size"]))
     batches = traffic.train_pool(mix, tok.encode, run.seed)
@@ -69,12 +70,12 @@ def run(run, tmp: str, t_start: float) -> None:
         encoder, opt_state, m = step(encoder, opt_state, feed[s])
         got["loss"].append(float(m["loss"]))
         if s == 0:
-            mu = traffic.from_pytree(convert.adamw_state_to_numpy(opt_state, encoder)["mu"])
+            mu = fam.from_pytree(convert.adamw_state_to_numpy(opt_state, encoder)["mu"])
             scale = 1.0 - float(mix["betas"][0])
             got["grad_norm"] = {p: norm64(v) / scale for p, v in mu.items()}
             del mu
     run.mark("warm steps")
-    after = traffic.from_pytree(convert.encoder_to_numpy(encoder))
+    after = fam.from_pytree(convert.encoder_to_numpy(encoder))
     got["change_norm"] = {p: norm64(after[p] - start[p]) for p in start}
     del after, start
     run.mark("change read")
@@ -105,10 +106,7 @@ def run(run, tmp: str, t_start: float) -> None:
             common.done(run, ts, time.perf_counter(), pairs, sum(b["q_len"]) + sum(b["p_len"]))
             steps.append((b["q_len"], b["p_len"]))
     common.close_window(run, dev)
-    run.facts.update(steps=steps,
-                     hidden=int(mc["hidden_size"]), heads=int(mc["num_attention_heads"]),
-                     intermediate=int(mc["intermediate_size"]),
-                     layers=int(mc["num_hidden_layers"]), dtype="float32")
+    run.facts.update(steps=steps, dtype="float32")
     del encoder, opt_state, optimizer, step, m
     common.free(dev)
     check(run, batches, got)
@@ -158,3 +156,40 @@ def check(run, batches: list, got: dict) -> None:
                                         "left_out")})
     lim = mix["limits"]
     run.checks = {k: (g[k], float(lim[k])) for k in ("loss_gap", "grad_gap", "change_gap")}
+
+
+def control_answers(mix: dict) -> int:
+    """A training control compares the warm steps, not answers."""
+    return 0
+
+
+def control(run, answers: int) -> dict:
+    """The reference's warm steps computed in TF32 in the program's place,
+    and the fault "half of the batch left out, the mean taken over the
+    rest" planted in the reference, each held to the run's limits."""
+    cfg, mix, dev = run.cell.config, run.cell.traffic, run.device
+    tok = hashtok.HashTokenizer(int(cfg["model"]["vocab_size"]))
+    batches = traffic.train_pool(mix, tok.encode, run.seed)
+    want = reference_run(cfg, mix, batches, run.seed, dev)
+    control = reference_run(cfg, mix, batches, run.seed, dev, tf32=True)
+    half = [{k: (v[:len(v) // 2] if k in FEED else v) for k, v in b.items()}
+            for b in batches]
+    fault = reference_run(cfg, mix, half, run.seed, dev)
+    lim = mix["limits"]
+    out = {}
+    for name, got in (("control", control), ("half_batch", fault)):
+        g = gaps(got, want)
+        out[name] = {k: {"value": g[k], "limit": float(lim[k])}
+                     for k in ("loss_gap", "grad_gap", "change_gap")}
+        out[name]["leaves"] = [g["grad_gap_leaf"], g["change_gap_leaf"]]
+        out[name]["loss_gap_by_step"] = g["loss_gap_by_step"]
+    run.checks = {k: (v["value"], v["limit"]) for k, v in out["control"].items()
+                  if k in ("loss_gap", "grad_gap", "change_gap")}
+    return out
+
+
+def tiny(config: dict, mix: dict) -> None:
+    """The mix cut, in place, to a size the CPU runs in seconds."""
+    mix.update(pairs=4, pool_batches=5, query={"min": 4, "max": 12, "seq": 16},
+               passage={"full_share": 0.75, "tail_min": 8, "tail_max": 60, "max_tokens": 64,
+                        "seq": 64})

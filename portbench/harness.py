@@ -1,18 +1,29 @@
 """One run of one cell: find its files by name, run its driver, read its
 metrics, decide ``correct`` and print the result line.
 
-What belongs to one configuration, traffic mix or metric sits in files of
-its own, found by the names in ``BENCHMARK.json``:
+What belongs to one configuration, model family, traffic mix, driver or
+metric sits in files of its own, found by the names in ``BENCHMARK.json``:
 
-- ``configs[].file``: the configuration (sizes and guarantees);
+- ``configs[].file``: the configuration (sizes and guarantees); an encoder's
+  ``model["model_type"]``, ``-`` changed to ``_``, names its model family
+  ``portbench/families/<model_type>.py``: its leaves and their layout, the
+  plain reference's forward, its FLOPs and attention launches, and its cut
+  for the CPU (``portbench/families/__init__.py`` lists them);
 - ``portbench/mixes/<traffic>.json``: the traffic mix, which names the
-  driver (``portbench/drivers/<driver>.py``, the loop that serves the mix)
-  and the limits of the comparison that decides ``correct``;
+  driver and the limits of the comparison that decides ``correct``;
+- ``portbench/drivers/<driver>.py``: the loop that serves the mix, with
+  ``run(run, tmp, t_start)``, ``check``, its control ``control(run,
+  answers)`` and ``control_answers(mix)`` (``portbench/control.py``) and
+  ``tiny(config, mix)``, its cut for the CPU;
 - ``portbench/metrics/<metric>.py``: a reader ``read(run) -> float | None``
-  for each metric, end to end or per layer.
+  for each metric, end to end or per layer;
+- ``portbench/tests/faults/<driver>.py``: the faults the CPU dry runs plant
+  under the driver's timed path.
 
-A later cell that uses an existing driver adds a mix file and entries in
-``BENCHMARK.json``; a later metric adds a reader file.
+A later cell adds a mix file and entries in ``BENCHMARK.json``; a later
+model configuration adds its configuration file and, where its architecture
+is new, a family file, and where its loop is new, a driver file and a fault
+file; a later metric adds a reader file. None edits a file that is there.
 """
 
 from __future__ import annotations

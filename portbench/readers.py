@@ -5,7 +5,7 @@ kernel), never 0."""
 
 from __future__ import annotations
 
-from portbench import counts
+from portbench import counts, families
 
 
 def calls_in_trace(run, span: str) -> int:
@@ -37,17 +37,27 @@ def roofline(run, pattern: str, least_s: float):
     return counts.roofline_share(least_s, took)
 
 
-def attention_least(run, kernel: str, lengths_of_calls) -> float:
-    """Least seconds of one attention kernel launched once a layer for each
-    call (a list of its sequences' real lengths)."""
-    f = run.facts
-    hd = f["hidden"] // f["heads"]
-    return sum(f["layers"] * counts.least_seconds(*counts.attention_work(
-        kernel, list(lengths), f["heads"], hd, f["dtype"]), f["dtype"])
+def family(run):
+    """The configuration's model and its family module."""
+    model = run.cell.config["model"]
+    return model, families.of(model)
+
+
+def attention_least(run, kernel: str, lengths_of_calls, launches: str = "full") -> float:
+    """Least seconds of one attention kernel (``kernel`` a kind of
+    ``counts.attention_work``) for each call (a list of its sequences' real
+    lengths), launched by the layers the family's ``attention`` lists under
+    ``launches``, over the pairs it gives them."""
+    model, fam = family(run)
+    att = fam.attention(model)[launches]
+    dtype = run.facts["dtype"]
+    return sum(att["layers"] * counts.least_seconds(*counts.attention_work(
+        kernel, list(lengths), att["heads"], att["head_dim"], dtype,
+        pairs=sum(att["pairs"](n) for n in lengths)), dtype)
         for lengths in lengths_of_calls)
 
 
 def forward_flops(run, lengths_of_calls) -> float:
-    f = run.facts
-    return sum(counts.encoder_forward_flops(list(lengths), f["hidden"], f["intermediate"],
-                                            f["layers"]) for lengths in lengths_of_calls)
+    """The family's model operations of each call's forward, summed."""
+    model, fam = family(run)
+    return sum(fam.forward_flops(model, list(lengths)) for lengths in lengths_of_calls)

@@ -1,6 +1,6 @@
-"""The plain reference that decides ``correct``: exact cosine top-k, an
-XLM-RoBERTa encoder forward with autograd backward, in-batch InfoNCE and
-AdamW, in plain PyTorch.
+"""The plain reference that decides ``correct``: exact cosine top-k, the
+encoder forward of a configuration's model family (``portbench/families``)
+with autograd backward, in-batch InfoNCE and AdamW, in plain PyTorch.
 
 It imports nothing of the program. It takes the benchmark's inputs (the
 corpus, the queries, the token ids, the weights), never what the program
@@ -18,6 +18,8 @@ import math
 
 import torch
 from torch.nn import functional as F
+
+from portbench import families
 
 
 @contextlib.contextmanager
@@ -73,43 +75,10 @@ def cosine_of(corpus: torch.Tensor, queries: torch.Tensor,
 # -- encoder -----------------------------------------------------------------
 
 
-def _layer_norm(x, g, b, eps):
+def layer_norm(x, g, b, eps):
     mu = x.mean(dim=-1, keepdim=True)
     var = ((x - mu) ** 2).mean(dim=-1, keepdim=True)
     return (x - mu) / torch.sqrt(var + eps) * g + b
-
-
-def encode(w: dict, ids: torch.Tensor, mask: torch.Tensor, cfg: dict) -> torch.Tensor:
-    """XLM-RoBERTa's post-LN encoder: last hidden states (B, S, H) of token
-    ``ids`` under ``mask`` (1 real, 0 pad). Position ids count real tokens
-    from pad_id + 1 and give pads pad_id; attention scores every query
-    against the real keys only; GELU is the erf form."""
-    heads, eps = int(cfg["num_attention_heads"]), float(cfg["layer_norm_eps"])
-    pad = int(cfg["pad_token_id"])
-    b, s = ids.shape
-    m = mask.to(torch.int64)
-    pos = torch.cumsum(m, dim=1) * m + pad
-    x = w["word_emb"][ids.to(torch.int64)] + w["pos_emb"][pos] + w["type_emb"][0]
-    x = _layer_norm(x, w["emb_ln.g"], w["emb_ln.b"], eps)
-    hd = x.shape[-1] // heads
-    keep = mask.to(torch.bool)[:, None, None, :]
-    for i in range(int(cfg["num_hidden_layers"])):
-        p = f"layers.{i}."
-
-        def dense(t, name):
-            return t @ w[p + name + ".w"] + w[p + name + ".b"]
-
-        def split(t):
-            return t.view(b, s, heads, hd).transpose(1, 2)
-
-        q, k, v = split(dense(x, "q")), split(dense(x, "k")), split(dense(x, "v"))
-        logits = (q @ k.transpose(-1, -2)) / math.sqrt(hd)
-        logits = logits.masked_fill(~keep, -math.inf)
-        ctx = (torch.softmax(logits, dim=-1) @ v).transpose(1, 2).reshape(b, s, -1)
-        x = _layer_norm(x + dense(ctx, "attn_out"), w[p + "attn_ln.g"], w[p + "attn_ln.b"], eps)
-        ff = dense(F.gelu(dense(x, "ffn_in")), "ffn_out")
-        x = _layer_norm(x + ff, w[p + "ffn_ln.g"], w[p + "ffn_ln.b"], eps)
-    return x
 
 
 def mean_pool(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -120,10 +89,9 @@ def mean_pool(hidden: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def embed(w: dict, ids: torch.Tensor, mask: torch.Tensor, cfg: dict) -> torch.Tensor:
-    """Unit embeddings (B, H) of a batch of token ids. Each sequence is cut
-    to the longest real length in the batch first: pads change nothing."""
-    s = int(mask.sum(dim=1).max())
-    return mean_pool(encode(w, ids[:, :s], mask[:, :s], cfg), mask[:, :s])
+    """Unit embeddings (B, H) of a batch of token ids, by the model family
+    of ``cfg``."""
+    return families.of(cfg).embed(w, ids, mask, cfg)
 
 
 # -- training ----------------------------------------------------------------

@@ -21,12 +21,10 @@ CELLS = ["cohere-1m-768.serial-k100", "me5-large.ingest-f32", "me5-large.train-f
 def test_the_control_is_not_correct(card, root, name):
     cell = harness.load_cell(root, name)
     run = harness.Run(cell, 2 ** 31 + 99, 0.0, False, card)
-    kind = cell.traffic["driver"]
-    fn = {"search": control.search_control, "embed": control.embed_control,
-          "train": control.train_control}[kind]
-    extra = fn(run, {"search": 2048, "embed": 128, "train": 0}[kind])
+    fn, answers = control.control_of(cell)
+    extra = fn(run, answers)
     assert not harness.is_correct(run), run.checks
-    if kind == "train":
+    if "half_batch" in extra:
         half = extra["half_batch"]
         assert any(half[k]["value"] > half[k]["limit"]
                    for k in ("loss_gap", "grad_gap", "change_gap")), half
@@ -37,4 +35,7 @@ def test_the_controls_are_defined_for_every_driver(root):
     with open(os.path.join(root, "BENCHMARK.json")) as f:
         bench = json.load(f)
     for w in bench["workloads"]:
-        assert harness.load_cell(root, w["name"]).traffic["driver"] in {"search", "embed", "train"}
+        cell = harness.load_cell(root, w["name"])
+        fn, answers = control.control_of(cell)
+        assert fn is harness.driver(cell.traffic["driver"]).control
+        assert isinstance(answers, int) and answers >= 0

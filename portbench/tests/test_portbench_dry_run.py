@@ -1,17 +1,53 @@
 """Each cell, cut to a size the CPU runs, driven end to end through the
 port and held against the reference: correct on the sound program, and not
 correct with the timed path broken underneath, once for each fault the
-cell can have. The look for a card is skipped: these run on the CPU."""
+cell can have. The look for a card is skipped: these run on the CPU.
+
+The cells are BENCHMARK.json's and the batch cell kept out of it; the
+faults are their drivers', in ``portbench/tests/faults/<driver>.py``. A
+cell or driver added as new files is dry-run here with no edit."""
+
+import importlib
+import json
+import os
 
 import numpy as np
 import pytest
 import torch
 
 from portbench import harness
-from portbench.tests.tiny import dry_run
+from portbench.tests.conftest import ROOT
+from portbench.tests.tiny import BATCH, dry_run, with_batch_cell
 
-CELLS = ["cohere-1m-768.b256-k100", "cohere-1m-768.serial-k100",
-         "me5-large.ingest-f32", "me5-large.train-f32"]
+
+def cells(root: str = ROOT) -> list[str]:
+    """Every cell of BENCHMARK.json, and the batch cell kept out of it."""
+    with open(os.path.join(root, "BENCHMARK.json")) as f:
+        return [BATCH] + [w["name"] for w in json.load(f)["workloads"]]
+
+
+def faults(name: str, root: str = ROOT) -> dict:
+    """The faults of the cell's driver: ``FAULTS`` of
+    ``portbench/tests/faults/<driver>.py`` ({id: plant(monkeypatch)})."""
+    bench = with_batch_cell(root) if name == BATCH else None
+    drv = harness.load_cell(root, name, bench).traffic["driver"]
+    return importlib.import_module(f"portbench.tests.faults.{drv}").FAULTS
+
+
+def fault_cases():
+    """(cell, fault, id) of every cell and each fault of its driver; the id
+    is the mix's first word and the fault's name, or the cell's whole name
+    where an earlier cell took that id."""
+    out, seen = [], set()
+    for name in cells():
+        for fid, plant in faults(name).items():
+            short = f"{name.split('.', 1)[1].split('-')[0]}-{fid}"
+            out.append(pytest.param(name, plant, id=short if short not in seen else f"{name}-{fid}"))
+            seen.add(short)
+    return out
+
+
+CELLS = cells()
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -30,18 +66,20 @@ def test_the_same_seed_gives_the_same_inputs(root, name):
     from portbench.tests.tiny import tiny_cell
     from portbench import traffic
     cell = tiny_cell(root, name)
-    if cell.traffic["driver"] == "search":
+    if "mixture" in cell.config:  # a corpus of vectors
         from portbench.drivers.search import inputs
         a = inputs(cell.config, 64, 2 ** 35 + 3, "cpu")
         b = inputs(cell.config, 64, 2 ** 35 + 3, "cpu")
         c = inputs(cell.config, 64, 2 ** 35 + 4, "cpu")
         assert all(torch.equal(x, y) for x, y in zip(a, b))
         assert not torch.equal(a[0], c[0])
-    else:
+    if "model" in cell.config:  # an encoder's weights
         a = traffic.make_weights(cell.config["model"], 7, "cpu")
         b = traffic.make_weights(cell.config["model"], 7, "cpu")
         assert all(torch.equal(a[k], b[k]) for k in a)
-        spec = cell.traffic.get("chunk") or cell.traffic["passage"]
+    for spec in (cell.traffic.get("chunk"), cell.traffic.get("passage")):
+        if spec is None:
+            continue
         t1, l1 = traffic.text_pool(spec, 40, 3, 5)
         t2, l2 = traffic.text_pool(spec, 40, 3, 5)
         t3, l3 = traffic.text_pool(spec, 40, 3, 6)
@@ -50,59 +88,7 @@ def test_the_same_seed_gives_the_same_inputs(root, name):
         assert sorted(l1) == sorted(l3) and l1 != l3
 
 
-def _alter_hits(monkeypatch):
-    """An answer altered where it is produced: the engine's formatting puts
-    another row (with that row's metadata) in place of each query's last
-    hit."""
-    from minivectordb_tpu_torch.core.engine import SearchEngine
-    batch, single = SearchEngine._format_hits_batch, SearchEngine._format_hits
-
-    def alter(hits):
-        ids, scores, metas = (list(x) for x in hits)
-        ids[-1] = (int(ids[-1]) + 1) % 6000
-        metas[-1] = {"id": ids[-1]}
-        return ids, scores, metas
-
-    monkeypatch.setattr(SearchEngine, "_format_hits_batch",
-                        staticmethod(lambda *a: [alter(h) for h in batch(*a)]))
-    monkeypatch.setattr(SearchEngine, "_format_hits",
-                        staticmethod(lambda *a: alter(single(*a))))
-
-
-def _alter_embeddings(monkeypatch):
-    """An answer altered where it is produced: the embed program hands each
-    text the next text's embedding."""
-    import minivectordb_tpu_torch.embedding_model as em
-    real = em.embed_program
-    monkeypatch.setattr(em, "embed_program", lambda *a, **k: torch.roll(real(*a, **k), 1, 0))
-
-
-def _state_unchanged(monkeypatch):
-    """A step that returns its state unchanged: the optimizer's update is
-    skipped."""
-    monkeypatch.setattr(torch.optim.AdamW, "step", lambda self, closure=None: None)
-
-
-def _half_batch(monkeypatch):
-    """Half of the batch left out, the mean taken over the rest."""
-    from minivectordb_tpu_torch.models import train
-    real = train.info_nce_loss
-
-    def half(params, cfg, batch, temperature=0.05):
-        n = batch["q_ids"].shape[0] // 2
-        return real(params, cfg, {k: v[:n] for k, v in batch.items()}, temperature)
-
-    monkeypatch.setattr(train, "info_nce_loss", half)
-
-
-@pytest.mark.parametrize("name,fault", [
-    ("cohere-1m-768.b256-k100", _alter_hits),
-    ("cohere-1m-768.serial-k100", _alter_hits),
-    ("me5-large.ingest-f32", _alter_embeddings),
-    ("me5-large.train-f32", _state_unchanged),
-    ("me5-large.train-f32", _half_batch),
-], ids=["b256-altered-answer", "serial-altered-answer", "ingest-altered-answer",
-        "train-state-unchanged", "train-half-batch"])
+@pytest.mark.parametrize("name,fault", fault_cases())
 def test_a_broken_timed_path_is_not_correct(root, monkeypatch, name, fault):
     fault(monkeypatch)
     run = dry_run(root, name)

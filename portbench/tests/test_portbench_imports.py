@@ -47,17 +47,32 @@ def test_no_module_imports_jax_or_the_jax_package(path):
     assert not imported(path) & FORBIDDEN
 
 
+def families():
+    """Every module under portbench/families/, as a dotted name under
+    portbench."""
+    base = os.path.join(PORTBENCH, "families")
+    return sorted("families" + ("" if n == "__init__.py" else "." + n[:-3])
+                  for n in os.listdir(base) if n.endswith(".py"))
+
+
+def module_path(name: str) -> str:
+    """The file of ``portbench.<name>``, a module or a package."""
+    path = os.path.join(PORTBENCH, *name.split("."))
+    return path + ".py" if os.path.exists(path + ".py") else os.path.join(path, "__init__.py")
+
+
 def test_the_reference_imports_nothing_of_the_program():
     """The reference, the frozen tokenizer, the generator of the inputs and
-    weights both sides get, and the yardstick; and every portbench module
-    they import, transitively."""
-    seen, todo = set(), ["reference", "hashtok", "traffic", "counts"]
+    weights both sides get, the yardstick and every model family; and every
+    portbench module they import, transitively."""
+    seen, todo = set(), ["reference", "hashtok", "traffic", "counts"] + families()
+    assert "families.xlm_roberta" in todo
     while todo:
         name = todo.pop()
         if name in seen:
             continue
         seen.add(name)
-        path = os.path.join(PORTBENCH, *name.split(".")) + ".py"
+        path = module_path(name)
         with open(path, encoding="utf-8") as f:
             tree = ast.parse(f.read())
         for node in ast.walk(tree):
@@ -68,6 +83,5 @@ def test_the_reference_imports_nothing_of_the_program():
                 mods = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
             for m in mods:
                 assert m.split(".")[0] not in {"minivectordb_tpu_torch"} | FORBIDDEN, (name, m)
-                if m.startswith("portbench.") and os.path.exists(
-                        os.path.join(PORTBENCH, *m.split(".")[1:]) + ".py"):
+                if m.startswith("portbench.") and os.path.exists(module_path(m.split(".", 1)[1])):
                     todo.append(m.split(".", 1)[1])

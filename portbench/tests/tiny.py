@@ -1,6 +1,7 @@
 """Cells of BENCHMARK.json cut to a size the CPU runs in seconds, for the
 dry runs: the same drivers, generators and reference, the published
-widths replaced by small ones."""
+widths replaced by small ones (each model family's ``tiny`` and each
+driver's)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,7 @@ import copy
 import json
 import os
 
-from portbench import harness
+from portbench import families, harness
 
 BATCH = "cohere-1m-768.b256-k100"
 
@@ -34,22 +35,13 @@ def with_batch_cell(root: str) -> dict:
 
 
 def tiny_cell(root: str, name: str) -> harness.Cell:
+    """The cell with its model's widths cut by its family's ``tiny`` and its
+    corpus and mix by its driver's, both found by name."""
     cell = harness.load_cell(root, name, with_batch_cell(root) if name == BATCH else None)
     cfg, mix = copy.deepcopy(cell.config), copy.deepcopy(cell.traffic)
-    if mix["driver"] == "search":
-        cfg.update(rows=6000, dim=32)
-        mix.update(query_pool=512)
-        if mix["loop"] == "async":
-            mix.update(batch=32, in_flight=2)
-    else:
-        cfg["model"].update(vocab_size=1000, hidden_size=64, num_hidden_layers=2,
-                            num_attention_heads=4, intermediate_size=128)
-        chunk = {"full_share": 0.75, "tail_min": 8, "tail_max": 60, "max_tokens": 64}
-        if mix["driver"] == "embed":
-            mix.update(batch=4, pool_batches=3, check_texts=6, chunk=chunk)
-        else:
-            mix.update(pairs=4, pool_batches=5, query={"min": 4, "max": 12, "seq": 16},
-                       passage=dict(chunk, seq=64))
+    if "model" in cfg:
+        families.of(cfg["model"]).tiny(cfg["model"])
+    harness.driver(mix["driver"]).tiny(cfg, mix)
     cell.config, cell.traffic = cfg, mix
     return cell
 

@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from portbench import families
+
 # what each stream of a run is drawn for; a stream's seed is (run seed, tag)
 _TAGS = {"corpus": 1, "order": 2, "texts": 3, "weights": 4, "sample": 5}
 
@@ -162,35 +164,13 @@ def train_pool(traffic: dict, tokenize, seed: int) -> list[dict]:
 # -- encoder weights ---------------------------------------------------------
 
 
-def weight_shapes(cfg: dict) -> list[tuple[str, tuple, str]]:
-    """(path, shape, kind) of every leaf of an XLM-R encoder in the
-    converted-checkpoint layout (dense weights (in, out) for x @ w + b).
-    kind: "emb", "dense", "bias", "gain" or "shift"."""
-    h, inter = int(cfg["hidden_size"]), int(cfg["intermediate_size"])
-    out = [("word_emb", (int(cfg["vocab_size"]), h), "emb"),
-           ("pos_emb", (int(cfg["max_position_embeddings"]), h), "emb"),
-           ("type_emb", (int(cfg["type_vocab_size"]), h), "emb"),
-           ("emb_ln.g", (h,), "gain"), ("emb_ln.b", (h,), "shift")]
-    dense = {"q": (h, h), "k": (h, h), "v": (h, h), "attn_out": (h, h),
-             "ffn_in": (h, inter), "ffn_out": (inter, h)}
-    for i in range(int(cfg["num_hidden_layers"])):
-        for name, shape in dense.items():
-            out.append((f"layers.{i}.{name}.w", shape, "dense"))
-            out.append((f"layers.{i}.{name}.b", (shape[1],), "bias"))
-            if name == "attn_out":
-                out += [(f"layers.{i}.attn_ln.g", (h,), "gain"),
-                        (f"layers.{i}.attn_ln.b", (h,), "shift")]
-        out += [(f"layers.{i}.ffn_ln.g", (h,), "gain"),
-                (f"layers.{i}.ffn_ln.b", (h,), "shift")]
-    return out
-
-
 def make_weights(cfg: dict, seed: int, device) -> dict:
-    """Every leaf of the encoder from the seed, as views of one buffer drawn
-    in a single call on ``device``: embeddings normal x 0.02, dense weights
-    normal / sqrt(fan-in), biases and layer-norm shifts normal x 0.02,
-    layer-norm gains 1 + normal x 0.05. Returns {path: float32 tensor}."""
-    shapes = weight_shapes(cfg)
+    """Every leaf of the encoder (its family's ``weight_shapes``, in their
+    order) from the seed, as views of one buffer drawn in a single call on
+    ``device``: embeddings normal x 0.02, dense weights normal /
+    sqrt(fan-in), biases and layer-norm shifts normal x 0.02, layer-norm
+    gains 1 + normal x 0.05. Returns {path: float32 tensor}."""
+    shapes = families.of(cfg).weight_shapes(cfg)
     total = sum(math.prod(s) for _p, s, _k in shapes)
     buf = torch.randn(total, device=device, generator=device_generator(seed, "weights", device))
     out, at = {}, 0
@@ -207,39 +187,3 @@ def make_weights(cfg: dict, seed: int, device) -> dict:
                 leaf.mul_(0.02)
             out[path] = leaf
     return out
-
-
-def to_pytree(flat: dict) -> dict:
-    """{path: array} -> the converted-checkpoint pytree: word_emb, pos_emb,
-    type_emb, emb_ln {g, b}, layers [{q, k, v, attn_out, ffn_in, ffn_out:
-    {w, b}; attn_ln, ffn_ln: {g, b}}]."""
-    tree: dict = {"layers": []}
-    for path, leaf in flat.items():
-        parts = path.split(".")
-        if parts[0] == "layers":
-            i = int(parts[1])
-            while len(tree["layers"]) <= i:
-                tree["layers"].append({})
-            tree["layers"][i].setdefault(parts[2], {})[parts[3]] = leaf
-        elif len(parts) == 2:
-            tree.setdefault(parts[0], {})[parts[1]] = leaf
-        else:
-            tree[path] = leaf
-    return tree
-
-
-def from_pytree(tree: dict) -> dict:
-    """The inverse of ``to_pytree``."""
-    flat = {}
-    for key, val in tree.items():
-        if key == "layers":
-            for i, layer in enumerate(val):
-                for name, leaves in layer.items():
-                    for leaf, arr in leaves.items():
-                        flat[f"layers.{i}.{name}.{leaf}"] = arr
-        elif isinstance(val, dict):
-            for leaf, arr in val.items():
-                flat[f"{key}.{leaf}"] = arr
-        else:
-            flat[key] = val
-    return flat
